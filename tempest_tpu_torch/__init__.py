@@ -1,0 +1,55 @@
+"""tempest_tpu_torch — the PyTorch/CUDA port of ``tempest_tpu``.
+
+The streaming reconstruction chain (AM demod → carry-phase frame cuts →
+signal→screen resample → sub-pixel blanking sync → fractional alignment →
+EMA) in PyTorch, with the resampler as a hand-written CUDA kernel for Hopper
+(``csrc/resample.cu``).  The sub-package layout mirrors ``tempest_tpu``; this
+package imports ``torch`` and never ``jax``.
+
+For authorized security research into electromagnetic side-channel leakage.
+"""
+
+from .video.modes import (
+    VideoMode,
+    ALL_VIDEO_MODES,
+    find_closest_mode,
+    find_closest_configuration,
+    find_configuration,
+    get_refresh_rates,
+    candidate_modes,
+)
+from .io.dat import (
+    read_complex_binary,
+    write_complex_binary,
+    iter_complex_blocks,
+    num_samples,
+)
+from .io.synthetic import (
+    SyntheticCapture,
+    generate_iq,
+    render_frame,
+    test_pattern,
+)
+from .ops.demod import am_demod, am_envelope_from_iq, invert_envelope
+from .ops.resample import linear_resample, sig_to_image, downgrade_image, RENDER_SIZE
+from .ops.resample_kernel import frames_to_screens, frame_to_screen
+from .ops.framesync import (
+    frame_sync,
+    frame_sync_subpixel,
+    align_frame,
+    align_frame_subpixel,
+    blank_scores,
+    contrast_scores,
+    SyncSpec,
+)
+from .pipeline.offline import (
+    ReconstructionConfig,
+    Reconstruction,
+    make_reconstruct_fn,
+    reconstruct_frames,
+)
+from .render.screen import aligned_psnr, psnr
+from .runtime.sources import ReplaySource, SyntheticSource
+from .runtime.stream import StreamingRuntime, state_from_jax
+
+__version__ = "0.1.0"
