@@ -7,18 +7,28 @@ sampled at 20 Msps, 36 frames (12,333,335 samples) per block, 600x800
 screens.  Phases, each of which fails the run if it fails:
 
 1. build K1 (``tempest_tpu_torch/csrc/resample.cu``) with nvcc for sm_90a;
-2. hold K1 against its plain PyTorch version on the card, at the slice's
-   shapes, and time both;
+2. hold both entries of K1 against their plain PyTorch versions on the
+   card, at the slice's shapes: the envelope entry (``frames_to_screens``)
+   and the fused entry (``frames_to_screens_from_words``, AM demod taken
+   inside the kernel) on int16 and on float32 words, also on a block cut
+   short so that the last frame reads past its end, and from a source that
+   is not 16-byte aligned; time each, single call and back to back, beside
+   its bound; hold them at screen widths that take the kernel's other work
+   splits (one column a work item, more work items a row than threads) and
+   through ``frame_to_screen``; time each entry at 4, 8 and 16 rows a tile;
 3. run three blocks of a synthetic capture through
-   ``StreamingRuntime.process_blocks`` on the card, check that K1 carried
-   them, that the outputs stayed on the card, that the final EMA matches the
-   port's CPU run of the same blocks, and that its PSNR against the
-   capture's ground truth clears the bar; time the step.
+   ``StreamingRuntime.process_blocks`` on the card, check that the fused
+   entry carried them with no separate demod pass, that the outputs stayed
+   on the card, that the final EMA matches the port's CPU run of the same
+   blocks, and that its PSNR against the capture's ground truth clears the
+   bar; time the step;
+4. run two blocks through the runtime with ``invert=True``, the route that
+   demodulates first and hands K1 the envelope, on the card and on the CPU.
 
 Run ``python3 chip_smoke.py`` from the root of a checkout on a machine with
-a CUDA card; it ends with a torch.profiler table of three steps.  The last
-line of standard output is ``{"ok": true, "device": {...}}``; any
-failure exits non-zero without it.
+a CUDA card; it ends with torch.profiler tables of three steps, with the
+demod fused and as a separate pass.  The last line of standard output is
+``{"ok": true, "device": {...}}``; any failure exits non-zero without it.
 """
 
 from __future__ import annotations
@@ -52,6 +62,18 @@ K1_REL_TOL = 1e-6     # K1 and its plain version do the same f32 operations
 EMA_REL_TOL = 1e-3    # of the EMA's range
 SYNC_ABS_TOL = 1e-2   # px
 TIMED_CALLS = 30
+BACK_TO_BACK = 50     # launches between two events
+ENVELOPE_BLOCKS = 2   # depth of the envelope-entry run of phase 4
+# Screens whose width is no multiple of 4 (one column a work item; fewer and
+# more work items a row than the block has threads), one of more than
+# 4 x 256 columns, and one of so few rows that the wrapper takes fewer rows a
+# tile: the work splits the slice's 600x800 does not take.
+OTHER_SHAPES = ((600, 99), (601, 402), (300, 2048), (48, 99))
+TILE_ROWS = (4, 8, 16)
+
+# Published peaks of one H100 SXM at its full 700 W power limit.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
 
 
 class BlockSource:
@@ -121,18 +143,63 @@ def time_call(torch, fn, calls: int = TIMED_CALLS) -> float:
     return float(np.median(times))
 
 
+def time_back_to_back(torch, fn, launches: int = BACK_TO_BACK) -> float:
+    """Milliseconds per call of ``launches`` calls between two CUDA events
+    with no fence between them; the median of three such runs."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return float(np.median(times))
+
+
+def k1_bound(n_samples: int, sample_bytes: int, n_frames: int, h: int, w: int,
+             demod: bool) -> tuple[float, str, int]:
+    """The least milliseconds the card could take for one K1 call: the larger
+    of its bytes (the block read once, the frame starts and line tables read
+    once, the screens written once) over the memory rate and its float32
+    operations over the peak rate.  Returns (ms, "bytes" or "operations",
+    bytes).  Per pixel: one product for ``c*delta``; per vertical tap add,
+    max, floor, two subtractions, two products, add; three for the blend.
+    The demod adds two products, an add and a square root per sample."""
+    pixels = n_frames * h * w
+    nbytes = n_samples * sample_bytes + 4 * n_frames + h * (8 + 8 + 4) + 4 * pixels
+    flops = pixels * (1 + 2 * 8 + 3) + (4 * n_samples if demod else 0)
+    by_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    by_ops = 1e3 * flops / PEAK_F32_FLOPS
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations"), nbytes
+
+
+def device_ms(prof) -> float:
+    """Total time of the kernels of a torch.profiler run, in milliseconds
+    (the table's "Self CUDA time total")."""
+    from torch.autograd import DeviceType
+
+    return sum(evt.self_device_time_total for evt in prof.key_averages()
+               if evt.device_type == DeviceType.CUDA) / 1e3
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
 
 
-def run_runtime(tp, blocks, mode, device):
+def run_runtime(tp, blocks, mode, device, invert: bool = False):
     """Drive ``StreamingRuntime.process_blocks`` over the blocks on
     ``device``; returns (final EMA, per-block syncs, output device types,
     seconds)."""
+    n_blocks = len(blocks)
     rt = tp.StreamingRuntime(BlockSource(blocks, SAMPLE_RATE), mode,
                              n_frames_per_block=N_FRAMES, alpha=ALPHA,
-                             ring_depth=4, device=device)
+                             ring_depth=4, invert=invert, device=device)
     step = rt._step
     out_devices = []
 
@@ -146,14 +213,14 @@ def run_runtime(tp, blocks, mode, device):
     rt.start()
     try:
         t0 = time.perf_counter()
-        ema = rt.process_blocks(N_BLOCKS, sink=lambda img, info: syncs.append(info["sync"]))
+        ema = rt.process_blocks(n_blocks, sink=lambda img, info: syncs.append(info["sync"]))
         seconds = time.perf_counter() - t0
     finally:
         rt.stop()
-    check(rt.ring.overflows == 0 and rt.ring.last_seq == N_BLOCKS - 1,
-          f"runtime on {device} took blocks 0..{N_BLOCKS - 1} in order "
+    check(rt.ring.overflows == 0 and rt.ring.last_seq == n_blocks - 1,
+          f"runtime on {device} took blocks 0..{n_blocks - 1} in order "
           f"(overflows {rt.ring.overflows}, last seq {rt.ring.last_seq})")
-    check(len(syncs) == N_BLOCKS, f"{N_BLOCKS} blocks processed on {device}")
+    check(len(syncs) == n_blocks, f"{n_blocks} blocks processed on {device}")
     return ema, np.concatenate(syncs), out_devices, seconds
 
 
@@ -170,9 +237,11 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import tempest_tpu_torch as tp
     from tempest_tpu_torch import _build
+    from tempest_tpu_torch.ops import resample_kernel
     from tempest_tpu_torch.ops.resample_kernel import (
-        frames_to_screens, frames_to_screens_plain, screen_geometry)
-    from tempest_tpu_torch.pipeline.offline import carry_phase_starts
+        frame_to_screen, frames_to_screens, frames_to_screens_from_words,
+        frames_to_screens_plain, screen_geometry)
+    from tempest_tpu_torch.pipeline import offline as poff
 
     check("jax" not in sys.modules, "the port imports no jax")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -201,40 +270,144 @@ def main() -> int:
     blocks = words[: 2 * N_BLOCKS * block].astype(np.float32).view(np.complex64)
     blocks = blocks.reshape(N_BLOCKS, block)
 
-    # ---- 2. K1 against its plain version, at the slice's shapes
-    words0 = torch.from_numpy(words[: 2 * block]).to(dev)
-    env = tp.am_envelope_from_iq(words0)
-    starts = torch.from_numpy(carry_phase_starts(0.0, spf, N_FRAMES)).to(dev)
+    # ---- 2. both K1 entries against their plain versions, at the slice's shapes
+    words_i16 = torch.from_numpy(words[: 2 * block]).to(dev)
+    words_f32 = words_i16.to(torch.float32)
+    env = tp.am_envelope_from_iq(words_i16)
+    starts = torch.from_numpy(poff.carry_phase_starts(0.0, spf, N_FRAMES)).to(dev)
     geom = screen_geometry(frame_len, mode.height, mode.width, (h, w), dev)
-    k1 = frames_to_screens(env, starts, frame_len, mode.height, mode.width, (h, w))
-    plain = frames_to_screens_plain(env, starts, geom)
-    torch.cuda.synchronize()
-    check(k1.shape == (N_FRAMES, h, w) and bool(torch.isfinite(k1).all()),
-          "K1 output finite, of the slice's shape")
-    k1_err = float((k1 - plain).abs().max())
-    k1_rel = k1_err / float(plain.abs().max())
-    print(f"[K1] max abs diff vs plain {k1_err:.3e}, relative {k1_rel:.3e} "
-          f"(tolerance {K1_REL_TOL:g})")
-    check(k1_rel < K1_REL_TOL, "K1 agrees with its plain version")
-    k1_ms = time_call(torch, lambda: frames_to_screens(
-        env, starts, frame_len, mode.height, mode.width, (h, w)))
-    plain_ms = time_call(torch, lambda: frames_to_screens_plain(env, starts, geom))
-    out_mb = N_FRAMES * h * w * 4 / 1e6
-    print(f"[K1] {k1_ms:.4f} ms per {N_FRAMES}-frame block ({out_mb / k1_ms:.1f} GB/s "
-          f"of output), plain {plain_ms:.4f} ms, on {card}")
+    raster = (frame_len, mode.height, mode.width, (h, w))
+
+    def plain_from_words(wd, st):
+        return frames_to_screens_plain(tp.am_envelope_from_iq(wd), st, geom)
+
+    def demod_then_k1(wd, st):
+        return frames_to_screens(tp.am_envelope_from_iq(wd), st, *raster)
+
+    entries = {  # name -> (kernel call, its plain version, input, bytes per sample, demod)
+        "envelope": (frames_to_screens,
+                     lambda e, st: frames_to_screens_plain(e, st, geom), env, 4, False),
+        "int16 words": (frames_to_screens_from_words, plain_from_words, words_i16, 4, True),
+        "float32 words": (frames_to_screens_from_words, plain_from_words, words_f32, 8, True),
+    }
+    # A block cut short inside the last frame, so that the last tiles read
+    # past its end, and the same block from a source off 16-byte alignment.
+    short = int(starts[-1]) + frame_len - 4000
+    measured = {}
+    for name, (kernel, plain_fn, data, sample_bytes, demod) in entries.items():
+        per_sample = data.numel() // block
+        got = kernel(data, starts, *raster)
+        ref = plain_fn(data, starts)
+        torch.cuda.synchronize()
+        check(got.shape == (N_FRAMES, h, w) and bool(torch.isfinite(got).all()),
+              f"K1 on {name}: output finite, of the slice's shape")
+        err = float((got - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        print(f"[K1 {name}] max abs diff vs plain {err:.3e}, relative {rel:.3e} "
+              f"(tolerance {K1_REL_TOL:g})")
+        check(rel < K1_REL_TOL, f"K1 on {name} agrees with its plain version")
+        del got, ref
+        for what, cut in (("block end inside the last frame", data[: short * per_sample]),
+                          ("unaligned source", data[2: short * per_sample])):
+            got = kernel(cut, starts[-2:], *raster)
+            ref = plain_fn(cut, starts[-2:])
+            torch.cuda.synchronize()
+            edge_rel = float((got - ref).abs().max()) / float(ref.abs().max())
+            print(f"[K1 {name}] {what}: relative diff {edge_rel:.3e}")
+            check(edge_rel < K1_REL_TOL, f"K1 on {name}, {what}, agrees with its plain version")
+            del got, ref
+        bound_ms, bound_by, nbytes = k1_bound(block, sample_bytes, N_FRAMES, h, w, demod)
+        ms = time_call(torch, lambda: kernel(data, starts, *raster))
+        b2b_ms = time_back_to_back(torch, lambda: kernel(data, starts, *raster))
+        plain_ms = time_call(torch, lambda: plain_fn(data, starts), calls=10)
+        measured[name] = dict(err=err, ms=ms, b2b_ms=b2b_ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by)
+        print(f"[K1 {name}] {ms:.4f} ms single call, {b2b_ms:.4f} ms back to back per "
+              f"{N_FRAMES}-frame block; bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, by "
+              f"{bound_by}), share reached {bound_ms / ms:.3f} single, "
+              f"{bound_ms / b2b_ms:.3f} back to back; plain {plain_ms:.4f} ms, on {card}")
+    for shape in OTHER_SHAPES:
+        other = (frame_len, mode.height, mode.width, shape)
+        other_geom = screen_geometry(*other, dev)
+        for name, (kernel, _, data, _, _) in entries.items():
+            cut = data[: short * (data.numel() // block)]
+            got = kernel(cut, starts[-2:], *other)
+            e = cut if name == "envelope" else tp.am_envelope_from_iq(cut)
+            ref = frames_to_screens_plain(e, starts[-2:], other_geom)
+            torch.cuda.synchronize()
+            rel = float((got - ref).abs().max()) / float(ref.abs().max())
+            print(f"[K1 {name}] {shape[0]}x{shape[1]} screens: relative diff {rel:.3e}")
+            check(got.shape == (2, *shape) and rel < K1_REL_TOL,
+                  f"K1 on {name} at {shape} agrees with its plain version")
+    one = env[int(starts[1]): int(starts[1]) + frame_len]
+    for shape in ((h, w), OTHER_SHAPES[0], OTHER_SHAPES[-1]):
+        got = frame_to_screen(one, mode.height, mode.width, shape)
+        ref = frames_to_screens_plain(
+            one, torch.zeros(1, dtype=torch.int32, device=dev),
+            screen_geometry(frame_len, mode.height, mode.width, shape, dev))[0]
+        torch.cuda.synchronize()
+        rel = float((got - ref).abs().max()) / float(ref.abs().max())
+        print(f"[K1 frame_to_screen] one frame onto {shape[0]}x{shape[1]}: relative diff {rel:.3e}")
+        check(got.shape == shape and rel < K1_REL_TOL,
+              f"frame_to_screen at {shape} agrees with the plain version")
+
+    # Rows a tile: each entry timed at every size, forwards then backwards, so
+    # that a drift of the card's clocks shows between the two passes.
+    default_rows = dict(resample_kernel.ROWS_PER_TILE)
+    sweep = [(name, rows) for name in entries for rows in TILE_ROWS]
+    swept = {v: [] for v in sweep}
+    try:
+        for name, rows in sweep + sweep[::-1]:
+            kernel, plain_fn, data, sample_bytes, _ = entries[name]
+            resample_kernel.ROWS_PER_TILE[sample_bytes] = rows
+            if not swept[name, rows]:
+                ref = plain_fn(data, starts)
+                rel = float((kernel(data, starts, *raster) - ref).abs().max() / ref.abs().max())
+                check(rel < K1_REL_TOL,
+                      f"K1 on {name} at {rows} rows a tile agrees with its plain version")
+                del ref
+            swept[name, rows].append(
+                time_back_to_back(torch, lambda: kernel(data, starts, *raster)))
+    finally:
+        resample_kernel.ROWS_PER_TILE.update(default_rows)
+    for (name, rows), (first, second) in swept.items():
+        used = " (the wrapper's)" if default_rows[entries[name][3]] == rows else ""
+        print(f"[K1 {name}] {rows} rows a tile{used}: {first:.4f} {second:.4f} ms back to "
+              f"back, forwards backwards, on {card}")
+
+    for name, data in (("int16 words", words_i16), ("float32 words", words_f32)):
+        ms = time_call(torch, lambda: demod_then_k1(data, starts))
+        b2b_ms = time_back_to_back(torch, lambda: demod_then_k1(data, starts))
+        demod_ms = time_back_to_back(torch, lambda: tp.am_envelope_from_iq(data))
+        print(f"[demod then K1, {name}] {ms:.4f} ms single call, {b2b_ms:.4f} ms back to "
+              f"back (the demod alone {demod_ms:.4f}), against the fused entry's "
+              f"{measured[name]['b2b_ms']:.4f}, on {card}")
 
     # ---- 3. the slice end to end through the streaming runtime
+    demod_calls = []
+    demodulate = poff.demodulate
+
+    def counted_demodulate(*args):
+        demod_calls.append(1)
+        return demodulate(*args)
+
+    poff.demodulate = counted_demodulate
     frames_to_screens.launches = 0
+    frames_to_screens_from_words.launches = 0
     ema_gpu, sync_gpu, out_devices, seconds = run_runtime(tp, blocks, mode, dev)
-    launches = frames_to_screens.launches
-    check(launches >= N_BLOCKS, f"K1 launched for every block ({launches})")
+    fused_launches = frames_to_screens_from_words.launches
+    check(fused_launches >= N_BLOCKS,
+          f"the fused entry launched for every block ({fused_launches})")
+    check(frames_to_screens.launches == 0 and not demod_calls,
+          f"no separate demod pass on the runtime's path (envelope-entry launches "
+          f"{frames_to_screens.launches}, demodulate calls {len(demod_calls)})")
     check(out_devices and all(d == "cuda" for d in out_devices),
           f"every step output on the card ({sorted(set(out_devices))})")
     check(ema_gpu.shape == (h, w) and bool(np.isfinite(ema_gpu).all()),
           "final EMA finite, of the screen's shape")
     print(f"[runtime] {N_BLOCKS} blocks through process_blocks in {seconds:.3f} s "
           f"({1e3 * seconds / N_BLOCKS:.2f} ms per block incl. ring copy and upload), "
-          f"K1 launches {launches}")
+          f"fused K1 launches {fused_launches}, separate demod passes 0")
 
     t0 = time.perf_counter()
     ema_cpu, sync_cpu, _, _ = run_runtime(tp, blocks, mode, "cpu")
@@ -252,31 +425,94 @@ def main() -> int:
     print(f"[runtime] aligned PSNR {db:.3f} dB (bar {PSNR_BAR_DB} dB), shift {shift}")
     check(db > PSNR_BAR_DB, "PSNR clears the bar")
 
+    # ---- 4. the envelope entry's path: the runtime with invert=True
+    frames_to_screens.launches = 0
+    frames_to_screens_from_words.launches = 0
+    inv_gpu, inv_sync_gpu, inv_devices, _ = run_runtime(
+        tp, blocks[:ENVELOPE_BLOCKS], mode, dev, invert=True)
+    envelope_launches = frames_to_screens.launches
+    check(envelope_launches >= ENVELOPE_BLOCKS and frames_to_screens_from_words.launches == 0
+          and len(demod_calls) == ENVELOPE_BLOCKS,
+          f"the envelope entry launched for every inverted block ({envelope_launches})")
+    poff.demodulate = demodulate
+    check(inv_devices and all(d == "cuda" for d in inv_devices),
+          "every inverted step output on the card")
+    check(inv_gpu.shape == (h, w) and bool(np.isfinite(inv_gpu).all()),
+          "inverted EMA finite, of the screen's shape")
+    inv_cpu, inv_sync_cpu, _, _ = run_runtime(tp, blocks[:ENVELOPE_BLOCKS], mode, "cpu",
+                                              invert=True)
+    inv_rel = float(np.abs(inv_gpu - inv_cpu).max()) / float(inv_cpu.max() - inv_cpu.min())
+    inv_sync_err = float(np.abs(inv_sync_gpu - inv_sync_cpu).max())
+    print(f"[runtime, invert] {ENVELOPE_BLOCKS} blocks, envelope-entry launches "
+          f"{envelope_launches}; card vs CPU: EMA max diff {inv_rel:.3e} of range, sync max "
+          f"diff {inv_sync_err:.3e} px")
+    check(inv_rel < EMA_REL_TOL, "inverted card EMA matches the CPU run")
+    check(inv_sync_err < SYNC_ABS_TOL, "inverted card sync matches the CPU run")
+
+    # ---- the step on device-resident words, demod fused and as a pass of its own
     step = tp.make_reconstruct_fn(cfg, dev)
     ema0 = torch.zeros((h, w), dtype=torch.float32, device=dev)
-    step_ms = time_call(torch, lambda: step(words0, ema0, ALPHA, 0.0), calls=10)
-    print(f"[step] {step_ms:.3f} ms per {N_FRAMES}-frame block on device-resident int16 "
-          f"words = {block / step_ms / 1e3:.1f} Msamples/s, on {card}")
+    phase0 = poff.carry_phase_starts(0.0, spf, N_FRAMES)
+
+    def unfused_step(iq, ema, alpha):
+        fstarts = torch.from_numpy(phase0).to(dev)
+        frames, sync, score = poff.process_frames(
+            poff.demodulate(iq, cfg), fstarts, cfg, frame_len)
+        return poff.ema_fold(ema, frames, alpha), frames, sync, score
+
+    fused_ema = step(words_i16, ema0, ALPHA, 0.0)[0]
+    unfused_ema = unfused_step(words_i16, ema0, ALPHA)[0]
+    step_diff = float((fused_ema - unfused_ema).abs().max())
+    print(f"[step] EMA with the demod fused vs as a separate pass: max abs diff {step_diff:.3e}")
+    check(step_diff <= K1_REL_TOL * float(unfused_ema.abs().max()),
+          "the step with the demod fused equals the step with the demod as a pass")
+    for name, data in (("int16", words_i16), ("float32", words_f32)):
+        step_ms = time_call(torch, lambda: step(data, ema0, ALPHA, 0.0), calls=10)
+        unfused_ms = time_call(torch, lambda: unfused_step(data, ema0, ALPHA), calls=10)
+        print(f"[step] {step_ms:.3f} ms per {N_FRAMES}-frame block on device-resident {name} "
+              f"words = {block / step_ms / 1e3:.1f} Msamples/s (demod as a separate pass: "
+              f"{unfused_ms:.3f} ms), on {card}")
 
     # Device time by kernel over three steps: the step's busy share and split.
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            step(words0, ema0, ALPHA, 0.0)
-        torch.cuda.synchronize()
-    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+    for name, fn in (("demod as a separate pass", lambda: unfused_step(words_i16, ema0, ALPHA)),
+                     ("demod fused into K1", lambda: step(words_i16, ema0, ALPHA, 0.0))):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        print(f"[profile] {name}, int16 words: device time {device_ms(prof) / 3:.4f} ms per step")
+        print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
 
-    kernels = [{
-        "name": "K1 frames_to_screens",
-        "route": "cuda",
-        "source": "tempest_tpu_torch/csrc/resample.cu",
-        "replaces": "tempest_tpu/ops/pallas_resample.py:143",
-        "launches": launches,
-        "max_abs_err": k1_err,
-        "ms": k1_ms,
-        "plain_ms": plain_ms,
-    }]
+    def kernel_entry(name, key, launches):
+        m = measured[key]
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "tempest_tpu_torch/csrc/resample.cu",
+            "replaces": "tempest_tpu/ops/pallas_resample.py:143",
+            "launches": launches,
+            "max_abs_err": m["err"],
+            "ms": m["ms"],
+            "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"],
+            "library_ms": None,  # no single PyTorch call computes this function
+            "back_to_back_ms": m["b2b_ms"],
+        }
+
+    words_entry = kernel_entry("K1 frames_to_screens_from_words", "float32 words", fused_launches)
+    # The runtime uploads float32 words, so the main path launches that
+    # instantiation and the keys above are its numbers; the int16 one's:
+    i16 = measured["int16 words"]
+    words_entry.update(int16_max_abs_err=i16["err"], int16_ms=i16["ms"],
+                       int16_back_to_back_ms=i16["b2b_ms"], int16_plain_ms=i16["plain_ms"],
+                       int16_bound_ms=i16["bound_ms"])
+    kernels = [
+        kernel_entry("K1 frames_to_screens", "envelope", envelope_launches),
+        words_entry,
+    ]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -32,7 +32,11 @@ from .io.synthetic import (
 )
 from .ops.demod import am_demod, am_envelope_from_iq, invert_envelope
 from .ops.resample import linear_resample, sig_to_image, downgrade_image, RENDER_SIZE
-from .ops.resample_kernel import frames_to_screens, frame_to_screen
+from .ops.resample_kernel import (
+    frames_to_screens,
+    frames_to_screens_from_words,
+    frame_to_screen,
+)
 from .ops.framesync import (
     frame_sync,
     frame_sync_subpixel,

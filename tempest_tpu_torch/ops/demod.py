@@ -6,6 +6,12 @@ GPU a stride-2 read is an ordinary coalesced load, so here the demod is plain
 elementwise torch: view the words as (N, 2) pairs, square, add, sqrt.  The
 one-hot sum adds exact zeros, so both give the same ``I² + Q²``.
 
+The streaming step does not call ``am_envelope_from_iq`` for plain AM on
+interleaved words: K1 takes the envelope inside its load, with the same
+roundings (``ops/resample_kernel.frames_to_screens_from_words``).  It stays
+the plain version that entry is held against, and the demod of the
+``invert`` option.
+
 FM and planar I/Q are not ported yet (ROADMAP Queue 1, "FM and planar demod").
 """
 

@@ -7,13 +7,17 @@ One step takes a block of I/Q, and:
 2. cuts it into frames at rounded frame starts, carried across blocks by
    the fractional phase of the first frame boundary (``carry_phase``);
 3. resamples every frame from signal to screen with K1
-   (``ops.resample_kernel.frames_to_screens``);
+   (``ops.resample_kernel.frames_to_screens``) — or, for interleaved I/Q
+   words with plain AM demod (``fuses_demod``), does 1 and 3 in one pass
+   with K1's fused entry (``frames_to_screens_from_words``), which gives
+   the same values without writing the envelope;
 4. finds each frame's sub-pixel blanking position and
 5. aligns the frame by a fractional circular shift (``ops.framesync``);
 6. folds the frames into the carried EMA image (``ema_fold``).
 
 ``step(iq, ema, alpha[, phase]) -> (ema, frames, sync, score)`` runs
-eagerly on the device of its inputs; there is no jit and no vmap.  The port
+eagerly on the device it was built for (the CUDA card unless the caller
+names another); there is no jit and no vmap.  The port
 implements ``resampler="pallas"`` (K1) only, with rounded frame cuts; the
 other options raise ``NotImplementedError`` naming the ROADMAP item that
 brings them.
@@ -34,13 +38,15 @@ from ..ops.framesync import (
     frame_sync_subpixel,
 )
 from ..ops.resample import RENDER_SIZE
-from ..ops.resample_kernel import frames_to_screens
+from ..ops.resample_kernel import frames_to_screens, frames_to_screens_from_words
+from ..utils.device import resolve_device
 from ..video.modes import VideoMode
 
 __all__ = [
     "ReconstructionConfig",
     "Reconstruction",
     "demodulate",
+    "fuses_demod",
     "process_frames",
     "ema_fold",
     "carry_phase_starts",
@@ -146,16 +152,28 @@ def demodulate(iq: torch.Tensor, config: ReconstructionConfig) -> torch.Tensor:
     return invert_envelope(env) if config.invert else env
 
 
+def fuses_demod(config: ReconstructionConfig, iq: torch.Tensor) -> bool:
+    """Whether the step hands ``iq`` to K1 as raw words, with the demod done
+    inside the resampler: interleaved int16 or float32 words, plain AM.  The
+    values are those of ``demodulate`` followed by K1 on the envelope."""
+    return (config.input_format == "iq_interleaved" and config.demod == "am"
+            and not config.invert and iq.dtype in (torch.int16, torch.float32))
+
+
 def process_frames(
     env: torch.Tensor,
     frame_starts: torch.Tensor,
     config: ReconstructionConfig,
     frame_len: int,
+    from_words: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Resample + sync + align all frames of one envelope block: returns
-    ``(frames [F,h,w], sync [F,2], score [F])``."""
+    ``(frames [F,h,w], sync [F,2], score [F])``.  With ``from_words``,
+    ``env`` is the block's interleaved I/Q words instead and K1 takes their
+    AM envelope itself."""
     mode = config.mode
-    screens = frames_to_screens(
+    resample = frames_to_screens_from_words if from_words else frames_to_screens
+    screens = resample(
         env, frame_starts, frame_len, mode.height, mode.width, config.render_size)
     if config.do_align and config.align_subpixel:
         s_y, s_x, score = frame_sync_subpixel(screens)
@@ -199,8 +217,9 @@ def _as_tensor(x, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(x, device=device)
 
 
-def make_reconstruct_fn(config: ReconstructionConfig, device: torch.device | str = "cpu"):
-    """Build the stage-2 step for a fixed config on ``device``.
+def make_reconstruct_fn(config: ReconstructionConfig, device: torch.device | str | None = None):
+    """Build the stage-2 step for a fixed config on ``device`` (``None``:
+    the CUDA card; raises when there is none).
 
     Returns ``step(iq, ema, alpha) -> (ema', frames, sync, score)``, or with
     ``carry_phase`` ``step(iq, ema, alpha, phase)`` where ``phase`` is the
@@ -208,7 +227,7 @@ def make_reconstruct_fn(config: ReconstructionConfig, device: torch.device | str
     ``iq`` and ``ema`` may be numpy arrays or tensors; they are moved to
     ``device``, and the outputs stay there."""
     _check_supported(config)
-    device = torch.device(device)
+    device = resolve_device(device)
     n_frames = config.n_frames
     spf = config.samples_per_frame
     frame_len = int(np.floor(spf))  # samples fed to the resampler per frame
@@ -217,9 +236,12 @@ def make_reconstruct_fn(config: ReconstructionConfig, device: torch.device | str
     def _body(iq, ema, alpha, starts: np.ndarray):
         iq = _as_tensor(iq, device)
         ema = _as_tensor(ema, device).to(torch.float32)
-        env = demodulate(iq, config)
         fstarts = torch.from_numpy(starts).to(device)
-        frames, sync, score = process_frames(env, fstarts, config, frame_len)
+        if fuses_demod(config, iq):
+            frames, sync, score = process_frames(iq, fstarts, config, frame_len, from_words=True)
+        else:
+            frames, sync, score = process_frames(
+                demodulate(iq, config), fstarts, config, frame_len)
         return ema_fold(ema, frames, alpha), frames, sync, score
 
     if config.carry_phase:
@@ -240,9 +262,10 @@ def reconstruct_frames(
     config: ReconstructionConfig,
     alpha: float = 0.1,
     ema: np.ndarray | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str | None = None,
 ) -> Reconstruction:
-    """Run stage 2 over one I/Q block on ``device``.
+    """Run stage 2 over one I/Q block on ``device`` (``None``: the CUDA
+    card; raises when there is none).
 
     Host complex input is reinterpreted as interleaved float32 words
     (zero-copy view), keeping the host→device copy real; real input under a

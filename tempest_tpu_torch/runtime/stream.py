@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..pipeline.offline import ReconstructionConfig, make_reconstruct_fn
+from ..utils.device import resolve_device
 from ..video.modes import VideoMode
 from .ring import RingBuffer
 from .sources import SampleSource
@@ -43,17 +44,19 @@ def frames_per_window(cap: int, spf: float) -> int:
 
 
 def state_from_jax(
-    ema: np.ndarray, abs_pos: int, device: torch.device | str = "cpu"
+    ema: np.ndarray, abs_pos: int, device: torch.device | str | None = None
 ) -> tuple[torch.Tensor, int]:
     """Streaming state held by a live JAX runtime (its EMA image, as a numpy
     array, and its absolute sample position) → the port's device EMA tensor
-    and position, ready to assign to ``StreamingRuntime.ema``/``abs_pos``."""
-    ema_t = torch.from_numpy(np.ascontiguousarray(ema, np.float32)).to(device)
+    and position, ready to assign to ``StreamingRuntime.ema``/``abs_pos``.
+    ``device=None`` is the CUDA card (raises when there is none)."""
+    ema_t = torch.from_numpy(np.ascontiguousarray(ema, np.float32)).to(resolve_device(device))
     return ema_t, int(abs_pos)
 
 
 class StreamingRuntime:
-    """Block-streaming executor around one ``SampleSource``, on ``device``."""
+    """Block-streaming executor around one ``SampleSource``, on ``device``
+    (``None``: the CUDA card; raises when there is none)."""
 
     def __init__(
         self,
@@ -64,7 +67,7 @@ class StreamingRuntime:
         ring_depth: int = 16,
         invert: bool = False,
         config_overrides: dict | None = None,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
     ) -> None:
         """``config_overrides`` passes extra ReconstructionConfig fields to
         the step (e.g. ``do_align``, ``align_interp``); the fields the
@@ -78,7 +81,7 @@ class StreamingRuntime:
                 raise ValueError(f"config_overrides may not set {sorted(bad)}"
                                  " — the streaming runtime owns these")
         self._overrides = dict(config_overrides or {})
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.source = source
         self.alpha = alpha
         self.invert = invert

@@ -121,7 +121,7 @@ def test_carry_phase_step_three_blocks_match_jax(capture, case):
     jcfg, pcfg = _configs(**kw)
     cap, n = capture
     spf = jcfg.samples_per_frame
-    jstep, pstep = joff.make_reconstruct_fn(jcfg), poff.make_reconstruct_fn(pcfg)
+    jstep, pstep = joff.make_reconstruct_fn(jcfg), poff.make_reconstruct_fn(pcfg, device="cpu")
     ej = jnp.zeros(SHAPE, jnp.float32)
     ep = torch.zeros(SHAPE)
     for b in range(3):
@@ -148,12 +148,12 @@ def test_reconstruct_frames_complex_input_matches_jax():
     pcfg = poff.ReconstructionConfig(**common)
     cap = generate_iq(MODE, FS, jcfg.block_samples + 100, snr_db=18.0, seed=8)
     ref = joff.reconstruct_frames(cap.iq, jcfg, alpha=ALPHA)
-    got = poff.reconstruct_frames(cap.iq, pcfg, alpha=ALPHA)
+    got = poff.reconstruct_frames(cap.iq, pcfg, alpha=ALPHA, device="cpu")
     assert got.image.shape == SHAPE and got.frames.shape == (3, *SHAPE)
     assert _rel(got.image, ref.image) < 1e-5
     assert _rel(got.frames, ref.frames) < 1e-5
     # A complex tensor goes through |z| directly.
-    step = poff.make_reconstruct_fn(pcfg)
+    step = poff.make_reconstruct_fn(pcfg, device="cpu")
     z = torch.from_numpy(cap.iq[:pcfg.block_samples])
     ema, frames, _, _ = step(z, np.zeros(SHAPE, np.float32), ALPHA)
     assert _rel(ema, ref.image) < 1e-5
@@ -166,7 +166,7 @@ def test_reconstruct_frames_complex_input_matches_jax():
 def test_unported_options_raise(option):
     cfg = poff.ReconstructionConfig(sample_rate=FS, mode=MODE, n_frames=3, **option)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        poff.make_reconstruct_fn(cfg)
+        poff.make_reconstruct_fn(cfg, device="cpu")
 
 
 def test_config_block_geometry_matches_jax():
@@ -194,7 +194,8 @@ def test_streaming_runtime_end_to_end():
     thread: the phase carry keeps the blanking position from jumping."""
     block = int(FS * 0.1)
     src = SyntheticSource(MODE, FS, block, snr_db=25.0, seed=2)
-    rt = StreamingRuntime(src, MODE, alpha=ALPHA, config_overrides={"render_size": SHAPE})
+    rt = StreamingRuntime(src, MODE, alpha=ALPHA, config_overrides={"render_size": SHAPE},
+                          device="cpu")
     images, syncs = [], []
     rt.start()
     try:
@@ -220,7 +221,7 @@ def test_streaming_runtime_matches_jax_runtime():
     jrt = JaxRuntime(SyntheticSource(MODE, FS, block), MODE, alpha=ALPHA,
                      config_overrides={**over, "resampler": "pallas"})
     prt = StreamingRuntime(SyntheticSource(MODE, FS, block), MODE, alpha=ALPHA,
-                           config_overrides=over)
+                           config_overrides=over, device="cpu")
     assert prt.config.n_frames == jrt.config.n_frames
     syncs = {"j": [], "p": []}
     for rt, key in ((jrt, "j"), (prt, "p")):
@@ -251,7 +252,7 @@ def test_jax_checkpoint_resumes_in_port(tmp_path):
     live_ema, live_pos = np.array(jrt._ema), jrt._abs_pos
 
     prt = StreamingRuntime(SyntheticSource(MODE, FS, block), MODE, alpha=0.1,
-                           config_overrides=over)
+                           config_overrides=over, device="cpu")
     prt.load_checkpoint(path)
     assert prt.alpha == ALPHA and prt.abs_pos == 2 * block
     assert prt.frames_out == jrt.frames_out
@@ -265,8 +266,8 @@ def test_jax_checkpoint_resumes_in_port(tmp_path):
     assert _rel(prt.ema.numpy(), jrt._ema) < 1e-4
 
     # The same hand-over from a live JAX state, through the port's step.
-    ema, pos = state_from_jax(live_ema, live_pos)
-    step = poff.make_reconstruct_fn(prt.config)
+    ema, pos = state_from_jax(live_ema, live_pos, device="cpu")
+    step = poff.make_reconstruct_fn(prt.config, device="cpu")
     words = np.ascontiguousarray(blocks[2][:prt.config.block_samples]).view(np.float32)
     out, *_ = step(words, ema, ALPHA, (-pos) % prt.config.samples_per_frame)
     assert _rel(out.numpy(), jrt._ema) < 1e-4
@@ -278,7 +279,7 @@ def test_checkpoint_of_unported_chain_raises(tmp_path, extra):
                          sample_rate=FS, alpha=0.2, **extra)
     path = str(tmp_path / "state.npz")
     save_state(state, path)
-    rt = StreamingRuntime(SyntheticSource(MODE, FS, int(FS * 0.1)), MODE)
+    rt = StreamingRuntime(SyntheticSource(MODE, FS, int(FS * 0.1)), MODE, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         rt.load_checkpoint(path)
 
@@ -295,7 +296,7 @@ def test_port_chain_psnr_matches_jax_gather_chain():
     jrt = JaxRuntime(SyntheticSource(MODE, FS, block), MODE, alpha=ALPHA,
                      config_overrides={**over, "resampler": "gather"})
     prt = StreamingRuntime(SyntheticSource(MODE, FS, block), MODE, alpha=ALPHA,
-                           config_overrides=over)
+                           config_overrides=over, device="cpu")
     for rt in (jrt, prt):
         for b in blocks:
             rt.ring.put(b)

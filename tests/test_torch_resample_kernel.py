@@ -179,3 +179,44 @@ def test_k1_cuda_matches_plain(cuda_device):
     ref = frames_to_screens_plain(env, starts, geom)
     torch.cuda.synchronize()
     assert float((got - ref).abs().max() / ref.abs().max()) < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(600, 99), (601, 402), (300, 2048), (48, 99)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_k1_cuda_matches_plain_at_other_widths(cuda_device, shape):
+    """Widths that take the kernel's other work splits: no multiple of 4
+    (one column a work item, with fewer and with more work items a row than
+    a block has threads), more than 4 x 256 columns, and so few rows that
+    the wrapper takes fewer rows a tile.  The last frame reads past the
+    block end."""
+    mode = ALL_VIDEO_MODES["1920x1080 @ 60Hz"]
+    spf = 20e6 / mode.refresh
+    frame_len = int(np.floor(spf))
+    n = 3 * frame_len - 4000
+    env = torch.from_numpy(np.random.default_rng(1).random(n, dtype=np.float32)).to(cuda_device)
+    starts = torch.tensor([0, frame_len + 3, 2 * frame_len + 1], dtype=torch.int32,
+                          device=cuda_device)
+    got = frames_to_screens(env, starts, frame_len, mode.height, mode.width, shape)
+    geom = screen_geometry(frame_len, mode.height, mode.width, shape, env.device)
+    ref = frames_to_screens_plain(env, starts, geom)
+    torch.cuda.synchronize()
+    assert got.shape == (3, *shape)
+    assert float((got - ref).abs().max() / ref.abs().max()) < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(600, 800), (48, 99)], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_frame_to_screen_cuda_matches_plain(cuda_device, shape):
+    """The single-frame wrapper on the card: one launch of the envelope
+    entry, equal to the plain version of the same frame."""
+    y_t, x_t = 1125, 2576
+    sig = torch.from_numpy(np.random.default_rng(2).random(333333, dtype=np.float32)).to(cuda_device)
+    before = frames_to_screens.launches
+    got = frame_to_screen(sig, y_t, x_t, shape)
+    assert frames_to_screens.launches == before + 1
+    geom = screen_geometry(sig.shape[0], y_t, x_t, shape, sig.device)
+    ref = frames_to_screens_plain(sig, torch.zeros(1, dtype=torch.int32, device=sig.device), geom)[0]
+    torch.cuda.synchronize()
+    assert got.shape == shape
+    assert float((got - ref).abs().max() / ref.abs().max()) < 1e-6
