@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Drives the port's main path — the streaming reconstruction chain of
-``tempest_tpu_torch`` — at full size: 1920x1080 @ 60 Hz (2576x1125 total)
-sampled at 20 Msps, 36 frames (12,333,335 samples) per block, 600x800
-screens.  Phases, each of which fails the run if it fails:
+Drives the port's main paths — the streaming reconstruction chain of
+``tempest_tpu_torch``, its fidelity chain and ``auto_reconstruct`` — at full
+size: 1920x1080 @ 60 Hz (2576x1125 total) sampled at 20 Msps, 36 frames
+(12,333,335 samples) per block, 600x800 screens.  Phases, each of which
+fails the run if it fails:
 
 1. build K1 (``tempest_tpu_torch/csrc/resample.cu``) with nvcc for sm_90a;
 2. hold both entries of K1 against their plain PyTorch versions on the
@@ -23,7 +24,21 @@ screens.  Phases, each of which fails the run if it fails:
    blocks, and that its PSNR against the capture's ground truth clears the
    bar; time the step;
 4. run two blocks through the runtime with ``invert=True``, the route that
-   demodulates first and hands K1 the envelope, on the card and on the CPU.
+   demodulates first and hands K1 the envelope, on the card and on the CPU;
+5. hold K1 with per-frame residuals, with 4 taps and with both against its
+   plain version, on the envelope entry and on both word entries, also with
+   the first frame at sample 0, on a block cut short and from an unaligned
+   source, and at the shapes of 640x480 @ 60 Hz at 32 Msps; time each beside
+   the 2-tap rounded-cut times;
+6. run three blocks through ``StreamingRuntime(fidelity=True)`` (exact cuts
+   through K1's residuals, sync skipped), and one with 4 taps: PSNR against
+   its bar, card against CPU;
+7. ``auto_reconstruct`` on the first 0.62 s of the capture as int16 words:
+   the mode's name, the refresh, the line count against the port's CPU run,
+   PSNR of the restored and of the raw image, the two stages' times;
+8. ``auto_reconstruct`` on 640x480 @ 60 Hz at 32 Msps, where the taps rule
+   picks 4, AM and FM (``demod="fm"``): the mode found, K1's 4-tap entries
+   launched.
 
 Run ``python3 chip_smoke.py`` from the root of a checkout on a machine with
 a CUDA card; it ends with torch.profiler tables of three steps, with the
@@ -33,6 +48,7 @@ demod fused and as a separate pass.  The last line of standard output is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -56,6 +72,9 @@ INT16_SCALE = 8192.0  # capture amplitude ~2.4 at most -> |word| < 20k
 # capture and frame grid, 12.9727 dB measured on the CPU, less 0.3 dB — see
 # PERF.md, "PSNR bar".
 PSNR_BAR_DB = 12.6727
+# The same for the fidelity chain (exact cuts, sync skipped): 12.1804 dB from
+# exp/torch_psnr_bar.py --chain fidelity on the CPU, less 0.3 dB.
+FIDELITY_PSNR_BAR_DB = 11.8804
 K1_REL_TOL = 1e-6     # K1 and its plain version do the same f32 operations
 # Card vs CPU: the f32 profile sums and prefix sums reassociate, which moves
 # the sub-pixel sync fraction (2.7e-3 px measured, PERF.md) and the EMA.
@@ -70,6 +89,18 @@ ENVELOPE_BLOCKS = 2   # depth of the envelope-entry run of phase 4
 # tile: the work splits the slice's 600x800 does not take.
 OTHER_SHAPES = ((600, 99), (601, 402), (300, 2048), (48, 99))
 TILE_ROWS = (4, 8, 16)
+# K1's variants beside the 2-tap rounded cut: (taps, per-frame residuals).
+VARIANTS = ((2, True), (4, False), (4, True))
+VARIANT_PHASE = 1234.56   # first frame boundary of the variants' block
+# Where the taps rule of auto_reconstruct picks Catmull-Rom: at least one
+# sample per raster pixel (32 Msps over 800x525x60 pixels a second: 1.27).
+SMALL_MODE_NAME = "640x480 @ 60Hz"
+SMALL_SAMPLE_RATE = 32e6
+SMALL_SECONDS = 0.2
+REFRESH_TOL_HZ = 0.01
+# Card vs CPU line count: both choose the line period on a 1/8-sample grid,
+# where one step is 0.47 lines at 1080p60, so 1e-3 means the same choice.
+LINES_TOL = 1e-3
 
 # Published peaks of one H100 SXM at its full 700 W power limit.
 PEAK_BYTES_PER_S = 3.35e12
@@ -106,6 +137,17 @@ def slice_config(tp):
         do_align=True, align_subpixel=True, align_interp="linear")
 
 
+def fidelity_config(tp, **overrides):
+    """The fidelity chain's step config, as the streaming runtime builds it."""
+    return dataclasses.replace(slice_config(tp), subsample_align=True, do_align=False,
+                               align_subpixel=False, phase_bins=64, **overrides)
+
+
+def quantise(iq: np.ndarray) -> np.ndarray:
+    """Complex samples as the int16 I/Q words an SDR delivers."""
+    return np.clip(np.round(iq.view(np.float32) * INT16_SCALE), -32768, 32767).astype(np.int16)
+
+
 def make_capture(generate_iq, mode, block: int):
     """``N_BLOCKS`` blocks of the synthetic 1080p60 capture, quantised to
     int16 words as an SDR delivers them.  Returns (words int16 [2·n],
@@ -114,8 +156,7 @@ def make_capture(generate_iq, mode, block: int):
     spf = SAMPLE_RATE / mode.refresh
     n = N_BLOCKS * block + int(np.ceil(spf)) + 1
     cap = generate_iq(mode, SAMPLE_RATE, n, snr_db=SNR_DB, seed=SEED)
-    words = np.clip(np.round(cap.iq.view(np.float32) * INT16_SCALE), -32768, 32767)
-    return words.astype(np.int16), cap.frame
+    return quantise(cap.iq), cap.frame
 
 
 def card_line() -> str:
@@ -162,17 +203,21 @@ def time_back_to_back(torch, fn, launches: int = BACK_TO_BACK) -> float:
 
 
 def k1_bound(n_samples: int, sample_bytes: int, n_frames: int, h: int, w: int,
-             demod: bool) -> tuple[float, str, int]:
+             demod: bool, taps: int = 2, exact: bool = False) -> tuple[float, str, int]:
     """The least milliseconds the card could take for one K1 call: the larger
     of its bytes (the block read once, the frame starts and line tables read
     once, the screens written once) over the memory rate and its float32
     operations over the peak rate.  Returns (ms, "bytes" or "operations",
     bytes).  Per pixel: one product for ``c*delta``; per vertical tap add,
     max, floor, two subtractions, two products, add; three for the blend.
-    The demod adds two products, an add and a square root per sample."""
+    With 4 taps a vertical tap takes add, max, floor, subtraction, 19 for the
+    Catmull-Rom weights and 7 for the four-term sum.  The demod adds two
+    products, an add and a square root per sample; residuals 4 bytes a frame."""
     pixels = n_frames * h * w
-    nbytes = n_samples * sample_bytes + 4 * n_frames + h * (8 + 8 + 4) + 4 * pixels
-    flops = pixels * (1 + 2 * 8 + 3) + (4 * n_samples if demod else 0)
+    nbytes = (n_samples * sample_bytes + (8 if exact else 4) * n_frames + h * (8 + 8 + 4)
+              + 4 * pixels)
+    per_tap = 8 if taps == 2 else 4 + 19 + 7
+    flops = pixels * (1 + 2 * per_tap + 3) + (4 * n_samples if demod else 0)
     by_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
     by_ops = 1e3 * flops / PEAK_F32_FLOPS
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations"), nbytes
@@ -192,14 +237,15 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def run_runtime(tp, blocks, mode, device, invert: bool = False):
+def run_runtime(tp, blocks, mode, device, **runtime_options):
     """Drive ``StreamingRuntime.process_blocks`` over the blocks on
     ``device``; returns (final EMA, per-block syncs, output device types,
-    seconds)."""
+    seconds).  ``runtime_options`` go to the runtime (``invert``,
+    ``fidelity``, ``config_overrides``)."""
     n_blocks = len(blocks)
     rt = tp.StreamingRuntime(BlockSource(blocks, SAMPLE_RATE), mode,
                              n_frames_per_block=N_FRAMES, alpha=ALPHA,
-                             ring_depth=4, invert=invert, device=device)
+                             ring_depth=4, device=device, **runtime_options)
     step = rt._step
     out_devices = []
 
@@ -224,6 +270,18 @@ def run_runtime(tp, blocks, mode, device, invert: bool = False):
     return ema, np.concatenate(syncs), out_devices, seconds
 
 
+def wall_ms(torch, fn, calls: int = 3) -> float:
+    """Median wall-clock milliseconds of ``fn()`` followed by a device fence."""
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
 def main() -> int:
     import torch
 
@@ -243,7 +301,17 @@ def main() -> int:
         frames_to_screens_plain, screen_geometry)
     from tempest_tpu_torch.pipeline import offline as poff
 
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     check("jax" not in sys.modules, "the port imports no jax")
+
+    def reset_counts():
+        """Every launch count to 0, just before a main path is driven."""
+        for wrapper in (frames_to_screens, frames_to_screens_from_words):
+            wrapper.launches = 0
+            wrapper.launches_by_variant.clear()
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -350,6 +418,27 @@ def main() -> int:
         print(f"[K1 frame_to_screen] one frame onto {shape[0]}x{shape[1]}: relative diff {rel:.3e}")
         check(got.shape == shape and rel < K1_REL_TOL,
               f"frame_to_screen at {shape} agrees with the plain version")
+    # One frame alone: 333,333 samples in, one 600x800 screen out.
+    one_starts = torch.zeros(1, dtype=torch.int32, device=dev)
+    one_bound_ms, one_by, one_bytes = k1_bound(frame_len, 4, 1, h, w, False)
+    one_ms = time_call(torch, lambda: frame_to_screen(one, mode.height, mode.width, (h, w)))
+    one_b2b_ms = time_back_to_back(
+        torch, lambda: frame_to_screen(one, mode.height, mode.width, (h, w)))
+    one_plain_ms = time_call(
+        torch, lambda: frames_to_screens_plain(one, one_starts, geom), calls=10)
+    # Back to back, one frame is bound by the host's enqueue rate, so the
+    # kernel's own time comes from the profiler.
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            frame_to_screen(one, mode.height, mode.width, (h, w))
+        torch.cuda.synchronize()
+    one_device_ms = sum(evt.self_device_time_total for evt in prof.key_averages()
+                        if "resample_tiles_kernel" in evt.key) / 1e4
+    print(f"[K1 frame_to_screen] {one_ms:.4f} ms single call, {one_b2b_ms:.4f} ms back to back, "
+          f"{one_device_ms:.4f} ms of device time for one frame; bound {one_bound_ms:.5f} ms "
+          f"({one_bytes / 1e6:.2f} MB, by {one_by}), share reached "
+          f"{one_bound_ms / one_device_ms:.3f} of device time; plain {one_plain_ms:.4f} ms, "
+          f"on {card}")
 
     # Rows a tile: each entry timed at every size, forwards then backwards, so
     # that a drift of the card's clocks shows between the two passes.
@@ -392,8 +481,7 @@ def main() -> int:
         return demodulate(*args)
 
     poff.demodulate = counted_demodulate
-    frames_to_screens.launches = 0
-    frames_to_screens_from_words.launches = 0
+    reset_counts()
     ema_gpu, sync_gpu, out_devices, seconds = run_runtime(tp, blocks, mode, dev)
     fused_launches = frames_to_screens_from_words.launches
     check(fused_launches >= N_BLOCKS,
@@ -426,8 +514,7 @@ def main() -> int:
     check(db > PSNR_BAR_DB, "PSNR clears the bar")
 
     # ---- 4. the envelope entry's path: the runtime with invert=True
-    frames_to_screens.launches = 0
-    frames_to_screens_from_words.launches = 0
+    reset_counts()
     inv_gpu, inv_sync_gpu, inv_devices, _ = run_runtime(
         tp, blocks[:ENVELOPE_BLOCKS], mode, dev, invert=True)
     envelope_launches = frames_to_screens.launches
@@ -448,6 +535,218 @@ def main() -> int:
           f"diff {inv_sync_err:.3e} px")
     check(inv_rel < EMA_REL_TOL, "inverted card EMA matches the CPU run")
     check(inv_sync_err < SYNC_ABS_TOL, "inverted card sync matches the CPU run")
+
+
+    # ---- 5. K1 with residuals, with 4 taps and with both, against the plain version
+    v_starts, v_fracs = poff.exact_cut_starts(VARIANT_PHASE, spf, N_FRAMES)
+    v_starts = torch.from_numpy(v_starts).to(dev)
+    v_fracs = torch.from_numpy(v_fracs).to(dev)
+    edge_starts = torch.tensor([0, frame_len + 3, int(starts[-1])], dtype=torch.int32, device=dev)
+    for taps, exact in VARIANTS:
+        label = f"{taps} taps" + (", residuals" if exact else "")
+        residuals = v_fracs if exact else None
+        for name, (kernel, _, data, sample_bytes, demod) in entries.items():
+            per_sample = data.numel() // block
+            e = data if name == "envelope" else tp.am_envelope_from_iq(data)
+            got = kernel(data, v_starts, *raster, residuals, taps)
+            ref = frames_to_screens_plain(e, v_starts, geom, residuals, taps)
+            torch.cuda.synchronize()
+            check(got.shape == (N_FRAMES, h, w) and bool(torch.isfinite(got).all()),
+                  f"K1 on {name}, {label}: output finite, of the slice's shape")
+            err = float((got - ref).abs().max())
+            rel = err / float(ref.abs().max())
+            print(f"[K1 {name}, {label}] max abs diff vs plain {err:.3e}, relative {rel:.3e} "
+                  f"(tolerance {K1_REL_TOL:g})")
+            check(rel < K1_REL_TOL, f"K1 on {name}, {label}, agrees with its plain version")
+            del got, ref
+            # First frame at sample 0 (tap -1 clamps onto it), last frame cut
+            # by the block end; then the same from an unaligned source.
+            edge_res = None if residuals is None else residuals[:3].contiguous()
+            for what, lo in (("block edges", 0), ("unaligned source", 2)):
+                cut = data[lo: short * per_sample]
+                got = kernel(cut, edge_starts, *raster, edge_res, taps)
+                ref = frames_to_screens_plain(e[lo // per_sample: short], edge_starts, geom,
+                                              edge_res, taps)
+                torch.cuda.synchronize()
+                edge_rel = float((got - ref).abs().max()) / float(ref.abs().max())
+                print(f"[K1 {name}, {label}] {what}: relative diff {edge_rel:.3e}")
+                check(edge_rel < K1_REL_TOL,
+                      f"K1 on {name}, {label}, {what}, agrees with its plain version")
+                del got, ref
+            bound_ms, bound_by, nbytes = k1_bound(block, sample_bytes, N_FRAMES, h, w, demod,
+                                                  taps, exact)
+            ms = time_call(torch, lambda: kernel(data, v_starts, *raster, residuals, taps))
+            b2b_ms = time_back_to_back(
+                torch, lambda: kernel(data, v_starts, *raster, residuals, taps))
+            plain_ms = time_call(
+                torch, lambda: frames_to_screens_plain(
+                    data if name == "envelope" else tp.am_envelope_from_iq(data),
+                    v_starts, geom, residuals, taps), calls=5)
+            again_ms = time_back_to_back(torch, lambda: kernel(data, starts, *raster))
+            measured[name, taps, exact] = dict(err=err, ms=ms, b2b_ms=b2b_ms, plain_ms=plain_ms,
+                                               bound_ms=bound_ms, bound_by=bound_by)
+            print(f"[K1 {name}, {label}] {ms:.4f} ms single call, {b2b_ms:.4f} ms back to back "
+                  f"per {N_FRAMES}-frame block (2 taps, rounded cuts, timed right after: "
+                  f"{again_ms:.4f}); bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, by "
+                  f"{bound_by}), share reached {bound_ms / b2b_ms:.3f} back to back; plain "
+                  f"{plain_ms:.4f} ms, on {card}")
+        for shape in OTHER_SHAPES[:2] + OTHER_SHAPES[3:]:
+            other = (frame_len, mode.height, mode.width, shape)
+            got = frames_to_screens(env[: short], edge_starts, *other,
+                                    None if residuals is None else residuals[:3].contiguous(), taps)
+            ref = frames_to_screens_plain(
+                env[: short], edge_starts, screen_geometry(*other, dev),
+                None if residuals is None else residuals[:3].contiguous(), taps)
+            torch.cuda.synchronize()
+            rel = float((got - ref).abs().max()) / float(ref.abs().max())
+            print(f"[K1 envelope, {label}] {shape[0]}x{shape[1]} screens: relative diff {rel:.3e}")
+            check(rel < K1_REL_TOL, f"K1, {label}, at {shape} agrees with its plain version")
+
+    # The shapes auto_reconstruct gives K1 on 640x480 @ 60 Hz at 32 Msps.
+    small_mode = tp.ALL_VIDEO_MODES[SMALL_MODE_NAME]
+    small_spf = SMALL_SAMPLE_RATE / small_mode.refresh
+    small_n = int(SMALL_SAMPLE_RATE * SMALL_SECONDS)
+    small_frames = int((small_n - 1) / small_spf)
+    small_words = {
+        kind: quantise(tp.generate_iq(small_mode, SMALL_SAMPLE_RATE, small_n, snr_db=SNR_DB,
+                                      seed=SEED, modulation=kind).iq)
+        for kind in ("am", "fm")}
+    small_raster = (int(np.floor(small_spf)), small_mode.height, small_mode.width, (h, w))
+    small_starts = torch.from_numpy(
+        np.round(np.arange(small_frames) * small_spf).astype(np.int32)).to(dev)
+    small_i16 = torch.from_numpy(small_words["am"]).to(dev)
+    small_env = tp.am_envelope_from_iq(small_i16)
+    ref = frames_to_screens_plain(small_env, small_starts, screen_geometry(*small_raster, dev),
+                                  None, 4)
+    for name, fn, data in (("envelope", frames_to_screens, small_env),
+                           ("int16 words", frames_to_screens_from_words, small_i16)):
+        got = fn(data, small_starts, *small_raster, None, 4)
+        torch.cuda.synchronize()
+        rel = float((got - ref).abs().max()) / float(ref.abs().max())
+        print(f"[K1 {name}, 4 taps] {small_frames} frames of {SMALL_MODE_NAME} at "
+              f"{SMALL_SAMPLE_RATE / 1e6:g} Msps: relative diff {rel:.3e}")
+        check(got.shape == (small_frames, h, w) and rel < K1_REL_TOL,
+              f"K1 on {name}, 4 taps, at the 640x480 shapes agrees with its plain version")
+    del ref, got, small_env, small_i16
+
+    # ---- 6. the fidelity runtime: exact cuts through K1's residuals, sync skipped
+    reset_counts()
+    poff.demodulate = counted_demodulate
+    demod_calls.clear()
+    fid_gpu, fid_sync, fid_devices, seconds = run_runtime(tp, blocks, mode, dev, fidelity=True)
+    poff.demodulate = demodulate
+    fidelity_launches = frames_to_screens_from_words.launches_by_variant[2, True]
+    check(fidelity_launches >= N_BLOCKS
+          and frames_to_screens_from_words.launches == fidelity_launches
+          and frames_to_screens.launches == 0 and not demod_calls,
+          f"K1's fused entry with residuals launched for every fidelity block "
+          f"({dict(frames_to_screens_from_words.launches_by_variant)}), nothing else")
+    check(fid_devices and all(d == "cuda" for d in fid_devices),
+          "every fidelity step output on the card")
+    check(fid_gpu.shape == (h, w) and bool(np.isfinite(fid_gpu).all()) and not fid_sync.any(),
+          "fidelity EMA finite, of the screen's shape, sync stage skipped")
+    print(f"[fidelity runtime] {N_BLOCKS} blocks through process_blocks in {seconds:.3f} s "
+          f"({1e3 * seconds / N_BLOCKS:.2f} ms per block incl. ring copy and upload), K1 "
+          f"launches with residuals {fidelity_launches}")
+    t0 = time.perf_counter()
+    fid_cpu, _, _, _ = run_runtime(tp, blocks, mode, "cpu", fidelity=True)
+    fid_rel = float(np.abs(fid_gpu - fid_cpu).max()) / float(fid_cpu.max() - fid_cpu.min())
+    print(f"[fidelity runtime] CPU run {time.perf_counter() - t0:.1f} s; card vs CPU: EMA max "
+          f"diff {fid_rel:.3e} of range (tolerance {EMA_REL_TOL:g})")
+    check(fid_rel < EMA_REL_TOL, "fidelity card EMA matches the CPU run")
+    fid_db, fid_shift = tp.aligned_psnr(truth, fid_gpu)
+    print(f"[fidelity runtime] aligned PSNR {fid_db:.3f} dB (bar {FIDELITY_PSNR_BAR_DB} dB), "
+          f"shift {fid_shift}")
+    check(fid_db > FIDELITY_PSNR_BAR_DB, "fidelity PSNR clears the bar")
+
+    reset_counts()
+    fid4_gpu, _, _, _ = run_runtime(tp, blocks[:1], mode, dev, fidelity=True,
+                                    config_overrides={"interp_taps": 4})
+    fidelity4_launches = frames_to_screens_from_words.launches_by_variant[4, True]
+    check(fidelity4_launches >= 1 and frames_to_screens_from_words.launches == fidelity4_launches,
+          f"K1's fused entry with residuals and 4 taps launched ({fidelity4_launches})")
+    fid4_cpu, _, _, _ = run_runtime(tp, blocks[:1], mode, "cpu", fidelity=True,
+                                    config_overrides={"interp_taps": 4})
+    fid4_rel = float(np.abs(fid4_gpu - fid4_cpu).max()) / float(fid4_cpu.max() - fid4_cpu.min())
+    print(f"[fidelity runtime, 4 taps] 1 block, launches {fidelity4_launches}; card vs CPU: "
+          f"EMA max diff {fid4_rel:.3e} of range")
+    check(bool(np.isfinite(fid4_gpu).all()) and fid4_rel < EMA_REL_TOL,
+          "fidelity 4-tap card EMA matches the CPU run")
+
+    # ---- 7. auto_reconstruct: capture in, detected mode and restored screen out
+    auto_words = words[: 2 * block]      # 0.62 s as int16 words
+    reset_counts()
+    timing, recon = tp.auto_reconstruct(auto_words, SAMPLE_RATE, alpha=ALPHA)
+    auto_launches = frames_to_screens_from_words.launches_by_variant[2, False]
+    check(auto_launches == 1 and frames_to_screens_from_words.launches == 1
+          and frames_to_screens.launches == 0,
+          f"auto_reconstruct went through K1's fused entry once ({auto_launches})")
+    cpu_timing = tp.estimate_timing(auto_words, SAMPLE_RATE, device="cpu")
+    print(f"[auto] {timing.mode_name}, refresh {timing.refresh_hz:.6f} Hz, line count "
+          f"{timing.line_count:.6f} (CPU run of the port: {cpu_timing.refresh_hz:.6f} Hz, "
+          f"{cpu_timing.line_count:.6f}), SNR proxy {timing.snr_db:.3f} dB, "
+          f"{recon.frames.shape[0]} frames")
+    check(timing.mode_name == MODE_NAME == cpu_timing.mode_name, "auto_reconstruct names the mode")
+    check(abs(timing.refresh_hz - mode.refresh) < REFRESH_TOL_HZ,
+          f"refresh within {REFRESH_TOL_HZ} Hz of the capture's")
+    check(abs(timing.line_count - cpu_timing.line_count) < LINES_TOL
+          and abs(timing.refresh_hz - cpu_timing.refresh_hz) < 1e-3,
+          "card and CPU choose the same line period and frame period")
+    check(recon.image.shape == (h, w) and recon.frames.shape == (N_FRAMES, h, w)
+          and bool(np.isfinite(recon.image).all()) and bool(np.isfinite(recon.image_raw).all()),
+          "auto_reconstruct images finite, of the screen's shape")
+    auto_db, _ = tp.aligned_psnr(truth, recon.image)
+    raw_db, _ = tp.aligned_psnr(truth, recon.image_raw)
+    print(f"[auto] aligned PSNR restored {auto_db:.3f} dB, raw {raw_db:.3f} dB "
+          f"(bar for the raw image {PSNR_BAR_DB} dB)")
+    check(raw_db > PSNR_BAR_DB, "auto_reconstruct's raw image clears the PSNR bar")
+    auto_dev = torch.from_numpy(auto_words).to(dev)
+    auto_cfg = tp.ReconstructionConfig(sample_rate=SAMPLE_RATE, mode=timing.mode,
+                                       n_frames=N_FRAMES, align_subpixel=True)
+    stage1_ms = wall_ms(torch, lambda: tp.estimate_timing(auto_dev, SAMPLE_RATE))
+    stage2_ms = wall_ms(torch, lambda: tp.reconstruct_frames(auto_dev, auto_cfg, alpha=ALPHA))
+    restore_ms = wall_ms(torch, lambda: tp.restore_image(recon.image_raw, auto_cfg))
+    whole_ms = wall_ms(torch, lambda: tp.auto_reconstruct(auto_words, SAMPLE_RATE, alpha=ALPHA))
+    print(f"[auto] stage 1 {stage1_ms:.2f} ms, stage 2 {stage2_ms:.2f} ms (words on the card, "
+          f"results read back), restoration {restore_ms:.2f} ms, the whole call from host "
+          f"int16 words {whole_ms:.2f} ms, wall clock, median of 3, on {card}")
+    # Where stage 2's wall clock goes: its step alone, and reading the 36
+    # frames back to the host; and stage 1's share of device time.
+    auto_step = tp.make_reconstruct_fn(
+        dataclasses.replace(auto_cfg, input_format="iq_interleaved"), dev)
+    ema_zero = torch.zeros((h, w), dtype=torch.float32, device=dev)
+    n_words = 2 * auto_cfg.block_samples
+    step_out = auto_step(auto_dev[:n_words], ema_zero, ALPHA)
+    auto_step_ms = wall_ms(torch, lambda: auto_step(auto_dev[:n_words], ema_zero, ALPHA))
+    readback_ms = wall_ms(torch, lambda: [t.cpu() for t in step_out])
+    upload_ms = wall_ms(torch, lambda: torch.from_numpy(auto_words).to(dev))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tp.estimate_timing(auto_dev, SAMPLE_RATE)
+        torch.cuda.synchronize()
+    stage1_kernels = sum(evt.count for evt in prof.key_averages()
+                         if evt.device_type == DeviceType.CUDA)
+    print(f"[auto] stage 2's step alone {auto_step_ms:.2f} ms, its read-back of frames, sync, "
+          f"score and EMA {readback_ms:.2f} ms, upload of the int16 words {upload_ms:.2f} ms; "
+          f"stage 1 device time {device_ms(prof):.3f} ms in {stage1_kernels} kernels, on {card}")
+    del auto_dev, step_out
+
+    # ---- 8. auto_reconstruct where the taps rule picks 4, AM and FM
+    small_launches = {}
+    for kind, entry in (("am", frames_to_screens_from_words), ("fm", frames_to_screens)):
+        reset_counts()
+        t, r = tp.auto_reconstruct(small_words[kind], SMALL_SAMPLE_RATE, alpha=ALPHA, demod=kind)
+        small_launches[kind] = entry.launches_by_variant[4, False]
+        print(f"[auto, {kind}] {t.mode_name} at {SMALL_SAMPLE_RATE / 1e6:g} Msps, refresh "
+              f"{t.refresh_hz:.6f} Hz, line count {t.line_count:.4f}, {r.frames.shape[0]} frames, "
+              f"4-tap launches {small_launches[kind]}")
+        check(t.mode_name == SMALL_MODE_NAME, f"auto_reconstruct ({kind}) names the mode")
+        check(abs(t.refresh_hz - small_mode.refresh) < REFRESH_TOL_HZ,
+              f"auto_reconstruct ({kind}) refresh within {REFRESH_TOL_HZ} Hz")
+        check(small_launches[kind] == 1
+              and frames_to_screens.launches + frames_to_screens_from_words.launches == 1,
+              f"auto_reconstruct ({kind}) went through K1's 4-tap entry once")
+        check(r.image.shape == (h, w) and bool(np.isfinite(r.image).all()),
+              f"auto_reconstruct ({kind}) image finite, of the screen's shape")
 
     # ---- the step on device-resident words, demod fused and as a pass of its own
     step = tp.make_reconstruct_fn(cfg, dev)
@@ -473,11 +772,16 @@ def main() -> int:
               f"words = {block / step_ms / 1e3:.1f} Msamples/s (demod as a separate pass: "
               f"{unfused_ms:.3f} ms), on {card}")
 
-    # Device time by kernel over three steps: the step's busy share and split.
-    from torch.profiler import ProfilerActivity, profile
+    fid_step = tp.make_reconstruct_fn(fidelity_config(tp), dev)
+    for name, data in (("int16", words_i16), ("float32", words_f32)):
+        fid_ms = time_call(torch, lambda: fid_step(data, ema0, ALPHA, VARIANT_PHASE), calls=10)
+        print(f"[fidelity step] {fid_ms:.3f} ms per {N_FRAMES}-frame block on device-resident "
+              f"{name} words = {block / fid_ms / 1e3:.1f} Msamples/s, on {card}")
 
+    # Device time by kernel over three steps: the step's busy share and split.
     for name, fn in (("demod as a separate pass", lambda: unfused_step(words_i16, ema0, ALPHA)),
-                     ("demod fused into K1", lambda: step(words_i16, ema0, ALPHA, 0.0))):
+                     ("demod fused into K1", lambda: step(words_i16, ema0, ALPHA, 0.0)),
+                     ("fidelity step", lambda: fid_step(words_i16, ema0, ALPHA, VARIANT_PHASE))):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(3):
                 fn()
@@ -509,9 +813,21 @@ def main() -> int:
     words_entry.update(int16_max_abs_err=i16["err"], int16_ms=i16["ms"],
                        int16_back_to_back_ms=i16["b2b_ms"], int16_plain_ms=i16["plain_ms"],
                        int16_bound_ms=i16["bound_ms"])
+    # Each variant under the instantiation its main path launched: the
+    # fidelity runtime uploads float32 words, auto_reconstruct was handed
+    # int16 words, and its FM chain demodulates first.  All timed at the
+    # slice's shapes (36 frames of 1080p60 at 20 Msps).
     kernels = [
         kernel_entry("K1 frames_to_screens", "envelope", envelope_launches),
         words_entry,
+        kernel_entry("K1 frames_to_screens_from_words, residuals (float32 words)",
+                     ("float32 words", 2, True), fidelity_launches),
+        kernel_entry("K1 frames_to_screens_from_words, 4 taps (int16 words)",
+                     ("int16 words", 4, False), small_launches["am"]),
+        kernel_entry("K1 frames_to_screens_from_words, 4 taps, residuals (float32 words)",
+                     ("float32 words", 4, True), fidelity4_launches),
+        kernel_entry("K1 frames_to_screens, 4 taps (envelope)",
+                     ("envelope", 4, False), small_launches["fm"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,8 +1,10 @@
 """tempest_tpu_torch — the PyTorch/CUDA port of ``tempest_tpu``.
 
-The streaming reconstruction chain (AM demod → carry-phase frame cuts →
-signal→screen resample → sub-pixel blanking sync → fractional alignment →
-EMA) in PyTorch, with the resampler as a hand-written CUDA kernel for Hopper
+Capture → image (``auto_reconstruct``: timing estimation, reconstruction,
+MTF restoration) and the streaming reconstruction chain (AM or FM demod →
+carry-phase frame cuts, rounded or exact to the sub-sample → signal→screen
+resample → sub-pixel blanking sync → fractional alignment → EMA) in PyTorch,
+with the resampler as a hand-written CUDA kernel for Hopper
 (``csrc/resample.cu``).  The sub-package layout mirrors ``tempest_tpu``; this
 package imports ``torch`` and never ``jax``.
 
@@ -30,8 +32,24 @@ from .io.synthetic import (
     render_frame,
     test_pattern,
 )
-from .ops.demod import am_demod, am_envelope_from_iq, invert_envelope
+from .ops.demod import (
+    am_demod,
+    am_demod_power,
+    am_envelope_from_iq,
+    fm_demod,
+    fm_demod_rows,
+    invert_envelope,
+)
+from .ops.autocorr import (
+    autocorrelation,
+    zoom_autocorr,
+    estimate_refresh,
+    estimate_line_count,
+    top_line_period_peaks,
+)
 from .ops.resample import linear_resample, sig_to_image, downgrade_image, RENDER_SIZE
+from .ops.resample import frame_to_screen as frame_to_screen_gather
+from .ops.enhance import interp_kernel_ft, restore_image, wiener_gain
 from .ops.resample_kernel import (
     frames_to_screens,
     frames_to_screens_from_words,
@@ -47,10 +65,16 @@ from .ops.framesync import (
     SyncSpec,
 )
 from .pipeline.offline import (
+    TimingEstimate,
+    TimingEvidence,
     ReconstructionConfig,
     Reconstruction,
+    estimate_timing,
+    timing_evidence,
+    pick_line_peak,
     make_reconstruct_fn,
     reconstruct_frames,
+    auto_reconstruct,
 )
 from .render.screen import aligned_psnr, psnr
 from .runtime.sources import ReplaySource, SyntheticSource

@@ -33,7 +33,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 SIGNATURES = {
     "resample": {
         "tt_resample_frames": (
-            [_P, _LL, _I, _P, _I, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
+            [_P, _LL, _I, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
             ctypes.c_int),
     },
 }

@@ -3,8 +3,12 @@
 
 ``frames_to_screens`` maps every frame of one envelope block to its
 (h, w) screen: for output row r it reads two scan lines (vertical taps) at
-affine positions ``frac + c·delta`` along the scan, interpolates each
-linearly, and blends them by ``wr[r]``.  ``frames_to_screens_from_words``
+affine positions ``frac + c·delta`` along the scan, interpolates each with 2
+taps (linear) or 4 (Catmull-Rom, ``interp_taps``), and blends them by
+``wr[r]``.  With ``frac_offsets`` every position of frame f moves on by that
+frame's fractional residual in [0, 1): frame cuts exact to the sub-sample,
+where ``frame_starts`` alone cuts at whole samples.
+``frames_to_screens_from_words``
 does the same from the raw interleaved I/Q words of the block (int16 or
 float32), taking the AM envelope ``sqrt(I² + Q²)`` on the way, so that the
 envelope is never written to device memory.  Both follow the Pallas kernel's
@@ -14,7 +18,12 @@ boundary semantics, not the gather path's:
   the fraction, and positions are lower-clipped at 0;
 * reads past the frame end take the real following samples;
 * reads past the block end see the last envelope value (the read index is
-  clamped at ``N-1`` instead of copying the envelope into a padded buffer).
+  clamped at ``N-1`` instead of copying the envelope into a padded buffer);
+* the 4 taps sit at offsets -1, 0, 1, 2 around the floor of the position and
+  obey the same clamp into the block: tap -1 of a line reads the real sample
+  before the line start, and sample 0 where the line starts at sample 0 of
+  the block.  (The JAX package's 4-tap weight tables replicate the border of
+  each line's span instead, which differs in the first output columns.)
 
 The Pallas kernel carries fractions and ``wr`` in 16.16 fixed point (a
 scalar-prefetch constraint); here they stay float32, so the two differ by
@@ -38,6 +47,7 @@ falls back.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 
@@ -54,6 +64,8 @@ __all__ = [
     "frames_to_screens_from_words",
     "frames_to_screens_plain",
     "frame_to_screen",
+    "catmull_rom_weights",
+    "line_reach",
 ]
 
 # Output rows of one tile (at most 32), by the bytes of a staged sample: a
@@ -77,7 +89,7 @@ class ScreenGeometry:
     line_frac: torch.Tensor   # float32 [h, 2], may be negative on row 0
     wr: torch.Tensor          # float32 [h], vertical blend weight
     delta: float              # samples per output column (a float32 value)
-    span: int                 # samples one scan line reads
+    span: int                 # samples one scan line reads: 2 taps, no residual
     out_shape: tuple[int, int]
 
 
@@ -92,6 +104,21 @@ def _line_tables(frame_len: int, y_t: int, x_t: int, out_shape: tuple[int, int])
     # floor(pos) + 1 must stay inside the span: pos < (w-1)·delta + 1.
     span = int(np.ceil(cols[-1] + 1)) + 2
     return line_start, line_frac, np.ascontiguousarray(wr[:, 0]), delta, span
+
+
+def _check_taps(interp_taps: int) -> int:
+    if interp_taps not in (2, 4):
+        raise ValueError(f"interp taps must be 2 or 4, got {interp_taps}")
+    return int(interp_taps)
+
+
+def line_reach(interp_taps: int, exact: bool) -> tuple[int, int]:
+    """(lead, extra): the samples a scan line reads before its start, and
+    beyond ``ScreenGeometry.span`` after it.  A residual in [0, 1) moves
+    ``floor(pos) + 1`` one sample on; 4 taps read one sample before the
+    floor and two after it."""
+    lead = 1 if _check_taps(interp_taps) == 4 else 0
+    return lead, lead + (1 if exact else 0)
 
 
 @functools.lru_cache(maxsize=16)
@@ -116,36 +143,66 @@ def screen_geometry(
     )
 
 
+def catmull_rom_weights(t: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Catmull-Rom weights of the taps at offsets (-1, 0, 1, 2) for the
+    fraction ``t``, one rounding per operation in the association the kernel
+    uses (``t³ = t²·t``)."""
+    t2 = t * t
+    t3 = t2 * t
+    return (
+        0.5 * ((2.0 * t2 - t3) - t),
+        0.5 * ((3.0 * t3 - 5.0 * t2) + 2.0),
+        0.5 * ((4.0 * t2 - 3.0 * t3) + t),
+        0.5 * (t3 - t2),
+    )
+
+
 def frames_to_screens_plain(
-    env: torch.Tensor, frame_starts: torch.Tensor, geom: ScreenGeometry
+    env: torch.Tensor,
+    frame_starts: torch.Tensor,
+    geom: ScreenGeometry,
+    frac_offsets: torch.Tensor | None = None,
+    interp_taps: int = 2,
 ) -> torch.Tensor:
     """The plain PyTorch version of K1, on any device: index arithmetic,
     ``clamp`` and ``gather``, in the same arithmetic order as the kernel."""
+    _check_taps(interp_taps)
     h, w = geom.out_shape
     n = env.shape[0]
     dev = env.device
     cp = torch.arange(w, dtype=torch.float32, device=dev) * torch.tensor(
         geom.delta, dtype=torch.float32, device=dev)
-    pos = torch.clamp(cp[None, None, :] + geom.line_frac[:, :, None], min=0.0)  # [h,2,w]
+    frac = geom.line_frac[None]                                             # [1,h,2]
+    if frac_offsets is not None:
+        frac = frac + frac_offsets.to(torch.float32)[:, None, None]         # [F,h,2]
+    pos = torch.clamp(cp + frac[..., None], min=0.0)                        # [1|F,h,2,w]
     i0f = torch.floor(pos)
-    fr = pos - i0f
+    t = pos - i0f
     base = (frame_starts.to(torch.int64)[:, None, None]
             + geom.line_start.to(torch.int64)[None])                        # [F,h,2]
-    idx0 = base[..., None] + i0f.to(torch.int64)[None]                      # [F,h,2,w]
-    a = env[torch.clamp(idx0, 0, n - 1)]
-    b = env[torch.clamp(idx0 + 1, 0, n - 1)]
-    lines = a * (1.0 - fr) + b * fr                                         # [F,h,2,w]
+    idx0 = base[..., None] + i0f.to(torch.int64)                            # [F,h,2,w]
+
+    def tap(off: int) -> torch.Tensor:
+        return env[torch.clamp(idx0 + off, 0, n - 1)]
+
+    if interp_taps == 2:
+        lines = tap(0) * (1.0 - t) + tap(1) * t                             # [F,h,2,w]
+    else:
+        w0, w1, w2, w3 = catmull_rom_weights(t)
+        lines = ((tap(-1) * w0 + tap(0) * w1) + tap(1) * w2) + tap(2) * w3
     wb = geom.wr[None, :, None]
     return (1.0 - wb) * lines[:, :, 0] + wb * lines[:, :, 1]
 
 
 @functools.lru_cache(maxsize=64)
 def tile_run_cap(
-    frame_len: int, y_t: int, x_t: int, out_shape: tuple[int, int], rows_per_tile: int
+    frame_len: int, y_t: int, x_t: int, out_shape: tuple[int, int], rows_per_tile: int,
+    reach: int = 0,
 ) -> int:
     """Samples one stage buffer of the kernel must hold: the longest
     contiguous run that a tile of ``rows_per_tile`` output rows reads (first
-    row's upper line start to last row's lower line start plus the span),
+    row's upper line start to last row's lower line start plus the span,
+    and ``reach`` samples more: ``sum(line_reach(...))``),
     plus 3 samples of 16-byte alignment slack at each end, as a multiple of
     4.  The kernel takes a tile's run from its first and last row, so the
     line starts must not decrease along the rows."""
@@ -155,12 +212,13 @@ def tile_run_cap(
         raise ValueError("K1 takes line starts that do not decrease along the rows")
     first = np.arange(0, h, rows_per_tile)
     last = np.minimum(first + rows_per_tile, h) - 1
-    run = int((line_start[last, 1] + span - line_start[first, 0]).max())
+    run = int((line_start[last, 1] + span - line_start[first, 0]).max()) + reach
     return (run + 6 + 3) // 4 * 4
 
 
 def tile_plan(
-    frame_len: int, y_t: int, x_t: int, out_shape: tuple[int, int], sample_bytes: int
+    frame_len: int, y_t: int, x_t: int, out_shape: tuple[int, int], sample_bytes: int,
+    reach: int = 0,
 ) -> tuple[int, int]:
     """(rows of a tile, samples of a stage buffer) for staged samples of
     ``sample_bytes``: ``ROWS_PER_TILE`` rows where a block's shared memory
@@ -170,9 +228,10 @@ def tile_plan(
     run, so the rows are halved, down to one, until the buffers fit."""
     per_sample = 2 * sample_bytes + (4 if sample_bytes == 8 else 0)
     rows = ROWS_PER_TILE[sample_bytes]
-    while rows > 1 and tile_run_cap(frame_len, y_t, x_t, out_shape, rows) * per_sample > MAX_SHARED_BYTES:
+    while (rows > 1 and tile_run_cap(frame_len, y_t, x_t, out_shape, rows, reach) * per_sample
+           > MAX_SHARED_BYTES):
         rows //= 2
-    run_cap = tile_run_cap(frame_len, y_t, x_t, out_shape, rows)
+    run_cap = tile_run_cap(frame_len, y_t, x_t, out_shape, rows, reach)
     if run_cap * per_sample > MAX_SHARED_BYTES:
         raise ValueError(
             f"a tile of {rows} rows stages {run_cap * per_sample} bytes, more than the "
@@ -189,6 +248,8 @@ def _launch(
     y_t: int,
     x_t: int,
     out_shape: tuple[int, int],
+    frac_offsets: torch.Tensor | None = None,
+    interp_taps: int = 2,
 ) -> torch.Tensor:
     """Check the arguments and launch the kernel on ``src``'s device, on the
     current stream.  ``staged`` is (what ``src`` holds, bytes per sample)."""
@@ -201,11 +262,15 @@ def _launch(
     n_frames = frame_starts.shape[0]
     if n_frames == 0 or n_samples == 0:
         raise ValueError(f"K1 takes at least one frame and one sample, got {n_frames}, {n_samples}")
+    if frac_offsets is not None:
+        if frac_offsets.dtype != torch.float32 or not frac_offsets.is_contiguous():
+            raise TypeError("K1 takes contiguous float32 frac_offsets")
+    lead, extra = line_reach(interp_taps, frac_offsets is not None)
     word, sample_bytes = staged
     out_shape = (int(out_shape[0]), int(out_shape[1]))
     raster = (int(frame_len), int(y_t), int(x_t), out_shape)
     geom = screen_geometry(*raster, src.device)
-    rows, run_cap = tile_plan(*raster, sample_bytes)
+    rows, run_cap = tile_plan(*raster, sample_bytes, lead + extra)
     from .. import _build
 
     lib = _build.load_library("resample")
@@ -214,20 +279,36 @@ def _launch(
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream(src.device).cuda_stream
         rc = lib.tt_resample_frames(
-            src.data_ptr(), n_samples, word, frame_starts.data_ptr(), n_frames,
+            src.data_ptr(), n_samples, word, frame_starts.data_ptr(),
+            None if frac_offsets is None else frac_offsets.data_ptr(), n_frames, interp_taps,
             geom.line_start.data_ptr(), geom.line_frac.data_ptr(), geom.wr.data_ptr(),
-            out.data_ptr(), h, w, geom.delta, geom.span, rows, run_cap, stream,
+            out.data_ptr(), h, w, geom.delta, geom.span + extra, rows, run_cap, stream,
         )
     if rc != 0:
         raise RuntimeError(f"K1 launch failed with cudaError_t {rc}")
     return out
 
 
-def _check_block(block: torch.Tensor, frame_starts: torch.Tensor, what: str) -> None:
+def _check_block(
+    block: torch.Tensor, frame_starts: torch.Tensor, frac_offsets: torch.Tensor | None,
+    interp_taps: int, what: str,
+) -> None:
+    _check_taps(interp_taps)
     if block.dim() != 1 or frame_starts.dim() != 1:
         raise ValueError(f"{what} and frame_starts must be 1-D")
     if block.device != frame_starts.device:
         raise ValueError(f"{what} on {block.device} but frame_starts on {frame_starts.device}")
+    if frac_offsets is not None and (frac_offsets.shape != frame_starts.shape
+                                     or frac_offsets.device != block.device):
+        raise ValueError(
+            f"frac_offsets must be one residual per frame on {block.device}, got shape "
+            f"{tuple(frac_offsets.shape)} on {frac_offsets.device}")
+
+
+def _count(wrapper, interp_taps: int, frac_offsets: torch.Tensor | None) -> None:
+    """One more launch of ``wrapper``: in all, and by (taps, residuals given)."""
+    wrapper.launches += 1
+    wrapper.launches_by_variant[interp_taps, frac_offsets is not None] += 1
 
 
 def frames_to_screens(
@@ -237,24 +318,34 @@ def frames_to_screens(
     y_t: int,
     x_t: int,
     out_shape: tuple[int, int] = RENDER_SIZE,
+    frac_offsets: torch.Tensor | None = None,
+    interp_taps: int = 2,
 ) -> torch.Tensor:
     """All frames of a block → (n_frames, h, w) float32 screens.
 
     ``env`` is the float32 envelope of the block (N,), ``frame_starts`` the
     integer sample offsets of the frames (n_frames,) on the same device, and
-    ``frame_len`` the samples per frame that set the raster↔signal ratio."""
-    _check_block(env, frame_starts, "env")
+    ``frame_len`` the samples per frame that set the raster↔signal ratio.
+    ``frac_offsets`` (float32 (n_frames,), each in [0, 1)) are the frames'
+    fractional residuals: frame f is read ``frame_starts[f] +
+    frac_offsets[f]`` samples into the block.  ``interp_taps`` is 2 (linear)
+    or 4 (Catmull-Rom) along the scan."""
+    _check_block(env, frame_starts, frac_offsets, interp_taps, "env")
     if env.device.type == "cpu":
         geom = screen_geometry(int(frame_len), int(y_t), int(x_t), tuple(out_shape), env.device)
-        return frames_to_screens_plain(env, frame_starts, geom)
+        return frames_to_screens_plain(env, frame_starts, geom, frac_offsets, interp_taps)
     if env.dtype != torch.float32:
         raise TypeError(f"K1 takes a float32 envelope, got {env.dtype}")
-    out = _launch(env, env.shape[0], _ENVELOPE, frame_starts, frame_len, y_t, x_t, out_shape)
-    frames_to_screens.launches += 1
+    out = _launch(env, env.shape[0], _ENVELOPE, frame_starts, frame_len, y_t, x_t, out_shape,
+                  frac_offsets, interp_taps)
+    _count(frames_to_screens, interp_taps, frac_offsets)
     return out
 
 
-frames_to_screens.launches = 0  # K1 launches on an envelope since the last reset
+# K1 launches on an envelope since the last reset: in all, and by
+# (interp_taps, residuals given).
+frames_to_screens.launches = 0
+frames_to_screens.launches_by_variant = collections.Counter()
 
 
 def frames_to_screens_from_words(
@@ -264,6 +355,8 @@ def frames_to_screens_from_words(
     y_t: int,
     x_t: int,
     out_shape: tuple[int, int] = RENDER_SIZE,
+    frac_offsets: torch.Tensor | None = None,
+    interp_taps: int = 2,
 ) -> torch.Tensor:
     """All frames of a block of raw I/Q → (n_frames, h, w) float32 screens,
     equal to ``frames_to_screens(am_envelope_from_iq(words), ...)``.
@@ -272,25 +365,38 @@ def frames_to_screens_from_words(
     float32.  An odd trailing word is dropped, on either device, as the
     demod does.  On a CUDA tensor the words must be contiguous and of one
     of those two types: the kernel reads them as they lie, where the demod
-    would first convert and copy them."""
-    _check_block(words, frame_starts, "words")
+    would first convert and copy them.  ``frac_offsets`` and ``interp_taps``
+    as in :func:`frames_to_screens`."""
+    _check_block(words, frame_starts, frac_offsets, interp_taps, "words")
     if words.device.type == "cpu":
         geom = screen_geometry(int(frame_len), int(y_t), int(x_t), tuple(out_shape), words.device)
-        return frames_to_screens_plain(am_envelope_from_iq(words), frame_starts, geom)
+        return frames_to_screens_plain(am_envelope_from_iq(words), frame_starts, geom,
+                                       frac_offsets, interp_taps)
     if words.dtype not in _WORDS:
         raise TypeError(f"K1 takes int16 or float32 I/Q words, got {words.dtype}")
     out = _launch(words, words.shape[0] // 2, _WORDS[words.dtype], frame_starts,
-                  frame_len, y_t, x_t, out_shape)
-    frames_to_screens_from_words.launches += 1
+                  frame_len, y_t, x_t, out_shape, frac_offsets, interp_taps)
+    _count(frames_to_screens_from_words, interp_taps, frac_offsets)
     return out
 
 
-frames_to_screens_from_words.launches = 0  # K1 launches on I/Q words since the last reset
+# K1 launches on I/Q words since the last reset, counted as the envelope entry's.
+frames_to_screens_from_words.launches = 0
+frames_to_screens_from_words.launches_by_variant = collections.Counter()
 
 
 def frame_to_screen(
-    sig: torch.Tensor, y_t: int, x_t: int, out_shape: tuple[int, int] = RENDER_SIZE
+    sig: torch.Tensor,
+    y_t: int,
+    x_t: int,
+    out_shape: tuple[int, int] = RENDER_SIZE,
+    offset: torch.Tensor | float | None = None,
+    interp_taps: int = 2,
 ) -> torch.Tensor:
-    """One frame's envelope → (h, w) screen, through the same resampler."""
+    """One frame's envelope → (h, w) screen, through the same resampler.
+    ``offset`` in [0, 1) is the frame's fractional residual."""
     starts = torch.zeros(1, dtype=torch.int32, device=sig.device)
-    return frames_to_screens(sig, starts, sig.shape[0], y_t, x_t, out_shape)[0]
+    frac = None
+    if offset is not None:
+        frac = torch.as_tensor(offset, dtype=torch.float32, device=sig.device).reshape(1)
+    return frames_to_screens(sig, starts, sig.shape[0], y_t, x_t, out_shape, frac, interp_taps)[0]

@@ -1,26 +1,47 @@
-"""Stage 2 of the reconstruction chain in PyTorch — the counterpart of the
-streaming subset of ``tempest_tpu/pipeline/offline.py``.
+"""The reconstruction pipeline in PyTorch — the counterpart of
+``tempest_tpu/pipeline/offline.py``: stage 1 (timing estimation), stage 2
+(the reconstruction step) and ``auto_reconstruct``, capture in, detected
+video mode and restored screen out.
 
-One step takes a block of I/Q, and:
+Stage 1, ``estimate_timing`` / ``timing_evidence``: envelope power → FFT
+autocorrelation → refresh rate and total line count (``ops.autocorr``),
+snapped to the closest known video mode.
 
-1. demodulates it to the AM envelope (``demodulate``);
-2. cuts it into frames at rounded frame starts, carried across blocks by
-   the fractional phase of the first frame boundary (``carry_phase``);
+Stage 2, one step on a block of I/Q:
+
+1. demodulates it (``demodulate``): AM envelope or FM discriminator, from
+   complex samples, interleaved words or planar I/Q;
+2. cuts it into frames: at rounded frame starts, or with
+   ``subsample_align`` at ``floor`` of the true start with the fractional
+   residual handed to the resampler (sub-sample-exact cuts); carried across
+   blocks by the fractional phase of the first frame boundary
+   (``carry_phase``);
 3. resamples every frame from signal to screen with K1
-   (``ops.resample_kernel.frames_to_screens``) — or, for interleaved I/Q
-   words with plain AM demod (``fuses_demod``), does 1 and 3 in one pass
-   with K1's fused entry (``frames_to_screens_from_words``), which gives
-   the same values without writing the envelope;
+   (``ops.resample_kernel.frames_to_screens``), which takes the residuals
+   and 2 or 4 taps itself — or, for interleaved I/Q words with plain AM
+   demod (``fuses_demod``), does 1 and 3 in one pass with K1's fused entry
+   (``frames_to_screens_from_words``), which gives the same values without
+   writing the envelope; ``resampler="gather"`` selects the JAX package's
+   gather formulation in plain PyTorch instead;
 4. finds each frame's sub-pixel blanking position and
 5. aligns the frame by a fractional circular shift (``ops.framesync``);
 6. folds the frames into the carried EMA image (``ema_fold``).
 
 ``step(iq, ema, alpha[, phase]) -> (ema, frames, sync, score)`` runs
 eagerly on the device it was built for (the CUDA card unless the caller
-names another); there is no jit and no vmap.  The port
-implements ``resampler="pallas"`` (K1) only, with rounded frame cuts; the
-other options raise ``NotImplementedError`` naming the ROADMAP item that
-brings them.
+names another); there is no jit and no vmap.
+
+Frame positions.  The K1 routes compute exact-cut starts and residuals in
+float64 on the host and hand K1 int32 starts and float32 residuals: at 36
+frames of 333,333 samples a float32 position has a spacing of 1.0, so its
+residual would be lost.  The JAX package's quantised fidelity plan keeps
+this track in float64 too; its traced ``gather`` chain computes it in
+float32, and so does the port's ``resampler="gather"`` with
+``carry_phase``, so that it equals its JAX counterpart.
+
+Not ported: the other resamplers, ``combined_reconstruct``,
+``make_batched_reconstruct_fn`` and ``refine_with_search``; they raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 
 from __future__ import annotations
@@ -30,21 +51,49 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops.demod import am_demod, am_envelope_from_iq, invert_envelope
+from ..ops.autocorr import (
+    autocorrelation,
+    estimate_line_count,
+    estimate_refresh,
+    estimate_snr,
+    suggest_alpha,
+    top_line_period_peaks,
+    zoom_autocorr,
+)
+from ..ops.demod import (
+    am_demod,
+    am_demod_power,
+    am_envelope_from_iq,
+    am_envelope_from_iq_planar,
+    am_power_from_iq,
+    fm_demod,
+    fm_demod_from_iq,
+    fm_demod_from_iq_planar,
+    invert_envelope,
+    to_planar_iq,
+)
+from ..ops.enhance import restore_image
 from ..ops.framesync import (
     align_frame,
     align_frame_subpixel,
     frame_sync,
     frame_sync_subpixel,
 )
-from ..ops.resample import RENDER_SIZE
+from ..ops.resample import RENDER_SIZE, frames_to_screens_gather
 from ..ops.resample_kernel import frames_to_screens, frames_to_screens_from_words
 from ..utils.device import resolve_device
-from ..video.modes import VideoMode
+from ..video.modes import VideoMode, find_closest_mode
 
 __all__ = [
+    "TimingEstimate",
+    "TimingEvidence",
     "ReconstructionConfig",
     "Reconstruction",
+    "estimate_timing",
+    "timing_evidence",
+    "pick_line_peak",
+    "auto_reconstruct",
+    "exact_cut_starts",
     "demodulate",
     "fuses_demod",
     "process_frames",
@@ -56,16 +105,31 @@ __all__ = [
 
 
 @dataclasses.dataclass(frozen=True)
+class TimingEstimate:
+    refresh_hz: float
+    line_count: float
+    mode_name: str
+    mode: VideoMode
+    snr_db: float = float("nan")  # autocorrelation contrast proxy
+
+    @property
+    def suggested_alpha(self) -> float:
+        """EMA coefficient matched to the measured SNR (see suggest_alpha)."""
+        return float(suggest_alpha(self.snr_db)) if np.isfinite(self.snr_db) else 0.1
+
+
+@dataclasses.dataclass(frozen=True)
 class ReconstructionConfig:
     """Static parameters of a reconstruction step — the fields of the JAX
     package's config, with the same ``samples_per_frame`` and
     ``block_samples``.
 
     Fields that only choose a TPU formulation (``align_impl``, ``segments``,
-    ``num_phases``, ``einsum_bf16``, ``interp_taps``, ``frame_loop``,
-    ``phase_bins``, ``fuse_demod_cut``) are accepted and change no value on
-    the K1 path: the JAX package's Pallas path ignores them too, and its
-    ``align_impl="matmul"`` is the roll form up to f32 reassociation.
+    ``num_phases``, ``einsum_bf16``, ``frame_loop``, ``phase_bins``,
+    ``fuse_demod_cut``) are accepted and change no value: K1 reads every
+    pixel at its exact position, so there is no phase table to quantise, and
+    the JAX package's ``align_impl="matmul"`` is the roll form up to f32
+    reassociation.
     """
 
     sample_rate: float
@@ -78,17 +142,23 @@ class ReconstructionConfig:
     align_interp: str = "linear"  # "linear" (2-tap) or "cubic" (Catmull-Rom)
     align_impl: str = "matmul"
     # "complex64": iq is complex [block_samples]; "iq_interleaved": iq is
-    # int16/float32 [2*block_samples] raw I/Q words.
+    # int16/float32 [2*block_samples] raw I/Q words; "iq_planar": iq is
+    # int16/float32 [2, block_samples], row 0 = I (ops.demod.to_planar_iq).
     input_format: str = "complex64"
-    demod: str = "am"
-    # The port's only resampler is K1, the counterpart of the JAX package's
-    # "pallas"; it is the default here.
+    demod: str = "am"         # "am" envelope or "fm" discriminator
+    # "pallas" is K1, the counterpart of the JAX package's Pallas kernel and
+    # the default here; "gather" is that package's gather formulation in
+    # plain PyTorch (positions clipped into the frame, 2 taps only).
     resampler: str = "pallas"
     segments: int = 1
     num_phases: int = 64
     einsum_bf16: bool = False
+    # Interpolation along the scan in K1: 2 = linear, 4 = Catmull-Rom.
     interp_taps: int = 2
     frame_loop: str = "vmap"
+    # Sub-sample-exact frame cuts: each frame is cut at the floor of its
+    # true start and the fractional residual moves the resampler's read
+    # positions, instead of rounding the start to the nearest sample.
     subsample_align: bool = False
     # With carry_phase, step() takes the fractional sample offset of the
     # first frame boundary inside the block, so that frame cuts stay
@@ -112,25 +182,20 @@ class ReconstructionConfig:
 
 def _check_supported(config: ReconstructionConfig) -> None:
     """Raise for the options this port does not implement yet."""
-    if config.resampler != "pallas":
+    if config.resampler not in ("pallas", "gather"):
         raise NotImplementedError(
-            f"resampler={config.resampler!r}: the port has only K1 (resampler='pallas'); "
-            "the gather resampler comes with ROADMAP Queue 1, 'Exact cuts'")
-    if config.subsample_align:
-        raise NotImplementedError(
-            "subsample_align=True: ROADMAP Queue 1, 'Exact cuts'")
-    if config.demod != "am":
-        raise NotImplementedError(
-            f"demod={config.demod!r}: ROADMAP Queue 1, 'FM and planar demod'")
-    if config.input_format == "iq_planar":
-        raise NotImplementedError(
-            "input_format='iq_planar': ROADMAP Queue 1, 'FM and planar demod'")
+            f"resampler={config.resampler!r}: the port has K1 (resampler='pallas') and "
+            "'gather'; the other resamplers are ROADMAP Queue 1, 'Operator surface'")
     if config.input_format == "envelope":
         raise NotImplementedError(
             "input_format='envelope' (the combine front's output): "
             "ROADMAP Queue 1, 'Scan and combine'")
-    if config.input_format not in ("complex64", "iq_interleaved"):
+    if config.input_format not in ("complex64", "iq_interleaved", "iq_planar"):
         raise ValueError(f"unknown input_format {config.input_format!r}")
+    if config.demod not in ("am", "fm"):
+        raise ValueError(f"demod must be 'am' or 'fm', got {config.demod!r}")
+    if config.interp_taps not in (2, 4):
+        raise ValueError(f"interp taps must be 2 or 4, got {config.interp_taps}")
     if config.align_interp not in ("linear", "cubic"):
         raise ValueError(f"align_interp must be 'linear' or 'cubic', got {config.align_interp!r}")
 
@@ -141,23 +206,198 @@ class Reconstruction:
     frames: np.ndarray       # per-frame aligned screens (n_frames, *render_size)
     sync: np.ndarray         # per-frame (s_y, s_x)
     score: np.ndarray        # per-frame sync contrast score
+    # When MTF restoration ran (auto_reconstruct(restore=True)), ``image`` is
+    # the restored screen and this keeps the raw EMA it was computed from.
+    image_raw: np.ndarray | None = None
+
+    @property
+    def blanking_is_dark(self) -> bool:
+        """Detected blanking polarity: after alignment the blanking interval
+        sits along the top/left border; compare its level to the interior.
+        True ⇒ blanking darker than content (display the image as-is);
+        False ⇒ blanking brighter (real TEMPEST intermodulation often inverts
+        video — render with ``invert=True`` for a natural-looking screen)."""
+        h, w = self.image.shape
+        bh, bw = max(h // 40, 2), max(w // 40, 2)
+        border = float(
+            np.concatenate([self.image[:bh].ravel(), self.image[:, :bw].ravel()]).mean())
+        interior = float(self.image[h // 4 : -h // 4, w // 4 : -w // 4].mean())
+        return border < interior
 
 
-def demodulate(iq: torch.Tensor, config: ReconstructionConfig) -> torch.Tensor:
-    """Demodulation stage: the float32 AM envelope of one block."""
-    if config.input_format == "iq_interleaved":
-        env = am_envelope_from_iq(iq)
+# ------------------------------------------------------------------ stage 1
+def _as_tensor(x, device: torch.device) -> torch.Tensor:
+    if isinstance(x, np.ndarray):
+        if np.iscomplexobj(x):
+            x = np.ascontiguousarray(x, np.complex64)
+        return torch.from_numpy(x).to(device)
+    return torch.as_tensor(x, device=device)
+
+
+def _timing_signal(iq, envelope: bool, device) -> tuple[torch.Tensor, bool]:
+    """The estimators' input on ``device`` and whether it is interleaved
+    words: host complex input goes up as float32 words (a zero-copy view), a
+    tensor stays where it lies unless ``device`` names another place."""
+    if isinstance(iq, np.ndarray) and np.iscomplexobj(iq):
+        iq = np.ascontiguousarray(iq, np.complex64).view(np.float32)
+    if isinstance(iq, torch.Tensor) and device is None:
+        device = iq.device
+    sig = _as_tensor(iq, resolve_device(device))
+    return sig, not envelope and not sig.is_complex()
+
+
+def _timing_kernel(sig: torch.Tensor, fs: float, corr_seconds: float, interleaved: bool,
+                   rate_min: float, rate_max: float, envelope: bool):
+    """(gamma, fv, y_t, snr) of one signal: what both stage-1 entries compute."""
+    if envelope:
+        env = sig.to(torch.float32)  # already demodulated
+    elif interleaved:
+        env = am_power_from_iq(sig)
     else:
-        env = am_demod(iq)
+        env = am_demod_power(sig)  # |z|^2 envelope
+    gamma, _ = autocorrelation(env, fs, 0.0, corr_seconds)
+    fv = estimate_refresh(gamma, fs, rate_min, rate_max)
+    y_t = estimate_line_count(gamma, fs, fv, rate_min=rate_min, rate_max=rate_max)
+    return gamma, fv, y_t, estimate_snr(env)
+
+
+def _snap(fv: float, y_t: float, snr: float) -> TimingEstimate:
+    """Snap the estimates to the closest known video mode.  Keeps the
+    *measured* refresh (the true pixel clock differs from nominal) but the
+    mode's pixel geometry."""
+    name, mode = find_closest_mode(y_t, fv)
+    return TimingEstimate(fv, y_t, name, VideoMode(mode.width, mode.height, fv), snr)
+
+
+def estimate_timing(
+    iq: np.ndarray | torch.Tensor,
+    fs: float,
+    corr_seconds: float = 0.1,
+    rate_min: float = 50.0,
+    rate_max: float = 90.0,
+    envelope: bool = False,
+    device: torch.device | str | None = None,
+) -> TimingEstimate:
+    """Stage 1: refresh rate + line count from ~``corr_seconds`` of signal,
+    snapped to the closest known video mode.
+
+    ``iq`` may be complex64 or raw interleaved I/Q words (int16/float32, even
+    length) — or, with ``envelope=True``, an already-demodulated real
+    signal.  Runs on ``device`` (``None``: where a tensor lies, else the CUDA
+    card; raises when there is none)."""
+    sig, interleaved = _timing_signal(iq, envelope, device)
+    _, fv, y_t, snr = _timing_kernel(sig, float(fs), float(corr_seconds), interleaved,
+                                     float(rate_min), float(rate_max), envelope)
+    return _snap(float(fv), float(y_t), float(snr))
+
+
+@dataclasses.dataclass(frozen=True)
+class TimingEvidence:
+    """The correlation evidence behind a :class:`TimingEstimate`: the zoomed
+    autocorrelation over the refresh band with the detected peak, and the
+    line-period lag window with the detected line-rate peak."""
+
+    rates_hz: np.ndarray       # refresh-band axis (descending, Hz)
+    gamma_rates: np.ndarray    # 10log10|Γ|² over the refresh band
+    refresh_hz: float          # detected peak (marked on the panel)
+    line_lags: np.ndarray      # line-period lag axis [samples]
+    gamma_lines: np.ndarray    # 10log10|Γ|² over the line-lag window
+    line_lag: float            # detected line period [samples]
+    line_count: float          # fs / (fv * line_lag)
+    # Ranked alternative line-period peaks, rows (lag, y_t, comb score) —
+    # the operator's recovery path when the automatic lock is wrong.
+    line_peaks: np.ndarray | None = None
+
+    def rate_mark(self) -> float:
+        """Fractional x position of the refresh peak ON THE DRAWN PANEL: the
+        panels plot the gamma arrays against INDEX and the rates axis is
+        1/lag-spaced, so the mark is the peak's index fraction, not its
+        rate-linear fraction."""
+        r = np.asarray(self.rates_hz)
+        i = int(np.argmin(np.abs(r - self.refresh_hz)))
+        return i / max(len(r) - 1, 1)
+
+    def line_mark(self) -> float:
+        """Fractional x position of the line-period peak on the drawn
+        panel (index space, as :meth:`rate_mark`)."""
+        lags = np.asarray(self.line_lags)
+        i = int(np.argmin(np.abs(lags - self.line_lag)))
+        return i / max(len(lags) - 1, 1)
+
+
+def timing_evidence(
+    iq: np.ndarray | torch.Tensor,
+    fs: float,
+    corr_seconds: float = 0.1,
+    rate_min: float = 50.0,
+    rate_max: float = 90.0,
+    y_min: int = 200,
+    y_max: int = 2500,
+    envelope: bool = False,
+    device: torch.device | str | None = None,
+) -> tuple[TimingEstimate, TimingEvidence]:
+    """Stage 1 with its evidence: the timing estimate plus the correlation
+    windows it was read from, for rendering.  Same input conventions as
+    :func:`estimate_timing`."""
+    sig, interleaved = _timing_signal(iq, envelope, device)
+    gamma, fv, y_t, snr = _timing_kernel(sig, float(fs), float(corr_seconds), interleaved,
+                                         float(rate_min), float(rate_max), envelope)
+    timing = _snap(float(fv), float(y_t), float(snr))
+    fv_f, y_f = timing.refresh_hz, timing.line_count
+    rates, g_rates = zoom_autocorr(gamma, fs, rate_min, rate_max)
+    # Line-period window: the same bounds estimate_line_count searches.
+    n = int(gamma.shape[0])
+    lag_lo = max(int(fs / (rate_max * y_max)) - 2, 2)
+    lag_hi = min(int(fs / (rate_min * y_min)) + 2, n - 1)
+    gamma_host = gamma.cpu().numpy()
+    evidence = TimingEvidence(
+        rates_hz=rates.cpu().numpy(),
+        gamma_rates=g_rates.cpu().numpy(),
+        refresh_hz=fv_f,
+        line_lags=np.arange(lag_lo, lag_hi + 1, dtype=np.float64),
+        gamma_lines=gamma_host[lag_lo : lag_hi + 1],
+        line_lag=float(fs / (fv_f * y_f)),
+        line_count=y_f,
+        line_peaks=top_line_period_peaks(
+            gamma_host, fs, fv_f, rate_min=rate_min, rate_max=rate_max,
+            y_min=y_min, y_max=y_max),
+    )
+    return timing, evidence
+
+
+def pick_line_peak(timing: TimingEstimate, evidence: TimingEvidence, n: int) -> TimingEstimate:
+    """Adopt ranked line-period peak ``n`` (0-based) from the evidence: the
+    operator override for a wrong automatic lock.  Returns a new
+    TimingEstimate snapped to the closest video mode at the picked line
+    count (measured refresh kept)."""
+    if evidence.line_peaks is None or not len(evidence.line_peaks):
+        raise ValueError("evidence carries no ranked line peaks")
+    if not 0 <= n < len(evidence.line_peaks):
+        raise IndexError(f"peak {n} out of range (have {len(evidence.line_peaks)})")
+    return _snap(timing.refresh_hz, float(evidence.line_peaks[n][1]), timing.snr_db)
+
+
+# ------------------------------------------------------------------ stage 2
+def demodulate(iq: torch.Tensor, config: ReconstructionConfig) -> torch.Tensor:
+    """Demodulation stage: the float32 AM envelope or FM discriminator
+    output of one block."""
+    fm = config.demod == "fm"
+    if config.input_format == "iq_planar":
+        env = fm_demod_from_iq_planar(iq) if fm else am_envelope_from_iq_planar(iq)
+    elif config.input_format == "iq_interleaved":
+        env = fm_demod_from_iq(iq) if fm else am_envelope_from_iq(iq)
+    else:
+        env = fm_demod(iq) if fm else am_demod(iq)
     return invert_envelope(env) if config.invert else env
 
 
 def fuses_demod(config: ReconstructionConfig, iq: torch.Tensor) -> bool:
     """Whether the step hands ``iq`` to K1 as raw words, with the demod done
-    inside the resampler: interleaved int16 or float32 words, plain AM.  The
-    values are those of ``demodulate`` followed by K1 on the envelope."""
-    return (config.input_format == "iq_interleaved" and config.demod == "am"
-            and not config.invert and iq.dtype in (torch.int16, torch.float32))
+    inside the resampler: interleaved int16 or float32 words, plain AM, K1.
+    The values are those of ``demodulate`` followed by K1 on the envelope."""
+    return (config.resampler == "pallas" and config.input_format == "iq_interleaved"
+            and config.demod == "am" and not config.invert
+            and iq.dtype in (torch.int16, torch.float32))
 
 
 def process_frames(
@@ -166,15 +406,20 @@ def process_frames(
     config: ReconstructionConfig,
     frame_len: int,
     from_words: bool = False,
+    frac_offsets: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Resample + sync + align all frames of one envelope block: returns
     ``(frames [F,h,w], sync [F,2], score [F])``.  With ``from_words``,
     ``env`` is the block's interleaved I/Q words instead and K1 takes their
-    AM envelope itself."""
+    AM envelope itself.  ``frac_offsets`` (per frame, in [0, 1)) are the
+    residuals of sub-sample-exact cuts (``config.subsample_align``)."""
     mode = config.mode
-    resample = frames_to_screens_from_words if from_words else frames_to_screens
-    screens = resample(
-        env, frame_starts, frame_len, mode.height, mode.width, config.render_size)
+    raster = (frame_len, mode.height, mode.width, config.render_size)
+    if config.resampler == "gather":
+        screens = frames_to_screens_gather(env, frame_starts, *raster, frac_offsets)
+    else:
+        resample = frames_to_screens_from_words if from_words else frames_to_screens
+        screens = resample(env, frame_starts, *raster, frac_offsets, config.interp_taps)
     if config.do_align and config.align_subpixel:
         s_y, s_x, score = frame_sync_subpixel(screens)
         aligned = align_frame_subpixel(screens, s_y, s_x, config.align_interp)
@@ -209,12 +454,29 @@ def carry_phase_starts(phase: float, spf: float, n_frames: int) -> np.ndarray:
     return np.floor(exact + np.float32(0.5)).astype(np.int32)
 
 
-def _as_tensor(x, device: torch.device) -> torch.Tensor:
-    if isinstance(x, np.ndarray):
-        if np.iscomplexobj(x):
-            x = np.ascontiguousarray(x, np.complex64)
-        return torch.from_numpy(x).to(device)
-    return torch.as_tensor(x, device=device)
+_BELOW_ONE = np.nextafter(np.float32(1.0), np.float32(0.0))
+
+
+def exact_cut_starts(phase: float, spf: float, n_frames: int) -> tuple[np.ndarray, np.ndarray]:
+    """Sub-sample-exact cuts of a block whose first frame boundary lies
+    ``phase`` samples in: (int32 starts ``floor(phase + spf·k)``, float32
+    residuals in [0, 1)), computed in float64 — a float32 position of
+    millions of samples has no fraction left.  A residual that float32 would
+    round up to 1 stays just below it."""
+    exact = float(phase) + float(spf) * np.arange(n_frames, dtype=np.float64)
+    starts = np.floor(exact)
+    fracs = np.minimum((exact - starts).astype(np.float32), _BELOW_ONE)
+    return starts.astype(np.int32), fracs
+
+
+def _carry_phase_exact_f32(phase: float, spf: float, n_frames: int):
+    """The traced JAX chain's exact cuts of a carry-phase block, in its
+    stated float32 arithmetic (one rounding per operation): the port's
+    ``gather`` route keeps it so as to equal its counterpart.  See
+    :func:`exact_cut_starts` for what it loses at large positions."""
+    exact = np.float32(phase) + np.float32(spf) * np.arange(n_frames, dtype=np.float32)
+    starts = np.floor(exact)
+    return starts.astype(np.int32), exact - starts
 
 
 def make_reconstruct_fn(config: ReconstructionConfig, device: torch.device | str | None = None):
@@ -231,28 +493,41 @@ def make_reconstruct_fn(config: ReconstructionConfig, device: torch.device | str
     n_frames = config.n_frames
     spf = config.samples_per_frame
     frame_len = int(np.floor(spf))  # samples fed to the resampler per frame
-    static_starts = np.round(np.arange(n_frames) * spf).astype(np.int32)
+    sub = config.subsample_align
+    if sub:
+        static_cuts = exact_cut_starts(0.0, spf, n_frames)
+    else:
+        static_cuts = (np.round(np.arange(n_frames) * spf).astype(np.int32), None)
 
-    def _body(iq, ema, alpha, starts: np.ndarray):
+    def _body(iq, ema, alpha, starts: np.ndarray, fracs: np.ndarray | None):
         iq = _as_tensor(iq, device)
         ema = _as_tensor(ema, device).to(torch.float32)
         fstarts = torch.from_numpy(starts).to(device)
-        if fuses_demod(config, iq):
-            frames, sync, score = process_frames(iq, fstarts, config, frame_len, from_words=True)
-        else:
-            frames, sync, score = process_frames(
-                demodulate(iq, config), fstarts, config, frame_len)
+        frac_offsets = None if fracs is None else torch.from_numpy(fracs).to(device)
+        from_words = fuses_demod(config, iq)
+        frames, sync, score = process_frames(
+            iq if from_words else demodulate(iq, config), fstarts, config, frame_len,
+            from_words=from_words, frac_offsets=frac_offsets)
         return ema_fold(ema, frames, alpha), frames, sync, score
 
     if config.carry_phase:
+        if not sub:
+            def cuts(phase):
+                return carry_phase_starts(phase, spf, n_frames), None
+        elif config.resampler == "gather":
+            def cuts(phase):
+                return _carry_phase_exact_f32(phase, spf, n_frames)
+        else:
+            def cuts(phase):
+                return exact_cut_starts(phase, spf, n_frames)
 
         def step(iq, ema, alpha, phase):
-            return _body(iq, ema, alpha, carry_phase_starts(float(phase), spf, n_frames))
+            return _body(iq, ema, alpha, *cuts(float(phase)))
 
     else:
 
         def step(iq, ema, alpha):
-            return _body(iq, ema, alpha, static_starts)
+            return _body(iq, ema, alpha, *static_cuts)
 
     return step
 
@@ -269,7 +544,11 @@ def reconstruct_frames(
 
     Host complex input is reinterpreted as interleaved float32 words
     (zero-copy view), keeping the host→device copy real; real input under a
-    complex config is taken as interleaved words, as in the JAX package."""
+    complex config is taken as interleaved words, as in the JAX package.
+    Under ``input_format="iq_planar"`` a 1-D input (complex samples or
+    interleaved words) is de-interleaved on the host first."""
+    if config.input_format == "iq_planar" and getattr(iq, "ndim", 1) == 1:
+        iq = to_planar_iq(iq.cpu().numpy() if isinstance(iq, torch.Tensor) else np.asarray(iq))
     if config.input_format == "complex64":
         if isinstance(iq, np.ndarray) and np.iscomplexobj(iq):
             iq = np.ascontiguousarray(iq, np.complex64).view(np.float32)
@@ -285,12 +564,97 @@ def reconstruct_frames(
     n = config.block_samples
     if config.input_format == "iq_interleaved":
         n *= 2  # raw I/Q words, two per complex sample
-    if iq.shape[0] < n:
-        raise ValueError(f"need {n} samples for {config.n_frames} frames, got {iq.shape[0]}")
-    ema_out, frames, sync, score = step(iq[:n], ema0, alpha)
+    if iq.shape[-1] < n:
+        raise ValueError(f"need {n} samples for {config.n_frames} frames, got {iq.shape[-1]}")
+    ema_out, frames, sync, score = step(iq[..., :n], ema0, alpha)
     return Reconstruction(
         image=ema_out.cpu().numpy(),
         frames=frames.cpu().numpy(),
         sync=sync.cpu().numpy(),
         score=score.cpu().numpy(),
     )
+
+
+def auto_reconstruct(
+    iq: np.ndarray | torch.Tensor,
+    fs: float,
+    n_frames: int | None = None,
+    alpha: float | str = 0.1,
+    invert: bool = False,
+    corr_seconds: float = 0.1,
+    refine_with_search: bool = False,
+    search_tol_hz: float = 1.0,
+    rate_min: float = 50.0,
+    rate_max: float = 90.0,
+    align_subpixel: bool = True,
+    pick_line_peak: int | None = None,
+    restore: bool = True,
+    restore_nsr: float = 0.002,
+    demod: str = "am",
+    device: torch.device | str | None = None,
+) -> tuple[TimingEstimate, Reconstruction]:
+    """Fully automatic capture → image on ``device`` (``None``: the CUDA
+    card; raises when there is none): stage 1 finds refresh and line count
+    and snaps them to a video mode, stage 2 reconstructs with that geometry
+    through K1, and the known MTF of the chain is Wiener-inverted on the
+    final average (``ops.enhance``; the raw EMA stays in
+    ``Reconstruction.image_raw``).
+
+    ``iq`` is complex samples or real interleaved I/Q words.  The capture is
+    uploaded once and stays on the device between the stages.
+
+    ``demod="fm"`` drives the whole chain off the FM discriminator: a
+    constant-amplitude FM capture has a flat envelope, so the AM statistic
+    cannot even find its refresh.  ``alpha="auto"`` takes the EMA coefficient
+    from the measured SNR proxy.  ``pick_line_peak=N`` adopts ranked
+    line-period peak N from the correlation evidence instead of the automatic
+    lock.  ``refine_with_search=True`` (scoring every video mode near the
+    measured refresh by sync contrast) needs the sharded mode search and is
+    not ported."""
+    if refine_with_search:
+        raise NotImplementedError(
+            "refine_with_search=True needs parallel.sharded.mode_search_static: "
+            "ROADMAP Queue 1, 'Multi-GPU'")
+    device = resolve_device(device)
+    if isinstance(iq, np.ndarray) and np.iscomplexobj(iq):
+        iq = np.ascontiguousarray(iq, np.complex64).view(np.float32)
+    sig = _as_tensor(iq, device)
+    # Real input is interleaved I/Q words: two words per complex sample.
+    interleaved = not sig.is_complex()
+    n_complex = sig.shape[0] // 2 if interleaved else sig.shape[0]
+    timing_sig, envelope = sig, False
+    if demod == "fm":
+        # One discriminator pass feeds the timing estimation; the
+        # reconstruction step demodulates its own block again
+        # (ReconstructionConfig.demod="fm"), which is negligible offline.
+        timing_sig, envelope = (fm_demod_from_iq(sig) if interleaved else fm_demod(sig)), True
+    if pick_line_peak is not None:
+        timing, evidence = timing_evidence(timing_sig, fs, corr_seconds, rate_min, rate_max,
+                                           envelope=envelope)
+        timing = _pick_line_peak_fn(timing, evidence, pick_line_peak)
+    else:
+        timing = estimate_timing(timing_sig, fs, corr_seconds, rate_min, rate_max,
+                                 envelope=envelope)
+    if alpha == "auto":
+        alpha = timing.suggested_alpha
+    spf = fs / timing.mode.refresh
+    if n_frames is None:
+        n_frames = max(int((n_complex - 1) / spf), 1)
+    # Interpolation-order rule of the JAX package: Catmull-Rom only when the
+    # envelope is NOT undersampled relative to the raster (≥ 1 sample per
+    # raster pixel); below that it preserves alias energy that linear's
+    # stronger roll-off suppresses.
+    taps = 4 if spf / timing.mode.pixels_per_frame >= 1.0 else 2
+    config = ReconstructionConfig(
+        sample_rate=fs, mode=timing.mode, n_frames=n_frames, invert=invert,
+        align_subpixel=align_subpixel, interp_taps=taps, demod=demod,
+    )
+    recon = reconstruct_frames(sig, config, alpha=alpha, device=device)
+    if restore:
+        recon.image_raw = recon.image
+        recon.image = restore_image(recon.image, config, nsr=restore_nsr, device=device)
+    return timing, recon
+
+
+# auto_reconstruct's ``pick_line_peak`` parameter shadows the function.
+_pick_line_peak_fn = pick_line_peak

@@ -8,9 +8,10 @@ stay continuous across blocks: the phase of the first frame boundary of each
 block comes from the absolute sample position, which follows the ring's
 production sequence so that dropped blocks do not shear the frame grid.
 
-Ported so far: construction, ``start``/``stop``, ``process_blocks`` and
-checkpoints.  ``correlate``, ``scan``, ``record``, drift feedback,
-``health``, the live combine front and the fidelity chain are ROADMAP
+Ported so far: construction, ``start``/``stop``, ``process_blocks``, the
+fidelity chain (``fidelity=True``, ``set_fidelity``), ``correlate`` with the
+mode hot-swap, and checkpoints.  ``scan``, ``record``, drift feedback,
+``health``, the operator overrides and the live combine front are ROADMAP
 Queue 1 items of their own.
 """
 
@@ -23,7 +24,13 @@ from collections.abc import Callable
 import numpy as np
 import torch
 
-from ..pipeline.offline import ReconstructionConfig, make_reconstruct_fn
+from ..pipeline.offline import (
+    ReconstructionConfig,
+    TimingEstimate,
+    estimate_timing,
+    make_reconstruct_fn,
+    timing_evidence,
+)
 from ..utils.device import resolve_device
 from ..video.modes import VideoMode
 from .ring import RingBuffer
@@ -66,13 +73,25 @@ class StreamingRuntime:
         alpha: float = 0.1,
         ring_depth: int = 16,
         invert: bool = False,
+        fidelity: bool = False,
+        fidelity_bins: int = 64,
         config_overrides: dict | None = None,
         device: torch.device | str | None = None,
     ) -> None:
-        """``config_overrides`` passes extra ReconstructionConfig fields to
-        the step (e.g. ``do_align``, ``align_interp``); the fields the
-        runtime owns cannot be overridden.  The JAX runtime's fidelity,
-        combine and native-ring options are not ported yet (ROADMAP Queue 1)."""
+        """``fidelity=True`` selects the fidelity chain: sub-sample-exact
+        frame cuts with the per-frame sync stage skipped.  K1 takes each
+        frame's exact residual, computed in float64 from the absolute sample
+        position; pair it with a drift-locked refresh (``correlate()``), since
+        nothing re-registers the frames.  ``fidelity_bins`` is the JAX
+        runtime's phase quantisation of its table-driven fidelity program: it
+        is kept, checkpointed and handed to the config, and changes no value
+        here.
+
+        ``config_overrides`` passes extra ReconstructionConfig fields to
+        the step (e.g. ``do_align``, ``align_interp``, ``interp_taps``,
+        ``resampler``); the fields the runtime owns cannot be overridden.
+        The JAX runtime's combine and native-ring options are not ported yet
+        (ROADMAP Queue 1)."""
         if config_overrides:
             owned = {"carry_phase", "input_format", "n_frames", "mode",
                      "sample_rate", "block_samples"}
@@ -85,6 +104,8 @@ class StreamingRuntime:
         self.source = source
         self.alpha = alpha
         self.invert = invert
+        self.fidelity = fidelity
+        self.fidelity_bins = fidelity_bins
         self._mode = mode
         self._n_frames_fixed = n_frames_per_block
         self._rebuild()
@@ -97,6 +118,8 @@ class StreamingRuntime:
         # (nonzero after a checkpoint resume).
         self._abs_base = 0
         self.frames_out = 0
+        self.last_evidence = None      # TimingEvidence from correlate()
+        self.last_correlate_gaps = 0   # ring gaps detected by correlate()
 
     # ------------------------------------------------------------ config
     def _rebuild(self) -> None:
@@ -112,8 +135,10 @@ class StreamingRuntime:
             carry_phase=True,
             input_format="iq_interleaved",
             resampler="pallas",
-            do_align=True,
-            align_subpixel=True,
+            subsample_align=self.fidelity,
+            do_align=not self.fidelity,
+            align_subpixel=not self.fidelity,
+            phase_bins=self.fidelity_bins if self.fidelity else 0,
         )
         if self._overrides:
             self.config = dataclasses.replace(self.config, **self._overrides)
@@ -124,6 +149,24 @@ class StreamingRuntime:
                 f"blocks ({cap} samples) are smaller than "
                 f"{self._n_frames} frame periods ({self.config.block_samples})")
         self._step = make_reconstruct_fn(self.config, self.device)
+
+    @property
+    def mode(self) -> VideoMode:
+        return self._mode
+
+    @mode.setter
+    def mode(self, new_mode: VideoMode) -> None:
+        """Hot-swap the video configuration: the step is rebuilt for it."""
+        self._mode = new_mode
+        self._rebuild()
+
+    def set_fidelity(self, on: bool) -> None:
+        """Hot-swap between the default chain (rounded cuts + per-frame
+        sync) and the fidelity chain (sub-sample-exact cuts, sync skipped).
+        Typical flow: warm up with sync on, lock the refresh, then switch
+        fidelity on with the frame grid drift-locked."""
+        self.fidelity = on
+        self._rebuild()
 
     # ---------------------------------------------------------- producer
     def start(self) -> None:
@@ -209,6 +252,70 @@ class StreamingRuntime:
         self.ema = ema
         return ema.cpu().numpy()
 
+    # ------------------------------------------------------------- tasks
+    def _gather_window(self, seconds: float) -> np.ndarray:
+        """Take ~``seconds`` of CONTIGUOUS signal from the ring (complex64).
+
+        Sequence-fenced against ring-overflow gaps: a dropped block inside a
+        concatenated window puts a frame-phase discontinuity in it, which
+        dilutes the refresh comb.  A gap restarts the run; bounded retakes
+        get a fully contiguous window in all but pathological cases, else
+        the longest contiguous run is used.  The gap count lands on
+        ``self.last_correlate_gaps``."""
+        n_needed = int(np.ceil(seconds * self.source.sample_rate))
+        n_blocks = max(1 + n_needed // self.source.block_size, 1)
+        chunks: list[np.ndarray] = []
+        best_run: list[np.ndarray] = []
+        buf = np.empty(self.source.block_size, np.complex64)
+        prev_seq = None
+        gaps = 0
+        max_takes = max(4 * n_blocks, n_blocks + 8)
+        for _ in range(max_takes):
+            if self.ring.take(buf) is None:
+                raise RuntimeError("ring closed while gathering a window")
+            self._resync_abs_pos()
+            seq = getattr(self.ring, "last_seq", -1)
+            self.abs_pos += self.source.block_size  # keep the frame grid honest
+            if prev_seq is not None and seq >= 0 and seq != prev_seq + 1:
+                gaps += 1
+                if len(chunks) > len(best_run):
+                    best_run = chunks
+                chunks = []
+            prev_seq = seq if seq >= 0 else (prev_seq + 1 if prev_seq is not None else None)
+            chunks.append(buf.copy())
+            if len(chunks) >= n_blocks:
+                break
+        if len(best_run) > len(chunks):
+            chunks = best_run
+        self.last_correlate_gaps = gaps
+        return np.concatenate(chunks)
+
+    def correlate(
+        self,
+        seconds: float = 0.1,
+        rate_min: float = 50.0,
+        rate_max: float = 90.0,
+        keep_evidence: bool = False,
+    ) -> TimingEstimate:
+        """Re-estimate timing from the live stream, on the runtime's device,
+        and hot-swap the detected mode.
+
+        ``rate_min``/``rate_max`` bound the refresh search band [Hz].  With
+        ``keep_evidence`` the correlation windows behind the estimate are
+        kept on ``self.last_evidence``.  The window is contiguous signal (see
+        ``_gather_window``); a shortened window still estimates correctly, so
+        the correlation seconds follow the signal actually gathered."""
+        sig = self._gather_window(seconds)
+        fs = self.source.sample_rate
+        seconds = min(seconds, len(sig) / fs)
+        if keep_evidence:
+            timing, self.last_evidence = timing_evidence(
+                sig, fs, seconds, rate_min, rate_max, device=self.device)
+        else:
+            timing = estimate_timing(sig, fs, seconds, rate_min, rate_max, device=self.device)
+        self.mode = timing.mode
+        return timing
+
     # ------------------------------------------------------- checkpointing
     def save_checkpoint(self, path: str) -> None:
         """Persist the streaming state (EMA image, frame phase, config) in
@@ -223,14 +330,17 @@ class StreamingRuntime:
                 sample_rate=self.source.sample_rate,
                 alpha=self.alpha,
                 frames_out=self.frames_out,
+                fidelity=self.fidelity,
+                fidelity_bins=self.fidelity_bins,
                 invert=self.invert,
             ),
             path,
         )
 
     def load_checkpoint(self, path: str) -> None:
-        """Resume from a checkpoint written by either runtime.  A state this
-        port cannot continue (live combine, fidelity chain) raises."""
+        """Resume from a checkpoint written by either runtime, its chain
+        (default or fidelity) included.  A state this port cannot continue
+        (live combine) raises."""
         from ..utils.checkpoint import load_state
 
         state = load_state(path)
@@ -241,11 +351,10 @@ class StreamingRuntime:
         if state.combine_centers:
             raise NotImplementedError(
                 "checkpoint carries live-combine centres: ROADMAP Queue 1, 'Scan and combine'")
-        if state.fidelity:
-            raise NotImplementedError(
-                "checkpoint carries the fidelity chain: ROADMAP Queue 1, 'Exact cuts'")
         self._mode = state.mode
         self.alpha = state.alpha
+        self.fidelity = state.fidelity
+        self.fidelity_bins = state.fidelity_bins
         self.invert = state.invert
         self._rebuild()
         self.ema, self.abs_pos = state_from_jax(state.ema, state.abs_pos, self.device)

@@ -160,13 +160,18 @@ def test_reconstruct_frames_complex_input_matches_jax():
 
 
 @pytest.mark.parametrize("option", [
-    dict(resampler="gather"), dict(resampler="mxu3"), dict(subsample_align=True),
-    dict(demod="fm"), dict(input_format="iq_planar"), dict(input_format="envelope"),
-])
+    dict(resampler="mxu3"), dict(resampler="mxu"), dict(resampler="rows"),
+    dict(resampler="aligned"), dict(resampler="fft"), dict(input_format="envelope"),
+], ids=lambda o: "-".join(o.values()))
 def test_unported_options_raise(option):
+    """What the port still leaves out names its ROADMAP heading: the TPU
+    formulations of the resampler and the combine front's envelope input."""
     cfg = poff.ReconstructionConfig(sample_rate=FS, mode=MODE, n_frames=3, **option)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         poff.make_reconstruct_fn(cfg, device="cpu")
+    iq = np.zeros(8, np.complex64)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*Multi-GPU"):
+        poff.auto_reconstruct(iq, FS, refine_with_search=True, device="cpu")
 
 
 def test_config_block_geometry_matches_jax():
@@ -273,7 +278,9 @@ def test_jax_checkpoint_resumes_in_port(tmp_path):
     assert _rel(out.numpy(), jrt._ema) < 1e-4
 
 
-@pytest.mark.parametrize("extra", [dict(combine_centers=[1.2e6]), dict(fidelity=True)])
+@pytest.mark.parametrize("extra", [dict(combine_centers=[1.2e6]),
+                                   dict(combine_centers=[1.2e6, 2.4e6], fidelity=True)],
+                         ids=["combine", "combine_with_fidelity"])
 def test_checkpoint_of_unported_chain_raises(tmp_path, extra):
     state = RuntimeState(ema=np.zeros((600, 800), np.float32), abs_pos=1000, mode=MODE,
                          sample_rate=FS, alpha=0.2, **extra)
