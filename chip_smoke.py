@@ -2,10 +2,11 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
 Drives the port's main paths — the streaming reconstruction chain of
-``tempest_tpu_torch``, its fidelity chain and ``auto_reconstruct`` — at full
-size: 1920x1080 @ 60 Hz (2576x1125 total) sampled at 20 Msps, 36 frames
-(12,333,335 samples) per block, 600x800 screens.  Phases, each of which
-fails the run if it fails:
+``tempest_tpu_torch``, its fidelity chain, ``auto_reconstruct``, and the
+wideband path (band scan, multi-harmonic combining offline and live, the
+runtime's tasks) — at full size: 1920x1080 @ 60 Hz (2576x1125 total) sampled
+at 20 Msps, 36 frames (12,333,335 samples) per block, 600x800 screens.
+Phases, each of which fails the run if it fails:
 
 1. build K1 (``tempest_tpu_torch/csrc/resample.cu``) with nvcc for sm_90a;
 2. hold both entries of K1 against their plain PyTorch versions on the
@@ -38,7 +39,22 @@ fails the run if it fails:
    PSNR of the restored and of the raw image, the two stages' times;
 8. ``auto_reconstruct`` on 640x480 @ 60 Hz at 32 Msps, where the taps rule
    picks 4, AM and FM (``demod="fm"``): the mode found, K1's 4-tap entries
-   launched.
+   launched;
+9. offline, wideband: three carriers of one 640x480 screen in 0.55 s at
+   32 Msps (17.6 M samples; 4 MHz channels of 2²¹ samples): ``scan_band``
+   finds the three emissions at one refresh, ``combined_reconstruct`` with
+   discovery names the mode, flips the inverted carrier, weights the
+   carriers in strength order, beats the strongest single carrier, launches
+   K1's envelope entry once a reconstruction and agrees with the port's CPU
+   run; the stages' times;
+10. live, wideband: two equal carriers of the 1080p60 screen at 20 Msps,
+    three blocks through ``StreamingRuntime(combine=[...])``, default chain
+    and ``fidelity=True``: the fused EMA's PSNR above the single-carrier
+    run's, both weights above 0.3, K1's envelope entry once a block, a
+    checkpoint resumed mid-run giving the uninterrupted run's EMA;
+11. the runtime's tasks: ``scan`` over three frequencies of a small tunable
+    source, ``refine_refresh_from_drift`` from 0.01 Hz off, ``record``, and
+    the native ring against the Python ring.
 
 Run ``python3 chip_smoke.py`` from the root of a checkout on a machine with
 a CUDA card; it ends with torch.profiler tables of three steps, with the
@@ -101,6 +117,40 @@ REFRESH_TOL_HZ = 0.01
 # Card vs CPU line count: both choose the line period on a 1/8-sample grid,
 # where one step is 0.47 lines at 1080p60, so 1e-3 means the same choice.
 LINES_TOL = 1e-3
+RENDER = (600, 800)           # the screens' shape everywhere (the config's default)
+
+# The wideband configurations.  Offline: the size of the JAX package's own
+# combining fixture.  Live: the main path's screen and rate with two carriers.
+WIDE_SECONDS = 0.55
+WIDE_CARRIERS = [-8e6, 2.5e6, 11e6]
+WIDE_AMPLITUDES = [1.0, 0.7, 0.5]
+WIDE_DEPTHS = [0.8, -0.8, 0.8]
+WIDE_SNR_DB = 6.0
+WIDE_SEED = 5
+WIDE_ALPHA = 0.7
+CHAN_BW = 4e6
+COMBINE_GAIN_DB = 0.4         # fusion over the strongest single carrier
+# Detection margin over the measured noise floor.  At this size the
+# emissions' sidebands light every channel to 9-13 dB where the carriers'
+# channels read 17-24 dB and the floor 7.3 dB.  The default margin of 5 dB
+# cuts through the sidebands: which of them pass, and whether they merge with
+# a carrier's group or stand alone, then hangs on the floor's draw (the JAX
+# package's draw of the same null reads 5.9 dB at this geometry and merges
+# them; the port's 7.3 dB leaves the channel at -2 MHz alone, as a fourth
+# emission).  8 dB lies clear of both populations.
+WIDE_MARGIN_DB = 8.0
+LIVE_CARRIERS = [-5e6, 4e6]
+LIVE_SNR_DB = 0.0
+LIVE_ALPHA = 0.7
+WEIGHT_TOL = 1e-3             # card vs CPU: ratios of means over float32 FFT outputs
+# Card vs CPU of a whole combined reconstruction: the sub-pixel sync of noisy
+# frames reassociates as in EMA_REL_TOL, through 32 frames at alpha 0.7.
+WIDE_IMAGE_TOL = 5e-3         # of the image's range
+RESUME_REL_TOL = 1e-6         # a resumed run repeats the same device operations
+SCAN_RATE = 2e6               # the tunable source of the tasks phase
+SCAN_EMISSION_HZ = 3e6
+DRIFT_OFFSET_HZ = 0.01
+DRIFT_TOL_HZ = 1e-3
 
 # Published peaks of one H100 SXM at its full 700 W power limit.
 PEAK_BYTES_PER_S = 3.35e12
@@ -280,6 +330,401 @@ def wall_ms(torch, fn, calls: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
     return float(np.median(times))
+
+
+class TunableSource:
+    """A tunable receiver in small: delivers a looping emission when tuned
+    within 0.4 MHz of ``SCAN_EMISSION_HZ`` and weak noise elsewhere — the
+    surface of a hardware source that ``StreamingRuntime.scan`` relies on
+    (the file and synthetic sources have no tuner)."""
+
+    def __init__(self, emission: np.ndarray, block_size: int) -> None:
+        self.sample_rate = SCAN_RATE
+        self.block_size = block_size
+        self.carrier_freq = 0.0
+        self._sig = emission
+        self._pos = 0
+        self._rng = np.random.default_rng(11)
+
+    def set_carrier(self, freq: float) -> None:
+        self.carrier_freq = float(freq)
+
+    def read(self, out: np.ndarray) -> None:
+        n = self.block_size
+        if abs(self.carrier_freq - SCAN_EMISSION_HZ) < 0.4e6:
+            out[:] = np.take(self._sig, np.arange(self._pos, self._pos + n), mode="wrap")
+            self._pos += n
+        else:
+            out[:] = (0.2 * (self._rng.standard_normal(n) + 1j * self._rng.standard_normal(n))
+                      ).astype(np.complex64)
+
+    def close(self) -> None:
+        pass
+
+
+def hold_envelope_entry(tp, torch, env, starts, fracs, raster, label: str) -> None:
+    """K1's envelope entry against its plain version on a fused envelope, at
+    the shapes a combine path gives it."""
+    from tempest_tpu_torch.ops.resample_kernel import (
+        frames_to_screens, frames_to_screens_plain, screen_geometry)
+
+    geom = screen_geometry(*raster, env.device)
+    got = frames_to_screens(env, starts, *raster, fracs, 2)
+    ref = frames_to_screens_plain(env, starts, geom, fracs, 2)
+    torch.cuda.synchronize()
+    rel = float((got - ref).abs().max()) / float(ref.abs().max())
+    print(f"[K1 envelope, {label}] {starts.numel()} frames of {raster[0]} samples from a fused "
+          f"envelope of {env.numel()}: relative diff vs plain {rel:.3e} "
+          f"(tolerance {K1_REL_TOL:g})")
+    check(got.shape[0] == starts.numel() and bool(torch.isfinite(got).all())
+          and rel < K1_REL_TOL, f"K1's envelope entry, {label}, agrees with its plain version")
+
+
+def phase_offline_wideband(tp, torch, dev, card: str, reset_counts) -> dict:
+    """Phase 9: wideband capture -> carriers -> fused image, offline, at the
+    size of the JAX package's combining fixture.  Returns the launch counts
+    of K1's envelope entry over the path."""
+    from tempest_tpu_torch.ops import combine as pcomb
+    from tempest_tpu_torch.ops import scan as pscan
+    from tempest_tpu_torch.ops.resample_kernel import frames_to_screens, \
+        frames_to_screens_from_words
+    from tempest_tpu_torch.pipeline import offline as poff
+
+    mode = tp.ALL_VIDEO_MODES[SMALL_MODE_NAME]
+    fs = SMALL_SAMPLE_RATE
+    t0 = time.perf_counter()
+    cap = tp.generate_iq_harmonics(mode, fs, int(fs * WIDE_SECONDS), WIDE_CARRIERS,
+                                   amplitudes=WIDE_AMPLITUDES, depths=WIDE_DEPTHS,
+                                   snr_db=WIDE_SNR_DB, seed=WIDE_SEED)
+    n_fft, m_chan, fs_chan = pscan._channel_geometry(len(cap.iq), fs, CHAN_BW)
+    centers = pscan.scan_centers(fs, CHAN_BW / 2, CHAN_BW / 2)
+    print(f"[wideband] {len(cap.iq)} samples of {SMALL_MODE_NAME} at {fs / 1e6:g} Msps, carriers "
+          f"{[c / 1e6 for c in WIDE_CARRIERS]} MHz at {WIDE_SNR_DB:g} dB SNR, in "
+          f"{time.perf_counter() - t0:.1f} s; FFT window {n_fft}, {len(centers)} channels of "
+          f"{m_chan} samples at {fs_chan / 1e6:g} Msps")
+    check((n_fft, m_chan, fs_chan) == (1 << 24, 1 << 21, 4e6) and len(centers) == 15,
+          "the offline wideband geometry is the fixture's")
+    host_words = cap.iq.view(np.float32)
+    upload_ms = wall_ms(torch, lambda: torch.from_numpy(host_words).to(dev))
+    words = torch.from_numpy(host_words).to(dev)
+
+    # The band scan: what it finds, then its time and the time of its parts.
+    torch.cuda.reset_peak_memory_stats()
+    res = pscan.scan_band(words, fs, centers, chan_bw=CHAN_BW)
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    ems = res.emissions(min_margin_db=WIDE_MARGIN_DB)
+    print(f"[scan_band] floor {res.floor_db[0]:.2f} dB; prominence "
+          f"{np.round(res.prominence_db, 1).tolist()}; {len(ems)} emissions at a margin of "
+          f"{WIDE_MARGIN_DB:g} dB: "
+          f"{[(e['best_channel_hz'] / 1e6, round(e['refresh_hz'], 4)) for e in ems]} "
+          f"({len(res.emissions())} at the default margin); peak device memory {peak_mb:.0f} MB")
+    check(len(ems) == 3, "scan_band finds three emissions")
+    for e in ems:
+        check(min(abs(e["best_channel_hz"] - c) for c in WIDE_CARRIERS) <= CHAN_BW / 2
+              and e["prominence_db"] - e["floor_db"] >= WIDE_MARGIN_DB,
+              f"emission at {e['best_channel_hz'] / 1e6:g} MHz lies on a carrier, above the floor")
+    screens = poff.discover_screens(None, fs, CHAN_BW, scan_result=res,
+                                    min_margin_db=WIDE_MARGIN_DB)
+    check(len(screens) == 1 and len(screens[0]) == 3
+          and all(abs(e["refresh_hz"] - mode.refresh) < REFRESH_TOL_HZ for e in screens[0]),
+          "the three emissions are one screen at one refresh")
+    scan_ms = wall_ms(torch, lambda: pscan.scan_band(words, fs, centers, chan_bw=CHAN_BW))
+    z = torch.view_as_complex(words[: 2 * n_fft].reshape(n_fft, 2))
+    fft_ms = wall_ms(torch, lambda: torch.fft.fft(z))
+    chans, _ = pscan._channelize_complex(words, fs, centers, CHAN_BW)
+    chan_ms = wall_ms(torch, lambda: pscan._channelize_complex(words, fs, centers, CHAN_BW))
+    ifft_ms = wall_ms(torch, lambda: torch.fft.ifft(chans, dim=1))
+    envs = pscan._demod_rows(chans, "am")
+    score_ms = wall_ms(torch, lambda: pscan._comb_contrast(envs, fs_chan, 0.1, 50.0, 90.0))
+    floor_ms = wall_ms(torch, lambda: pscan._noise_floor(fs_chan, m_chan, 0.1, 50.0, 90.0,
+                                                         device=dev))
+    draws_ms = wall_ms(torch, lambda: pscan.noise_floor_draws(m_chan), calls=1)
+    print(f"[scan_band] {scan_ms:.2f} ms for {len(centers)} channels, words on the card "
+          f"(upload of {host_words.nbytes / 1e6:.1f} MB: {upload_ms:.2f} ms); its parts: "
+          f"channeliser {chan_ms:.2f} ms (the {n_fft}-point FFT alone {fft_ms:.2f}, the batched "
+          f"inverse FFT alone {ifft_ms:.2f}), scoring {score_ms:.2f} ms, floor {floor_ms:.2f} ms "
+          f"(of which drawing the surrogates on the host {draws_ms:.2f}); wall clock, median "
+          f"of 3, on {card}")
+    del z, chans, envs
+
+    # The fusion alone: channel envelopes, scoring pass, re-weighting pass.
+    amp = pcomb._channel_envelopes(words, fs, WIDE_CARRIERS, CHAN_BW, "am", None)
+    amp_ms = wall_ms(torch, lambda: pcomb._channel_envelopes(words, fs, WIDE_CARRIERS, CHAN_BW,
+                                                             "am", None))
+    fuse_args = (amp, fs_chan, 0.1, 50.0, 90.0, "mrc")
+    pass1_ms = wall_ms(torch, lambda: pcomb._fuse(*fuse_args, None))
+    pass2_ms = wall_ms(torch, lambda: pcomb._fuse(*fuse_args, mode.refresh))
+    comb_ms = wall_ms(torch, lambda: pcomb.combine_harmonics(words, fs, WIDE_CARRIERS, CHAN_BW))
+    print(f"[combine_harmonics] {comb_ms:.2f} ms for 3 carriers: channel envelopes {amp_ms:.2f} "
+          f"ms, pass 1 (autocorrelation search) {pass1_ms:.2f} ms, pass 2 (frame-periodic MRC) "
+          f"{pass2_ms:.2f} ms; wall clock, median of 3, on {card}")
+    del amp, fuse_args
+
+    # The main path: discovery, fusion, reconstruction through K1.
+    truth = tp.downgrade_image(torch.from_numpy(cap.frame)).numpy()
+    reset_counts()
+    timing, recon, comb = tp.combined_reconstruct(words, fs, None, chan_bw=CHAN_BW,
+                                                  alpha=WIDE_ALPHA, min_margin_db=WIDE_MARGIN_DB)
+    launches = frames_to_screens.launches_by_variant[2, False]
+    check(launches == 1 and frames_to_screens.launches == 1
+          and frames_to_screens_from_words.launches == 0,
+          f"combined_reconstruct went through K1's envelope entry once ({launches})")
+    _, single, _ = tp.combined_reconstruct(words, fs, [WIDE_CARRIERS[0]], chan_bw=CHAN_BW,
+                                           alpha=WIDE_ALPHA)
+    check(frames_to_screens.launches == 2, "one more launch for one more reconstruction")
+    p3, _ = tp.aligned_psnr(truth, recon.image)
+    p1, _ = tp.aligned_psnr(truth, single.image)
+    print(f"[combined_reconstruct] {timing.mode_name}, refresh {timing.refresh_hz:.6f} Hz, carriers "
+          f"{(comb.centers_hz / 1e6).tolist()} MHz, weights {np.round(comb.weights, 4).tolist()}, "
+          f"polarity {comb.polarity.tolist()}, {recon.frames.shape[0]} frames; aligned PSNR fused "
+          f"{p3:.3f} dB, strongest carrier alone {p1:.3f} dB (bar +{COMBINE_GAIN_DB} dB)")
+    check(timing.mode_name == SMALL_MODE_NAME, "combined_reconstruct names the mode")
+    # Discovery lists the carriers by comb mass; the capture lists them by
+    # frequency, strongest first.
+    by_freq = np.argsort(comb.centers_hz)
+    check(comb.polarity[by_freq].tolist() == [1.0, -1.0, 1.0], "the inverted carrier is flipped")
+    w = comb.weights[by_freq]
+    check(w[0] > w[1] > w[2] > 0.1 and abs(w.sum() - 1.0) < 1e-6,
+          "weights in strength order, summing to 1")
+    check(recon.image.shape == RENDER and bool(np.isfinite(recon.image).all()),
+          "fused image finite, of the screen's shape")
+    check(p3 > p1 + COMBINE_GAIN_DB, "the fusion beats the strongest single carrier")
+
+    t0 = time.perf_counter()
+    cpu_timing, cpu_recon, cpu_comb = tp.combined_reconstruct(
+        cap.iq, fs, comb.centers_hz, chan_bw=CHAN_BW, alpha=WIDE_ALPHA, device="cpu")
+    span = float(cpu_recon.image_raw.max() - cpu_recon.image_raw.min())
+    img_rel = float(np.abs(recon.image_raw - cpu_recon.image_raw).max()) / span
+    w_err = float(np.abs(comb.weights - cpu_comb.weights).max())
+    print(f"[combined_reconstruct] CPU run {time.perf_counter() - t0:.1f} s; card vs CPU: weights "
+          f"max diff {w_err:.3e} (tolerance {WEIGHT_TOL:g}), raw image max diff {img_rel:.3e} of "
+          f"range (tolerance {WIDE_IMAGE_TOL:g}), refresh {timing.refresh_hz:.6f} vs "
+          f"{cpu_timing.refresh_hz:.6f} Hz")
+    check(cpu_timing.mode_name == timing.mode_name
+          and abs(cpu_timing.refresh_hz - timing.refresh_hz) < 1e-3
+          and cpu_comb.polarity.tolist() == comb.polarity.tolist(),
+          "card and CPU agree on mode, refresh and polarity")
+    check(w_err < WEIGHT_TOL, "card weights match the CPU run")
+    check(img_rel < WIDE_IMAGE_TOL, "card image matches the CPU run")
+
+    given_ms = wall_ms(torch, lambda: tp.combined_reconstruct(
+        words, fs, comb.centers_hz, chan_bw=CHAN_BW, alpha=WIDE_ALPHA))
+    disc_ms = wall_ms(torch, lambda: tp.combined_reconstruct(
+        words, fs, None, chan_bw=CHAN_BW, alpha=WIDE_ALPHA, min_margin_db=WIDE_MARGIN_DB))
+    host_ms = wall_ms(torch, lambda: tp.combined_reconstruct(
+        cap.iq, fs, None, chan_bw=CHAN_BW, alpha=WIDE_ALPHA, min_margin_db=WIDE_MARGIN_DB,
+        device=dev))
+    print(f"[combined_reconstruct] {given_ms:.2f} ms with the carriers given, {disc_ms:.2f} ms "
+          f"with discovery (words on the card), {host_ms:.2f} ms with discovery from host "
+          f"complex samples ({1e3 * WIDE_SECONDS:.0f} ms of capture); wall clock, median of 3, "
+          f"on {card}")
+
+    # K1's envelope entry at this path's shapes, against its plain version.
+    spf_c = fs_chan / timing.mode.refresh
+    n_frames = recon.frames.shape[0]
+    env = torch.from_numpy(comb.envelope).to(dev)
+    starts = torch.from_numpy(np.round(np.arange(n_frames) * spf_c).astype(np.int32)).to(dev)
+    hold_envelope_entry(tp, torch, env, starts, None,
+                        (int(np.floor(spf_c)), mode.height, mode.width, RENDER),
+                        "offline combine")
+    return {"offline": launches}
+
+
+def run_combine_runtime(tp, blocks, mode, device, centers, **options):
+    """Three wideband blocks through ``StreamingRuntime(combine=centers)``;
+    returns (final EMA, the runtime, seconds)."""
+    rt = tp.StreamingRuntime(BlockSource(blocks, SAMPLE_RATE), mode, alpha=LIVE_ALPHA,
+                             ring_depth=4, combine=centers, combine_bw=CHAN_BW, device=device,
+                             **options)
+    rt.start()
+    try:
+        t0 = time.perf_counter()
+        ema = rt.process_blocks(len(blocks))
+        seconds = time.perf_counter() - t0
+    finally:
+        rt.stop()
+    check(rt.ring.overflows == 0 and rt.ring.last_seq == len(blocks) - 1,
+          "the combine runtime took every block in order")
+    return ema, rt, seconds
+
+
+def phase_live_wideband(tp, torch, dev, card: str, reset_counts, profile_activities) -> dict:
+    """Phase 10: live multi-harmonic combining at the main path's size.
+    Returns the launch counts of K1's envelope entry, default and fidelity."""
+    import tempfile
+
+    from torch.profiler import profile
+
+    from tempest_tpu_torch.ops.resample_kernel import frames_to_screens, \
+        frames_to_screens_from_words
+    from tempest_tpu_torch.pipeline import offline as poff
+
+    mode = tp.ALL_VIDEO_MODES[MODE_NAME]
+    block = slice_config(tp).block_samples
+    t0 = time.perf_counter()
+    cap = tp.generate_iq_harmonics(mode, SAMPLE_RATE, N_BLOCKS * block, LIVE_CARRIERS,
+                                   amplitudes=[1.0, 1.0], snr_db=LIVE_SNR_DB, seed=SEED)
+    blocks = cap.iq.reshape(N_BLOCKS, block)
+    truth = tp.downgrade_image(torch.from_numpy(cap.frame), RENDER).numpy()
+    print(f"[live combine] {N_BLOCKS} blocks of {block} samples of {MODE_NAME} at "
+          f"{SAMPLE_RATE / 1e6:g} Msps, carriers {[c / 1e6 for c in LIVE_CARRIERS]} MHz at "
+          f"{LIVE_SNR_DB:g} dB SNR, in {time.perf_counter() - t0:.1f} s")
+    launches = {}
+    emas = {}
+    for chain, options, variant in (("default", {}, (2, False)),
+                                    ("fidelity", {"fidelity": True}, (2, True))):
+        reset_counts()
+        ema, rt, seconds = run_combine_runtime(tp, blocks, mode, dev, LIVE_CARRIERS, **options)
+        n_fft, m_chan, fs_chan = rt._combine_geometry
+        launches[chain] = frames_to_screens.launches_by_variant[variant]
+        check((n_fft, m_chan, fs_chan) == (1 << 23, 1 << 21, 5e6)
+              and rt.config.input_format == "envelope",
+              "the live combine geometry: N = 2^23, M = 2^21, 5 Msps at the channel")
+        check(launches[chain] == N_BLOCKS and frames_to_screens.launches == N_BLOCKS
+              and frames_to_screens_from_words.launches == 0,
+              f"K1's envelope entry launched once a block, {chain} chain "
+              f"({dict(frames_to_screens.launches_by_variant)})")
+        weights = rt.health()["combine"]["weights"]
+        single, _, _ = run_combine_runtime(tp, blocks, mode, dev, LIVE_CARRIERS[:1], **options)
+        p2, _ = tp.aligned_psnr(truth, ema)
+        p1, _ = tp.aligned_psnr(truth, single)
+        print(f"[live combine, {chain}] {rt.config.n_frames} frames a block at "
+              f"{fs_chan / 1e6:g} Msps, {1e3 * seconds / N_BLOCKS:.2f} ms per block incl. ring "
+              f"copy and upload of {8 * n_fft / 1e6:.1f} MB; weights {weights}; aligned PSNR "
+              f"fused {p2:.3f} dB, one carrier {p1:.3f} dB; K1 envelope launches "
+              f"{launches[chain]}")
+        check(ema.shape == RENDER and bool(np.isfinite(ema).all()),
+              f"fused EMA finite, of the screen's shape ({chain})")
+        check(min(weights) > 0.3, f"both carriers weighted above 0.3 ({chain})")
+        check(p2 > p1, f"the fused EMA beats the single-carrier run ({chain})")
+        emas[chain] = ema
+
+    # A checkpoint saved after two blocks and resumed in a runtime that was
+    # told nothing of the carriers gives the uninterrupted run's EMA.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "combine.npz")
+        first = tp.StreamingRuntime(BlockSource(blocks, SAMPLE_RATE), mode, alpha=LIVE_ALPHA,
+                                    ring_depth=4, combine=LIVE_CARRIERS, combine_bw=CHAN_BW)
+        for b in blocks[:2]:
+            first.ring.put(b)
+        first.process_blocks(2)
+        first.save_checkpoint(path)
+        resumed = tp.StreamingRuntime(BlockSource(blocks, SAMPLE_RATE), mode, ring_depth=4)
+        resumed.load_checkpoint(path)
+    check(resumed._combine_centers == LIVE_CARRIERS and resumed.abs_pos == 2 * block
+          and resumed.config.input_format == "envelope",
+          "the checkpoint carries the carriers and the position")
+    resumed.ring.put(blocks[2])
+    ema_resumed = resumed.process_blocks(1)
+    span = float(emas["default"].max() - emas["default"].min())
+    resume_rel = float(np.abs(ema_resumed - emas["default"]).max()) / span
+    print(f"[live combine] checkpoint after 2 blocks, resumed for the third: EMA max diff "
+          f"{resume_rel:.3e} of range against the uninterrupted run (tolerance "
+          f"{RESUME_REL_TOL:g})")
+    check(resume_rel < RESUME_REL_TOL, "the resumed run gives the uninterrupted run's EMA")
+
+    # Times of one combine block on device-resident words, and what runs.
+    rt = resumed
+    iq = torch.from_numpy(blocks[0][: rt._upload_samples].view(np.float32)).to(dev)
+    env, _, _, _ = rt._combine_front(iq)
+    phase = 1234.56 * rt._phase_scale
+    front_ms = time_call(torch, lambda: rt._combine_front(iq), calls=10)
+    step_ms = time_call(torch, lambda: rt._step(env, rt.ema, LIVE_ALPHA, phase), calls=10)
+    fid = tp.StreamingRuntime(BlockSource(blocks, SAMPLE_RATE), mode, alpha=LIVE_ALPHA,
+                              combine=LIVE_CARRIERS, combine_bw=CHAN_BW, fidelity=True)
+    fid_step_ms = time_call(torch, lambda: fid._step(env, fid.ema, LIVE_ALPHA, phase), calls=10)
+    with profile(activities=profile_activities) as prof:
+        e, _, _, _ = rt._combine_front(iq)
+        rt._step(e, rt.ema, LIVE_ALPHA, phase)
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+
+    kernels = sum(evt.count for evt in prof.key_averages() if evt.device_type == DeviceType.CUDA)
+    print(f"[live combine] per block on device-resident words: combine front {front_ms:.3f} ms, "
+          f"fused step {step_ms:.3f} ms (fidelity step {fid_step_ms:.3f} ms), CUDA events, "
+          f"median of 10; one block (front + default step): device time {device_ms(prof):.3f} "
+          f"ms in {kernels} kernels (profiler), on {card}")
+
+    # K1's envelope entry at this path's shapes, against its plain version.
+    spf_c = rt.config.samples_per_frame
+    raster = (int(np.floor(spf_c)), mode.height, mode.width, RENDER)
+    rounded = torch.from_numpy(poff.carry_phase_starts(phase, spf_c, rt.config.n_frames)).to(dev)
+    hold_envelope_entry(tp, torch, env, rounded, None, raster, "live combine")
+    ex_starts, ex_fracs = poff.exact_cut_starts(phase, spf_c, rt.config.n_frames)
+    hold_envelope_entry(tp, torch, env, torch.from_numpy(ex_starts).to(dev),
+                        torch.from_numpy(ex_fracs).to(dev), raster, "live combine, residuals")
+    return launches
+
+
+def phase_tasks(tp, torch, dev, card: str, main_blocks, main_mode) -> None:
+    """Phase 11: the runtime's tasks on the card."""
+    import tempfile
+
+    small = tp.ALL_VIDEO_MODES[SMALL_MODE_NAME]
+    # scan: three dwell frequencies on a tunable source, one with an emission.
+    emission = tp.generate_iq(small, SCAN_RATE, int(SCAN_RATE * 0.5), snr_db=25.0, seed=5).iq
+    src = TunableSource(emission, int(SCAN_RATE * 0.1))
+    rt = tp.StreamingRuntime(src, small, alpha=0.5)
+    freqs = [1e6, SCAN_EMISSION_HZ, 5e6]
+    rt.start()
+    try:
+        t0 = time.perf_counter()
+        results = rt.scan(freqs, dwell_seconds=0.1)
+        scan_s = time.perf_counter() - t0
+    finally:
+        rt.stop()
+    by_f = {f: (p, fl, fv) for f, p, fl, fv in results}
+    p_emit, floor, fv = by_f[SCAN_EMISSION_HZ]
+    print(f"[tasks] scan over {[f / 1e6 for f in freqs]} MHz in {scan_s:.2f} s: prominence "
+          f"{[round(by_f[f][0], 2) for f in freqs]} dB over a floor of {floor:.2f} dB, refresh "
+          f"{fv:.4f} Hz, left tuned at {src.carrier_freq / 1e6:g} MHz")
+    check([r[0] for r in results] == freqs and src.carrier_freq == SCAN_EMISSION_HZ,
+          "scan keeps the input order and retunes to the emission")
+    check(p_emit >= floor + 5.0 and abs(fv - small.refresh) < 0.2
+          and all(by_f[f][0] < floor + 5.0 for f in (1e6, 5e6)),
+          "only the emission's dwell clears the calibrated floor")
+
+    # Drift feedback: a refresh set 0.01 Hz off, pulled back from the syncs.
+    wrong = tp.VideoMode(main_mode.width, main_mode.height, main_mode.refresh + DRIFT_OFFSET_HZ)
+    rt = tp.StreamingRuntime(BlockSource(main_blocks, SAMPLE_RATE), wrong,
+                             n_frames_per_block=N_FRAMES, alpha=ALPHA, ring_depth=4)
+    syncs = []
+    rt.start()
+    try:
+        rt.process_blocks(len(main_blocks), sink=lambda img, info: syncs.append(info["sync"]))
+    finally:
+        rt.stop()
+    refined = rt.refine_refresh_from_drift(np.concatenate(syncs))
+    print(f"[tasks] refine_refresh_from_drift: {wrong.refresh:.4f} Hz -> {refined:.6f} Hz "
+          f"(the capture's {main_mode.refresh:g}; tolerance {DRIFT_TOL_HZ:g} Hz)")
+    check(abs(refined - main_mode.refresh) < DRIFT_TOL_HZ and rt.mode.refresh == refined,
+          "drift feedback pulls the refresh back")
+
+    # record, then the native ring against the Python ring.
+    small_block = int(SCAN_RATE * 0.1)
+    stream = emission[: 4 * small_block].reshape(4, small_block)
+    with tempfile.TemporaryDirectory() as tmp:
+        rt = tp.StreamingRuntime(BlockSource(stream, SCAN_RATE), small)
+        for b in stream[:3]:
+            rt.ring.put(b)
+        path = str(Path(tmp) / "dump.dat")
+        wrote = rt.record(path, n_blocks=3)
+        back = tp.read_complex_binary(path)
+    print(f"[tasks] record wrote {wrote} samples")
+    check(wrote == 3 * small_block and np.array_equal(back, stream[:3].ravel())
+          and rt.abs_pos == 3 * small_block, "record wrote what the ring delivered")
+    emas = {}
+    for impl in ("python", "native"):
+        rt = tp.StreamingRuntime(BlockSource(stream, SCAN_RATE), small, alpha=0.5, ring_impl=impl)
+        for b in stream:
+            rt.ring.put(b)
+        emas[impl] = rt.process_blocks(4)
+        check(rt.ring.last_seq == 3 and rt.frames_out == 4 * rt.config.n_frames,
+              f"the {impl} ring delivered four blocks")
+    diff = float(np.abs(emas["native"] - emas["python"]).max())
+    print(f"[tasks] native ring vs Python ring: EMA max abs diff {diff:.3e}")
+    check(diff == 0.0 and bool(np.isfinite(emas["native"]).all()) and emas["native"].std() > 0,
+          "the native ring delivers the Python ring's EMA")
 
 
 def main() -> int:
@@ -748,6 +1193,12 @@ def main() -> int:
         check(r.image.shape == (h, w) and bool(np.isfinite(r.image).all()),
               f"auto_reconstruct ({kind}) image finite, of the screen's shape")
 
+    # ---- 9-11. the wideband path: scan, combine offline and live, the tasks
+    combine_launches = phase_offline_wideband(tp, torch, dev, card, reset_counts)
+    combine_launches.update(phase_live_wideband(
+        tp, torch, dev, card, reset_counts, [ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+    phase_tasks(tp, torch, dev, card, blocks, mode)
+
     # ---- the step on device-resident words, demod fused and as a pass of its own
     step = tp.make_reconstruct_fn(cfg, dev)
     ema0 = torch.zeros((h, w), dtype=torch.float32, device=dev)
@@ -817,8 +1268,19 @@ def main() -> int:
     # fidelity runtime uploads float32 words, auto_reconstruct was handed
     # int16 words, and its FM chain demodulates first.  All timed at the
     # slice's shapes (36 frames of 1080p60 at 20 Msps).
+    # The envelope entry also carries the combine paths, at the channel rate:
+    # once per combined_reconstruct, once a block of the live combine front.
+    envelope_entry = kernel_entry("K1 frames_to_screens", "envelope", envelope_launches)
+    envelope_entry.update(
+        combine_offline_launches=combine_launches["offline"],
+        combine_live_launches=combine_launches["default"])
+    residual_envelope = measured["envelope", 2, True]
+    envelope_entry.update(
+        combine_live_fidelity_launches=combine_launches["fidelity"],
+        residuals_ms=residual_envelope["ms"], residuals_back_to_back_ms=residual_envelope["b2b_ms"],
+        residuals_max_abs_err=residual_envelope["err"])
     kernels = [
-        kernel_entry("K1 frames_to_screens", "envelope", envelope_launches),
+        envelope_entry,
         words_entry,
         kernel_entry("K1 frames_to_screens_from_words, residuals (float32 words)",
                      ("float32 words", 2, True), fidelity_launches),

@@ -5,7 +5,10 @@ MTF restoration) and the streaming reconstruction chain (AM or FM demod →
 carry-phase frame cuts, rounded or exact to the sub-sample → signal→screen
 resample → sub-pixel blanking sync → fractional alignment → EMA) in PyTorch,
 with the resampler as a hand-written CUDA kernel for Hopper
-(``csrc/resample.cu``).  The sub-package layout mirrors ``tempest_tpu``; this
+(``csrc/resample.cu``); and wideband capture → carriers → fused image: the
+band scan (``scan_band``), multi-harmonic combining (``combine_harmonics``,
+``combined_reconstruct``, ``reconstruct_all_emissions``) and the same live in
+the streaming runtime, with its tasks and operator console.  The sub-package layout mirrors ``tempest_tpu``; this
 package imports ``torch`` and never ``jax``.
 
 For authorized security research into electromagnetic side-channel leakage.
@@ -29,6 +32,7 @@ from .io.dat import (
 from .io.synthetic import (
     SyntheticCapture,
     generate_iq,
+    generate_iq_harmonics,
     render_frame,
     test_pattern,
 )
@@ -47,6 +51,9 @@ from .ops.autocorr import (
     estimate_line_count,
     top_line_period_peaks,
 )
+from .ops.spectrum import get_spectrum, get_welch, get_waterfall
+from .ops.scan import ScanResult, carrier_score, channelize, scan_band, scan_centers
+from .ops.combine import CombineResult, combine_harmonics
 from .ops.resample import linear_resample, sig_to_image, downgrade_image, RENDER_SIZE
 from .ops.resample import frame_to_screen as frame_to_screen_gather
 from .ops.enhance import interp_kernel_ft, restore_image, wiener_gain
@@ -75,9 +82,13 @@ from .pipeline.offline import (
     make_reconstruct_fn,
     reconstruct_frames,
     auto_reconstruct,
+    combined_reconstruct,
+    discover_screens,
+    reconstruct_all_emissions,
 )
 from .render.screen import aligned_psnr, psnr
 from .runtime.sources import ReplaySource, SyntheticSource
 from .runtime.stream import StreamingRuntime, state_from_jax
+from .runtime.console import OperatorConsole
 
 __version__ = "0.1.0"

@@ -13,6 +13,10 @@ Same conventions as the JAX package:
   need that, but both packages then estimate from the same window.
 * Everything is float32 on the input's device; the estimators return 0-d
   tensors.
+* ``autocorrelation``, ``estimate_refresh`` and the helpers under them work
+  along the last axis, so a (K, n) stack of envelopes is estimated in one
+  pass (the carrier scan scores its K channels so); a 1-D input gives the
+  same values as before.
 
 Three places differ from a literal translation.  The log-scale correlation
 is taken as ``20·log10|corr|`` and the estimators exponentiate it relative to
@@ -56,7 +60,7 @@ def autocorrelation(
     scale: str = "log",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Circular autocorrelation magnitude over lags in ``[min_delay, max_delay)``
-    seconds.
+    seconds, along the last axis of ``x``.
 
     Returns ``(gamma, lags)`` where ``gamma[k]`` is ``10*log10(|corr|^2)`` (or
     ``|corr|^2`` for ``scale="linear"``) at lag ``lags[k]`` seconds, starting
@@ -67,25 +71,26 @@ def autocorrelation(
     """
     i_lo = int(round(min_delay * fs))
     i_hi = int(round(max_delay * fs))  # exclusive lag bound
-    n_raw = min(2 * i_hi, x.shape[0])
+    n_x = x.shape[-1]
+    n_raw = min(2 * i_hi, n_x)
     # Prefer the next power of two ABOVE n_raw (more signal, keeps ≥50%
     # circular overlap at the longest lags); fall back to the largest power
     # of two the signal can supply.
     n_up = 1 << max(n_raw - 1, 1).bit_length()
-    n = n_up if n_up <= x.shape[0] else 1 << (max(x.shape[0], 2).bit_length() - 1)
+    n = n_up if n_up <= n_x else 1 << (max(n_x, 2).bit_length() - 1)
     # Lags past n/2 of a CIRCULAR autocorrelation are mirrors of low lags
     # (corr[k] == corr[n-k]), not measurements: when a short signal forces
     # n below 2·i_hi, returning them would feed mirrored near-zero-lag
     # energy to the comb estimators as fake long-lag peaks.
     i_hi = min(i_hi, n // 2)
-    xw = x[:n]
+    xw = x[..., :n]
     if xw.is_complex():
         spec = torch.fft.fft(xw)
         corr = torch.fft.ifft(spec * torch.conj(spec))
     else:
         spec = torch.fft.rfft(xw.to(torch.float32))
         corr = torch.fft.irfft(torch.abs(spec) ** 2, n=n)
-    mag = torch.abs(corr[i_lo:i_hi])
+    mag = torch.abs(corr[..., i_lo:i_hi])
     lags = torch.arange(i_lo, i_hi, device=x.device) / fs
     if scale == "log":
         # 10·log10(corr² + eps) without forming corr², which can overflow.
@@ -127,20 +132,24 @@ def parabolic_peak(y: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _lerp(values: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-    """Linear interpolation of a 1-D array at fractional positions."""
-    n = values.shape[0]
+    """Linear interpolation along the last axis at fractional positions:
+    ``values`` (..., n) read at ``pos`` (..., P), leading axes shared."""
+    n = values.shape[-1]
     pos = torch.clamp(pos, 0.0, n - 1.000001)
     i0 = torch.floor(pos).to(torch.int64)
     frac = pos - i0
     # In float32 the clip above does not keep i0 + 1 below n for large n.
-    return values[i0] * (1.0 - frac) + values[torch.clamp(i0 + 1, max=n - 1)] * frac
+    lo = torch.gather(values, -1, i0)
+    hi = torch.gather(values, -1, torch.clamp(i0 + 1, max=n - 1))
+    return lo * (1.0 - frac) + hi * frac
 
 
 def _median(x: torch.Tensor) -> torch.Tensor:
-    """Median that averages the two middle values of an even count."""
-    s, _ = torch.sort(x)
-    n = s.shape[0]
-    return 0.5 * (s[(n - 1) // 2] + s[n // 2])
+    """Median along the last axis that averages the two middle values of an
+    even count."""
+    s, _ = torch.sort(x, dim=-1)
+    n = s.shape[-1]
+    return 0.5 * (s[..., (n - 1) // 2] + s[..., n // 2])
 
 
 def _linear_power(gamma: torch.Tensor, scale: str) -> torch.Tensor:
@@ -149,7 +158,7 @@ def _linear_power(gamma: torch.Tensor, scale: str) -> torch.Tensor:
     whatever the input's scale (the combs compare ratios and argmaxes)."""
     if scale != "log":
         return gamma
-    return 10.0 ** ((gamma - torch.max(gamma)) / 10.0)
+    return 10.0 ** ((gamma - torch.amax(gamma, dim=-1, keepdim=True)) / 10.0)
 
 
 def _widen_peaks(lin: torch.Tensor) -> torch.Tensor:
@@ -160,8 +169,8 @@ def _widen_peaks(lin: torch.Tensor) -> torch.Tensor:
     each bin with its two neighbours makes any read within ±1 sample of the
     true lag return the peak's full mass.  The edges replicate and do NOT
     wrap: a circular roll would fold the zero-lag peak into the last lag."""
-    prev = torch.cat([lin[:1], lin[:-1]])
-    nxt = torch.cat([lin[1:], lin[-1:]])
+    prev = torch.cat([lin[..., :1], lin[..., :-1]], dim=-1)
+    nxt = torch.cat([lin[..., 1:], lin[..., -1:]], dim=-1)
     return lin + prev + nxt
 
 
@@ -169,8 +178,10 @@ def _comb_prominence(
     lin: torch.Tensor, floor: torch.Tensor, pos_f: torch.Tensor, harmonics: int
 ) -> torch.Tensor:
     """Mean floor-subtracted correlation over the first ``harmonics``
-    multiples of each candidate period that lie inside the window."""
-    n = lin.shape[0]
+    multiples of each candidate period that lie inside the window:
+    ``lin`` (..., n), ``floor`` (...), ``pos_f`` (..., P)."""
+    n = lin.shape[-1]
+    floor = floor[..., None]
     score = torch.zeros_like(pos_f, dtype=lin.dtype)
     count = torch.zeros_like(pos_f, dtype=lin.dtype)
     for k in range(1, harmonics + 1):
@@ -190,7 +201,7 @@ def _descend_subharmonics(
     0.7 of the best prominence: then its multiples are all real peaks."""
     for k in (3, 2):
         sub = lag / k
-        sub_score = _comb_prominence(lin, floor, sub[None], harmonics)[0]
+        sub_score = _comb_prominence(lin, floor, sub[..., None], harmonics)[..., 0]
         take = (sub >= lag_lo) & (sub_score >= 0.7 * best_score)
         lag = torch.where(take, sub, lag)
         best_score = torch.where(take, sub_score, best_score)
@@ -211,10 +222,11 @@ def refine_period(
     correlation at its first ``harmonics`` multiples: only the true period
     keeps all its harmonics on peak tops at once.  Returns the refined
     fractional lag."""
-    n = lin.shape[0]
+    n = lin.shape[-1]
     lin = _widen_peaks(lin)
     offs = np.arange(-half_window / step, half_window / step + 1) * step
-    cand = lag0.to(torch.float32) + torch.from_numpy(offs.astype(np.float32)).to(lin.device)
+    cand = (lag0.to(torch.float32)[..., None]
+            + torch.from_numpy(offs.astype(np.float32)).to(lin.device))
     score = torch.zeros_like(cand, dtype=lin.dtype)
     wsum = torch.zeros_like(cand, dtype=lin.dtype)
     for k in range(1, harmonics + 1):
@@ -222,7 +234,8 @@ def refine_period(
         valid = pos < n - 1
         score = score + torch.where(valid, k * _lerp(lin, pos), torch.zeros_like(score))
         wsum = wsum + valid.to(lin.dtype) * float(k)
-    return cand[torch.argmax(score / torch.clamp(wsum, min=1.0))]
+    best = torch.argmax(score / torch.clamp(wsum, min=1.0), dim=-1, keepdim=True)
+    return torch.gather(cand, -1, best)[..., 0]
 
 
 def estimate_refresh(
@@ -239,15 +252,15 @@ def estimate_refresh(
     the estimate off the ``±`` one-line-period side peaks.  Pass the same
     ``gamma`` the display path uses (log scale by default); the comb works
     on linear power."""
-    n = gamma.shape[0]
+    n = gamma.shape[-1]
     lin = _linear_power(gamma, scale)
     pos_lo = min(int(round(fs / rate_max)), n - 1)
     pos_hi = min(int(round(fs / rate_min)), n - 1)
-    lag0 = pos_lo + torch.argmax(lin[pos_lo : pos_hi + 1])
+    lag0 = pos_lo + torch.argmax(lin[..., pos_lo : pos_hi + 1], dim=-1)
     linw = _widen_peaks(lin)
-    floor = _median(linw[pos_lo : pos_hi + 1])
+    floor = _median(linw[..., pos_lo : pos_hi + 1])
     lag_f = lag0.to(torch.float32)
-    best_score = _comb_prominence(linw, floor, lag_f[None], harmonics)[0]
+    best_score = _comb_prominence(linw, floor, lag_f[..., None], harmonics)[..., 0]
     lag_f = _descend_subharmonics(linw, floor, lag_f, best_score, pos_lo, harmonics)
     # Comb window: generously covers ±3 line periods for any plausible mode
     # (L ≤ fs / (50 Hz · 200 lines)).

@@ -1,7 +1,10 @@
 """The reconstruction pipeline in PyTorch — the counterpart of
 ``tempest_tpu/pipeline/offline.py``: stage 1 (timing estimation), stage 2
 (the reconstruction step) and ``auto_reconstruct``, capture in, detected
-video mode and restored screen out.
+video mode and restored screen out; and the multi-harmonic entries
+(``combined_reconstruct``, ``discover_screens``,
+``reconstruct_all_emissions``), wideband capture in, one fused image per
+screen out.
 
 Stage 1, ``estimate_timing`` / ``timing_evidence``: envelope power → FFT
 autocorrelation → refresh rate and total line count (``ops.autocorr``),
@@ -10,7 +13,9 @@ snapped to the closest known video mode.
 Stage 2, one step on a block of I/Q:
 
 1. demodulates it (``demodulate``): AM envelope or FM discriminator, from
-   complex samples, interleaved words or planar I/Q;
+   complex samples, interleaved words or planar I/Q — or takes an envelope
+   that is demodulated already (``input_format="envelope"``, the combine
+   front's fused envelope at the channel rate);
 2. cuts it into frames: at rounded frame starts, or with
    ``subsample_align`` at ``floor`` of the true start with the fractional
    residual handed to the resampler (sub-sample-exact cuts); carried across
@@ -39,9 +44,13 @@ this track in float64 too; its traced ``gather`` chain computes it in
 float32, and so does the port's ``resampler="gather"`` with
 ``carry_phase``, so that it equals its JAX counterpart.
 
-Not ported: the other resamplers, ``combined_reconstruct``,
-``make_batched_reconstruct_fn`` and ``refine_with_search``; they raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+The multi-harmonic entries keep the fused envelope on the device from the
+combiner to K1's envelope entry; only the returned ``CombineResult`` holds a
+host copy.
+
+Not ported: the other resamplers, ``make_batched_reconstruct_fn`` and
+``refine_with_search``; they raise ``NotImplementedError`` naming the ROADMAP
+item that brings them.
 """
 
 from __future__ import annotations
@@ -72,6 +81,7 @@ from ..ops.demod import (
     invert_envelope,
     to_planar_iq,
 )
+from ..ops.combine import CombineResult, _combine_on_device
 from ..ops.enhance import restore_image
 from ..ops.framesync import (
     align_frame,
@@ -81,8 +91,10 @@ from ..ops.framesync import (
 )
 from ..ops.resample import RENDER_SIZE, frames_to_screens_gather
 from ..ops.resample_kernel import frames_to_screens, frames_to_screens_from_words
+from ..ops.scan import _words, scan_band, scan_centers
+from ..utils.device import as_tensor as _as_tensor
 from ..utils.device import resolve_device
-from ..video.modes import VideoMode, find_closest_mode
+from ..video.modes import VideoMode, find_closest_mode, find_configuration
 
 __all__ = [
     "TimingEstimate",
@@ -101,6 +113,9 @@ __all__ = [
     "carry_phase_starts",
     "make_reconstruct_fn",
     "reconstruct_frames",
+    "combined_reconstruct",
+    "discover_screens",
+    "reconstruct_all_emissions",
 ]
 
 
@@ -143,7 +158,9 @@ class ReconstructionConfig:
     align_impl: str = "matmul"
     # "complex64": iq is complex [block_samples]; "iq_interleaved": iq is
     # int16/float32 [2*block_samples] raw I/Q words; "iq_planar": iq is
-    # int16/float32 [2, block_samples], row 0 = I (ops.demod.to_planar_iq).
+    # int16/float32 [2, block_samples], row 0 = I (ops.demod.to_planar_iq);
+    # "envelope": iq is float32 [block_samples], ALREADY demodulated (the
+    # multi-harmonic fusion of ops.combine) — only ``invert`` applies.
     input_format: str = "complex64"
     demod: str = "am"         # "am" envelope or "fm" discriminator
     # "pallas" is K1, the counterpart of the JAX package's Pallas kernel and
@@ -186,11 +203,7 @@ def _check_supported(config: ReconstructionConfig) -> None:
         raise NotImplementedError(
             f"resampler={config.resampler!r}: the port has K1 (resampler='pallas') and "
             "'gather'; the other resamplers are ROADMAP Queue 1, 'Operator surface'")
-    if config.input_format == "envelope":
-        raise NotImplementedError(
-            "input_format='envelope' (the combine front's output): "
-            "ROADMAP Queue 1, 'Scan and combine'")
-    if config.input_format not in ("complex64", "iq_interleaved", "iq_planar"):
+    if config.input_format not in ("complex64", "iq_interleaved", "iq_planar", "envelope"):
         raise ValueError(f"unknown input_format {config.input_format!r}")
     if config.demod not in ("am", "fm"):
         raise ValueError(f"demod must be 'am' or 'fm', got {config.demod!r}")
@@ -226,23 +239,13 @@ class Reconstruction:
 
 
 # ------------------------------------------------------------------ stage 1
-def _as_tensor(x, device: torch.device) -> torch.Tensor:
-    if isinstance(x, np.ndarray):
-        if np.iscomplexobj(x):
-            x = np.ascontiguousarray(x, np.complex64)
-        return torch.from_numpy(x).to(device)
-    return torch.as_tensor(x, device=device)
-
-
 def _timing_signal(iq, envelope: bool, device) -> tuple[torch.Tensor, bool]:
     """The estimators' input on ``device`` and whether it is interleaved
     words: host complex input goes up as float32 words (a zero-copy view), a
     tensor stays where it lies unless ``device`` names another place."""
     if isinstance(iq, np.ndarray) and np.iscomplexobj(iq):
         iq = np.ascontiguousarray(iq, np.complex64).view(np.float32)
-    if isinstance(iq, torch.Tensor) and device is None:
-        device = iq.device
-    sig = _as_tensor(iq, resolve_device(device))
+    sig = _as_tensor(iq, device)
     return sig, not envelope and not sig.is_complex()
 
 
@@ -382,7 +385,10 @@ def demodulate(iq: torch.Tensor, config: ReconstructionConfig) -> torch.Tensor:
     """Demodulation stage: the float32 AM envelope or FM discriminator
     output of one block."""
     fm = config.demod == "fm"
-    if config.input_format == "iq_planar":
+    if config.input_format == "envelope":
+        # Demodulated already: pass through, honouring only the inversion.
+        env = iq.to(torch.float32)
+    elif config.input_format == "iq_planar":
         env = fm_demod_from_iq_planar(iq) if fm else am_envelope_from_iq_planar(iq)
     elif config.input_format == "iq_interleaved":
         env = fm_demod_from_iq(iq) if fm else am_envelope_from_iq(iq)
@@ -654,6 +660,190 @@ def auto_reconstruct(
         recon.image_raw = recon.image
         recon.image = restore_image(recon.image, config, nsr=restore_nsr, device=device)
     return timing, recon
+
+
+# ------------------------------------------------- multi-harmonic entries
+def combined_reconstruct(
+    iq: np.ndarray | torch.Tensor,
+    fs: float,
+    centers_hz: np.ndarray | list[float] | None = None,
+    chan_bw: float = 4e6,
+    n_frames: int | None = None,
+    alpha: float | str = 0.1,
+    invert: bool = False,
+    corr_seconds: float = 0.1,
+    rate_min: float = 50.0,
+    rate_max: float = 90.0,
+    weighting: str = "mrc",
+    restore: bool = True,
+    restore_nsr: float = 0.002,
+    min_margin_db: float = 5.0,
+    mode: VideoMode | None = None,
+    demod: str = "am",
+    excise_db: float | None = None,
+    device: torch.device | str | None = None,
+):
+    """Multi-harmonic capture → image on ``device`` (``None``: the CUDA
+    card; raises when there is none): find (or take) the screen's carriers
+    in ONE wideband capture, fuse their envelopes at maximal ratio
+    (``ops.combine``), and reconstruct from the combined envelope.
+
+    ``centers_hz=None`` auto-discovers the carriers: a band scan
+    (``ops.scan.scan_band``) groups detected channels into emissions, and
+    every emission whose refresh estimate matches the strongest one's
+    (same screen, different harmonic) contributes its best channel.
+    Returns ``(timing, reconstruction, combine_result)``.
+
+    The capture goes to the device once and stays there through the scan,
+    the fusion and the reconstruction; the fused envelope reaches K1's
+    envelope entry as a device tensor, and ``combine_result.envelope`` is
+    its host copy.
+
+    ``demod="fm"`` runs the per-channel FM discriminator instead of the
+    amplitude envelope — both the discovery sweep and the fusion — for
+    targets that leak the video in carrier frequency.
+
+    ``excise_db`` (e.g. ``0.0``): null in-channel CW interference louder
+    than each channel's carrier peak by this margin before demodulation —
+    RECOVERS a hit channel where the robust MRC alone can only refuse to
+    weight it.  See ``ops.scan._excise_spikes`` for why the carrier-relative
+    criterion cannot touch the emission's own comb."""
+    words = _words(iq, resolve_device(device))
+    if centers_hz is None:
+        screens = discover_screens(words, fs, chan_bw, corr_seconds, rate_min, rate_max,
+                                   min_margin_db, demod=demod)
+        if not screens:
+            raise ValueError(
+                "no emissions detected in the band; pass centers_hz "
+                "explicitly or lower min_margin_db")
+        centers_hz = [e["best_channel_hz"] for e in screens[0]]
+    env, fields = _combine_on_device(words, fs, centers_hz, chan_bw, corr_seconds, rate_min,
+                                     rate_max, weighting, "auto", demod, excise_db, None)
+    comb = CombineResult(envelope=env.cpu().numpy().astype(np.float32), **fields)
+    return _reconstruct_from_combine(comb, env, n_frames, alpha, invert, corr_seconds,
+                                     rate_min, rate_max, restore, restore_nsr, mode)
+
+
+def _reconstruct_from_combine(comb, envelope, n_frames, alpha, invert, corr_seconds, rate_min,
+                              rate_max, restore, restore_nsr, mode=None):
+    """The tail of combined_reconstruct: combined envelope → timing →
+    reconstruction (+ optional restoration).  ``envelope`` is
+    ``comb.envelope`` as a tensor on the device that runs the chain.
+    ``mode`` overrides the detected video mode (the manual-mode path of the
+    plain chain, for captures too degraded to auto-detect)."""
+    device = envelope.device
+    timing = estimate_timing(envelope, comb.fs_channel, corr_seconds, rate_min, rate_max,
+                             envelope=True)
+    if mode is not None:
+        name = (find_configuration(mode)
+                or f"{mode.width}x{mode.height} @ {mode.refresh:g}Hz")
+        timing = dataclasses.replace(timing, mode=mode, mode_name=name)
+    if alpha == "auto":
+        alpha = timing.suggested_alpha
+    spf = comb.fs_channel / timing.mode.refresh
+    if n_frames is None:
+        n_frames = max(int((envelope.shape[0] - 1) / spf), 1)
+    # The taps rule of auto_reconstruct, at the channel rate.
+    taps = 4 if spf / timing.mode.pixels_per_frame >= 1.0 else 2
+    config = ReconstructionConfig(
+        sample_rate=comb.fs_channel, mode=timing.mode, n_frames=n_frames,
+        invert=invert, align_subpixel=True, interp_taps=taps,
+        input_format="envelope",
+    )
+    recon = reconstruct_frames(envelope, config, alpha=alpha, device=device)
+    if restore:
+        recon.image_raw = recon.image
+        recon.image = restore_image(recon.image, config, nsr=restore_nsr, device=device)
+    return timing, recon, comb
+
+
+def discover_screens(
+    iq: np.ndarray | torch.Tensor,
+    fs: float,
+    chan_bw: float = 4e6,
+    corr_seconds: float = 0.1,
+    rate_min: float = 50.0,
+    rate_max: float = 90.0,
+    min_margin_db: float = 5.0,
+    refresh_group_hz: float = 0.005,
+    scan_result=None,
+    demod: str = "am",
+    device: torch.device | str | None = None,
+) -> list[list[dict]]:
+    """Scan the band and group detected emissions into distinct SCREENS.
+
+    Harmonics of one screen ride one pixel clock, so their per-channel
+    refresh estimates agree; distinct monitors' crystals differ by ppm
+    (60 Hz ± a few mHz).  Emissions whose refresh estimates agree within
+    ``refresh_group_hz`` (default 5 mHz) are one screen.  Limits: two
+    monitors closer in refresh than the scan window's estimator resolution
+    merge — pass explicit ``centers_hz`` lists to ``combined_reconstruct``
+    to separate them by hand.
+
+    Returns screens ordered by their strongest emission's comb mass; each
+    screen is the list of its ``ScanResult.emissions()`` dicts (strongest
+    first).  ``iq``: complex samples or interleaved float32 I/Q words; the
+    scan runs on ``device`` (``None``: where a tensor lies, else the CUDA
+    card; raises when there is none).  Pass ``scan_result`` to group an
+    already-run sweep instead of scanning here (``iq`` is then unused).
+    """
+    if scan_result is None:
+        centers = scan_centers(fs, step_hz=chan_bw / 2.0, guard_hz=chan_bw / 2.0)
+        scan_result = scan_band(iq, fs, centers, chan_bw, corr_seconds, rate_min, rate_max,
+                                demod=demod, device=device)
+    ems = scan_result.emissions(min_margin_db=min_margin_db)
+    screens: list[list[dict]] = []
+    for e in ems:  # already ordered by comb mass
+        for s in screens:
+            if abs(e["refresh_hz"] - s[0]["refresh_hz"]) < refresh_group_hz:
+                s.append(e)
+                break
+        else:
+            screens.append([e])
+    return screens
+
+
+def reconstruct_all_emissions(
+    iq: np.ndarray | torch.Tensor,
+    fs: float,
+    chan_bw: float = 4e6,
+    n_frames: int | None = None,
+    alpha: float | str = 0.1,
+    invert: bool = False,
+    corr_seconds: float = 0.1,
+    rate_min: float = 50.0,
+    rate_max: float = 90.0,
+    weighting: str = "mrc",
+    restore: bool = True,
+    restore_nsr: float = 0.002,
+    min_margin_db: float = 5.0,
+    refresh_group_hz: float = 0.005,
+    max_screens: int | None = None,
+    demod: str = "am",
+    excise_db: float | None = None,
+    device: torch.device | str | None = None,
+) -> list[tuple]:
+    """Reconstruct EVERY screen radiating in one wideband capture, on
+    ``device`` (``None``: the CUDA card; raises when there is none).
+
+    Band scan → emissions → screens (``discover_screens``) → one
+    multi-harmonic ``combined_reconstruct`` per screen.  Returns a list of
+    ``(timing, reconstruction, combine_result)`` ordered by emission
+    strength — two monitors in one capture give two images, each fused
+    from all of that monitor's harmonics.  The capture is uploaded once."""
+    words = _words(iq, resolve_device(device))
+    screens = discover_screens(words, fs, chan_bw, corr_seconds, rate_min, rate_max,
+                               min_margin_db, refresh_group_hz, demod=demod)
+    out = []
+    for group in screens[:max_screens]:
+        centers_hz = [e["best_channel_hz"] for e in group]
+        out.append(combined_reconstruct(
+            words, fs, centers_hz, chan_bw=chan_bw, n_frames=n_frames,
+            alpha=alpha, invert=invert, corr_seconds=corr_seconds,
+            rate_min=rate_min, rate_max=rate_max, weighting=weighting,
+            restore=restore, restore_nsr=restore_nsr, demod=demod,
+            excise_db=excise_db, device=words.device))
+    return out
 
 
 # auto_reconstruct's ``pick_line_peak`` parameter shadows the function.

@@ -1,6 +1,7 @@
 """The port's jax-free host modules are byte copies of the JAX package's, and
 importing the port pulls in no jax."""
 
+import difflib
 import subprocess
 import sys
 from pathlib import Path
@@ -14,6 +15,9 @@ COPIES = [
     "io/dat.py",
     "io/synthetic.py",
     "render/screen.py",
+    "render/plots.py",
+    "native/host_core.cpp",
+    "native/ring_stress.cpp",
     "utils/checkpoint.py",
     "runtime/ring.py",
     "runtime/sources.py",
@@ -27,8 +31,33 @@ def test_copy_is_byte_identical(rel):
     assert copy == original, f"tempest_tpu_torch/{rel} differs from tempest_tpu/{rel}"
 
 
+def test_native_loader_differs_only_in_where_it_builds():
+    """``native/__init__.py`` is the original but for one thing: the library
+    is built under the package's git-ignored ``_build/`` instead of beside
+    the sources (the path, the directory's creation, and the three docstring
+    lines that name the place and the package)."""
+    original = (ROOT / "tempest_tpu/native/__init__.py").read_text().splitlines()
+    copy = (ROOT / "tempest_tpu_torch/native/__init__.py").read_text().splitlines()
+    diff = [l for l in difflib.unified_diff(original, copy, lineterm="", n=0)
+            if l[:1] in "+-" and l[:3] not in ("+++", "---")]
+    assert diff == [
+        "-hundred ms, cached next to the source) and exposes it through ctypes.  If no",
+        "+hundred ms, cached under the package's git-ignored ``_build/``) and exposes it",
+        "+through ctypes.  If no",
+        "-implementations (``tempest_tpu.runtime.ring``) — same semantics, GIL held.",
+        "+implementations (``tempest_tpu_torch.runtime.ring``) — same semantics, GIL held.",
+        '-_LIB = os.path.join(_HERE, "libhost_core.so")',
+        '+_LIB = os.path.join(os.path.dirname(_HERE), "_build", "libhost_core.so")',
+        "+    os.makedirs(os.path.dirname(_LIB), exist_ok=True)",
+        "-    ``tempest_tpu.runtime.ring.RingBuffer`` (put/take/close/overflows).\"\"\"",
+        "+    ``tempest_tpu_torch.runtime.ring.RingBuffer`` (put/take/close/overflows).\"\"\"",
+    ]
+
+
 def test_port_imports_no_jax():
-    code = ("import sys, tempest_tpu_torch, tempest_tpu_torch.runtime.stream; "
+    code = ("import sys, tempest_tpu_torch, tempest_tpu_torch.runtime.stream, "
+            "tempest_tpu_torch.runtime.console, tempest_tpu_torch.native, "
+            "tempest_tpu_torch.render.plots, tempest_tpu_torch.ops.spectrum; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m.startswith('tempest_tpu.') or m == 'tempest_tpu'); "
             "assert not bad, bad")
@@ -38,8 +67,12 @@ def test_port_imports_no_jax():
 
 
 def test_port_sources_name_no_jax():
-    """No module of the port imports jax, even lazily inside a function."""
-    for path in (ROOT / "tempest_tpu_torch").rglob("*.py"):
+    """No module of the port, nor ``chip_smoke.py``, imports jax or the JAX
+    package, even lazily inside a function (a scan of the sources: it needs
+    no card)."""
+    sources = sorted((ROOT / "tempest_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(sources) > 30
+    for path in sources:
         for line in path.read_text().splitlines():
             words = line.split()
             if words[:1] in (["import"], ["from"]) and len(words) > 1:

@@ -161,17 +161,51 @@ def test_reconstruct_frames_complex_input_matches_jax():
 
 @pytest.mark.parametrize("option", [
     dict(resampler="mxu3"), dict(resampler="mxu"), dict(resampler="rows"),
-    dict(resampler="aligned"), dict(resampler="fft"), dict(input_format="envelope"),
+    dict(resampler="aligned"), dict(resampler="fft"),
 ], ids=lambda o: "-".join(o.values()))
 def test_unported_options_raise(option):
     """What the port still leaves out names its ROADMAP heading: the TPU
-    formulations of the resampler and the combine front's envelope input."""
+    formulations of the resampler, and the sharded mode search."""
     cfg = poff.ReconstructionConfig(sample_rate=FS, mode=MODE, n_frames=3, **option)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         poff.make_reconstruct_fn(cfg, device="cpu")
     iq = np.zeros(8, np.complex64)
     with pytest.raises(NotImplementedError, match="ROADMAP.*Multi-GPU"):
         poff.auto_reconstruct(iq, FS, refine_with_search=True, device="cpu")
+
+
+@pytest.mark.parametrize("variant", ["plain", "invert", "exact_cuts", "carry_phase"])
+def test_envelope_input_format_matches_jax_and_the_complex_route(variant):
+    """``input_format="envelope"`` passes a demodulated envelope through
+    (only ``invert`` applies): the same EMA as the JAX step on that envelope
+    (1e-4 of the peak: K1's float32 positions against the Pallas kernel's
+    fixed point; the Pallas kernel takes no residual, so exact cuts are held
+    to the complex route alone), and the values of the complex route, whose
+    demod is the same ``abs``."""
+    cap = generate_iq(MODE, FS, int(FS * 0.12), snr_db=20.0, seed=3)
+    env = np.abs(cap.iq).astype(np.float32)
+    kw = dict(sample_rate=FS, mode=MODE, n_frames=4, render_size=SHAPE, align_subpixel=True,
+              invert=variant == "invert", subsample_align=variant == "exact_cuts",
+              carry_phase=variant == "carry_phase")
+    cfg_j = joff.ReconstructionConfig(resampler="pallas", input_format="envelope", **kw)
+    cfg_e = poff.ReconstructionConfig(input_format="envelope", **kw)
+    cfg_c = poff.ReconstructionConfig(input_format="complex64", **kw)
+    ema0 = np.zeros(SHAPE, np.float32)
+    if variant == "carry_phase":
+        n, phase = cfg_e.block_samples, 1234.5
+        ref = joff.make_reconstruct_fn(cfg_j)(jnp.asarray(env[:n]), jnp.asarray(ema0),
+                                               jnp.float32(ALPHA), phase)
+        got = poff.make_reconstruct_fn(cfg_e, device="cpu")(env[:n], ema0, ALPHA, phase)
+        via = poff.make_reconstruct_fn(cfg_c, device="cpu")(cap.iq[:n], ema0, ALPHA, phase)
+        ref_img, got_img, via_img = np.asarray(ref[0]), got[0].numpy(), via[0].numpy()
+    else:
+        ref_img = (None if variant == "exact_cuts"
+                   else joff.reconstruct_frames(env, cfg_j, alpha=ALPHA).image)
+        got_img = poff.reconstruct_frames(env, cfg_e, alpha=ALPHA, device="cpu").image
+        via_img = poff.reconstruct_frames(cap.iq, cfg_c, alpha=ALPHA, device="cpu").image
+    if ref_img is not None:
+        assert _rel(got_img, ref_img) < 1e-4
+    np.testing.assert_allclose(got_img, via_img, rtol=2e-4, atol=2e-5)
 
 
 def test_config_block_geometry_matches_jax():
@@ -278,17 +312,29 @@ def test_jax_checkpoint_resumes_in_port(tmp_path):
     assert _rel(out.numpy(), jrt._ema) < 1e-4
 
 
-@pytest.mark.parametrize("extra", [dict(combine_centers=[1.2e6]),
-                                   dict(combine_centers=[1.2e6, 2.4e6], fidelity=True)],
+@pytest.mark.parametrize("extra", [dict(combine_centers=[0.2e6]),
+                                   dict(combine_centers=[0.2e6, -0.3e6], fidelity=True)],
                          ids=["combine", "combine_with_fidelity"])
 def test_checkpoint_of_unported_chain_raises(tmp_path, extra):
+    """Checkpoints with live-combine centres resume since the combine front
+    is ported.  What still raises at resume is a chain no runtime can run:
+    excision with the FM discriminator."""
     state = RuntimeState(ema=np.zeros((600, 800), np.float32), abs_pos=1000, mode=MODE,
-                         sample_rate=FS, alpha=0.2, **extra)
+                         sample_rate=FS, alpha=0.2, combine_bw=0.5e6, **extra)
     path = str(tmp_path / "state.npz")
     save_state(state, path)
-    rt = StreamingRuntime(SyntheticSource(MODE, FS, int(FS * 0.1)), MODE, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rt.load_checkpoint(path)
+    block = int(FS * 0.25)
+    rt = StreamingRuntime(SyntheticSource(MODE, FS, block), MODE, device="cpu")
+    rt.load_checkpoint(path)
+    assert rt.config.input_format == "envelope" and rt.abs_pos == 1000
+    assert rt.config.subsample_align == bool(extra.get("fidelity"))
+    assert rt.health()["combine"]["centers_hz"] == extra["combine_centers"]
+
+    unsound = RuntimeState(ema=state.ema, abs_pos=1000, mode=MODE, sample_rate=FS, alpha=0.2,
+                           combine_bw=0.5e6, combine_demod="fm", combine_excise_db=0.0, **extra)
+    save_state(unsound, path)
+    with pytest.raises(ValueError, match="excise_db with demod='fm'"):
+        StreamingRuntime(SyntheticSource(MODE, FS, block), MODE, device="cpu").load_checkpoint(path)
 
 
 def test_port_chain_psnr_matches_jax_gather_chain():
