@@ -54,7 +54,24 @@ Phases, each of which fails the run if it fails:
     checkpoint resumed mid-run giving the uninterrupted run's EMA;
 11. the runtime's tasks: ``scan`` over three frequencies of a small tunable
     source, ``refine_refresh_from_drift`` from 0.01 Hz off, ``record``, and
-    the native ring against the Python ring.
+    the native ring against the Python ring;
+12. batched serving: ``make_batched_reconstruct_fn`` on 4 streams of the
+    slice's int16 words, static cuts and ``carry_phase`` with exact cuts: one
+    K1 launch a step for the 144 frames, equal to its plain version to the
+    bit, each stream's frames equal to the single-stream step's, alignment
+    and EMA held once more with the single streams' sync values pinned in;
+    the step's time beside four single-stream steps;
+13. the mode search: ``mode_search_static`` over the video modes near 60 Hz,
+    one K1 launch per candidate at a 150x200 score grid, the winner the
+    capture's mode, K1 also at coarser grids where the plan halves a tile's
+    rows, then ``auto_reconstruct(refine_with_search=True)``;
+14. every ``resampler=`` name through ``reconstruct_frames`` on the 36-frame
+    capture: PSNR beside K1's, the difference from K1 beside the bound the
+    quantisation gives, K1 with the quantised table against its plain version;
+15. the command line in process (``synth``, ``analyze``, ``reconstruct``,
+    ``scan``, ``survey``, ``stream``, ``search``, ``warmup``) and the web
+    view on an ephemeral port;
+16. ``roofline()`` of one default step: K1's bytes equal ``launch_cost``'s.
 
 Run ``python3 chip_smoke.py`` from the root of a checkout on a machine with
 a CUDA card; it ends with torch.profiler tables of three steps, with the
@@ -152,9 +169,30 @@ SCAN_EMISSION_HZ = 3e6
 DRIFT_OFFSET_HZ = 0.01
 DRIFT_TOL_HZ = 1e-3
 
-# Published peaks of one H100 SXM at its full 700 W power limit.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
+# Batched serving: streams a step, and the phases of the carried streams.
+N_STREAMS = 4
+STREAM_PHASES = [0.0, 1234.56, 98765.4321, 222222.125]
+# Batched vs single EMA of the same screens: one einsum over [B, F, h, w]
+# against a tensordot over [F, h, w], the same 36 products in another order.
+BATCH_EMA_REL_TOL = 1e-5      # of the EMA's range
+# After sync and alignment the sub-pixel fraction comes from float32 profile
+# sums whose order changes with the batch (2.7e-3 px between 36 and 144
+# frames, as between card and CPU), which moved the aligned frames by 6.3e-4
+# of the largest pixel and the EMA by 9.6e-4 of its range when measured:
+# twice that.  With the single streams' sync values pinned into the batched
+# step, alignment and EMA alone are held to BATCH_EMA_REL_TOL.
+BATCH_ALIGNED_REL_TOL = 2e-3  # of the EMA's range, of the largest pixel
+# The mode search: modes within this of 60 Hz, on the JAX package's defaults.
+SEARCH_TOL_HZ = 0.5
+SEARCH_SCORE_SIZE = (150, 200)
+SEARCH_FRAMES = 2
+# Coarser score grids, where a tile's rows no longer fit a block's shared
+# memory and the plan halves them (to four and two rows of float32 samples).
+COARSE_SCORE_SIZES = ((75, 100), (30, 40))
+SEARCH_PHASES = 16
+RESAMPLER_PHASES = 64         # the config's default num_phases
+BF16_REL = 2.0 ** -8          # bound of a bfloat16 rounding, relative
+CLI_SECONDS = 0.35            # the capture the command line phase synthesises
 
 
 class BlockSource:
@@ -252,24 +290,23 @@ def time_back_to_back(torch, fn, launches: int = BACK_TO_BACK) -> float:
     return float(np.median(times))
 
 
-def k1_bound(n_samples: int, sample_bytes: int, n_frames: int, h: int, w: int,
+def k1_bound(n_samples: int, sample_bytes: int, n_frames: int, raster: tuple,
              demod: bool, taps: int = 2, exact: bool = False) -> tuple[float, str, int]:
-    """The least milliseconds the card could take for one K1 call: the larger
-    of its bytes (the block read once, the frame starts and line tables read
-    once, the screens written once) over the memory rate and its float32
-    operations over the peak rate.  Returns (ms, "bytes" or "operations",
-    bytes).  Per pixel: one product for ``c*delta``; per vertical tap add,
-    max, floor, two subtractions, two products, add; three for the blend.
-    With 4 taps a vertical tap takes add, max, floor, subtraction, 19 for the
-    Catmull-Rom weights and 7 for the four-term sum.  The demod adds two
-    products, an add and a square root per sample; residuals 4 bytes a frame."""
-    pixels = n_frames * h * w
-    nbytes = (n_samples * sample_bytes + (8 if exact else 4) * n_frames + h * (8 + 8 + 4)
-              + 4 * pixels)
-    per_tap = 8 if taps == 2 else 4 + 19 + 7
-    flops = pixels * (1 + 2 * per_tap + 3) + (4 * n_samples if demod else 0)
-    by_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
-    by_ops = 1e3 * flops / PEAK_F32_FLOPS
+    """The least milliseconds the card could take for one K1 call on
+    ``raster`` (frame length, raster lines, raster width, screen shape): the
+    larger of its bytes over the memory rate and its float32 operations over
+    the peak rate, both counted by the package
+    (``resample_kernel.launch_cost``: the samples the line tables address,
+    not what the kernel stages; a roofline count of the step takes the same)
+    against the published peaks of one H100 SXM at its full 700 W
+    (``utils.roofline.H100_PEAKS``).
+    Returns (ms, "bytes" or "operations", bytes)."""
+    from tempest_tpu_torch.ops.resample_kernel import launch_cost
+    from tempest_tpu_torch.utils.roofline import H100_PEAKS
+
+    nbytes, flops, _ = launch_cost(n_samples, sample_bytes, n_frames, *raster, demod, taps, exact)
+    by_bytes = 1e3 * nbytes / H100_PEAKS["bytes_per_s"]
+    by_ops = 1e3 * flops / H100_PEAKS["flops_per_s"]
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations"), nbytes
 
 
@@ -727,6 +764,560 @@ def phase_tasks(tp, torch, dev, card: str, main_blocks, main_mode) -> None:
           "the native ring delivers the Python ring's EMA")
 
 
+def kernel_count(prof) -> int:
+    """Kernels launched during a torch.profiler run."""
+    from torch.autograd import DeviceType
+
+    return sum(evt.count for evt in prof.key_averages() if evt.device_type == DeviceType.CUDA)
+
+
+def read_png(path) -> np.ndarray:
+    """Decode an 8-bit grayscale PNG as ``render/screen.py`` writes it."""
+    import struct
+    import zlib
+
+    data = Path(path).read_bytes()
+    check(data[:8] == b"\x89PNG\r\n\x1a\n", f"{path} is a PNG")
+    w, h, depth, colour = struct.unpack(">IIBB", data[16:26])
+    pos, idat = 8, b""
+    while pos < len(data):
+        (n,), tag = struct.unpack(">I", data[pos: pos + 4]), data[pos + 4: pos + 8]
+        if tag == b"IDAT":
+            idat += data[pos + 8: pos + 8 + n]
+        pos += 12 + n
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, w + 1)
+    check((depth, colour) == (8, 0) and not raw[:, 0].any(), f"{path}: 8-bit gray, filter 0")
+    return raw[:, 1:]
+
+
+def phase_batched(tp, torch, dev, card: str, words: np.ndarray, reset_counts,
+                  profile_activities) -> dict:
+    """Phase 12: batched serving at full width.  ``words`` is the capture's
+    int16 words; stream b is the block that starts 2/3 of a block after
+    stream b-1's.  Returns what the kernels line reports of K1 at 144 frames."""
+    from torch.profiler import profile
+
+    from tempest_tpu_torch.ops.resample_kernel import (
+        frames_to_screens, frames_to_screens_from_words, frames_to_screens_plain,
+        screen_geometry)
+    from tempest_tpu_torch.pipeline import offline as poff
+
+    mode = tp.ALL_VIDEO_MODES[MODE_NAME]
+    base = dict(sample_rate=SAMPLE_RATE, mode=mode, n_frames=N_FRAMES,
+                input_format="iq_interleaved", align_subpixel=True)
+    chains = {
+        "static cuts": tp.ReconstructionConfig(**base),
+        "carry_phase, exact cuts": tp.ReconstructionConfig(
+            carry_phase=True, subsample_align=True, **base),
+    }
+    h, w = RENDER
+    out = {}
+    for label, cfg in chains.items():
+        n = cfg.block_samples
+        spf = cfg.samples_per_frame
+        frame_len = int(np.floor(spf))
+        raster = (frame_len, mode.height, mode.width, RENDER)
+        stride = 2 * slice_config(tp).block_samples // 3    # samples between streams' starts
+        host = np.stack([words[2 * b * stride: 2 * b * stride + 2 * n] for b in range(N_STREAMS)])
+        check(host.shape == (N_STREAMS, 2 * n), "four streams cut from the capture")
+        iq_b = torch.from_numpy(host).to(dev)
+        ema_b = torch.zeros((N_STREAMS, h, w), dtype=torch.float32, device=dev)
+        phases = (STREAM_PHASES,) if cfg.carry_phase else ()
+        step = tp.make_batched_reconstruct_fn(cfg)
+        single = tp.make_reconstruct_fn(cfg)
+        # The screens before sync and alignment: the same steps with do_align off.
+        raw_cfg = dataclasses.replace(cfg, do_align=False)
+        raw_ema, raw_frames, _, _ = tp.make_batched_reconstruct_fn(raw_cfg)(
+            iq_b, ema_b, ALPHA, *phases)
+        raw_single = tp.make_reconstruct_fn(raw_cfg)
+        raw_ema_rel = 0.0
+        for b in range(N_STREAMS):
+            ph = (STREAM_PHASES[b],) if cfg.carry_phase else ()
+            e1, f1, _, _ = raw_single(iq_b[b], ema_b[b], ALPHA, *ph)
+            check(bool(torch.equal(raw_frames[b], f1)),
+                  f"batched step, {label}: stream {b}'s screens equal the single-stream step's "
+                  "to the bit")
+            raw_ema_rel = max(raw_ema_rel,
+                              float((raw_ema[b] - e1).abs().max() / (e1.max() - e1.min())))
+        check(raw_ema_rel < BATCH_EMA_REL_TOL,
+              f"batched step, {label}: the EMA of the same screens matches ({raw_ema_rel:.3e})")
+        del raw_frames, raw_ema
+        step(iq_b, ema_b, ALPHA, *phases)          # warm: allocator, FFT plans
+        reset_counts()
+        ema_out, frames, sync, score = step(iq_b, ema_b, ALPHA, *phases)
+        torch.cuda.synchronize()
+        variant = (2, cfg.subsample_align)
+        launches = frames_to_screens_from_words.launches_by_variant[variant]
+        check(launches == 1 and frames_to_screens_from_words.launches == 1
+              and frames_to_screens.launches == 0,
+              f"batched step, {label}: exactly one K1 launch for {N_STREAMS * N_FRAMES} frames "
+              f"({dict(frames_to_screens_from_words.launches_by_variant)})")
+        check(frames.shape == (N_STREAMS, N_FRAMES, h, w) and sync.shape == (N_STREAMS, N_FRAMES, 2)
+              and score.shape == (N_STREAMS, N_FRAMES) and ema_out.shape == (N_STREAMS, h, w)
+              and bool(torch.isfinite(ema_out).all()) and frames.device.type == "cuda",
+              f"batched step, {label}: outputs finite, of the stated shapes, on the card")
+        sync_err = ema_rel = frames_rel = 0.0
+        singles = []
+        for b in range(N_STREAMS):
+            ph = (STREAM_PHASES[b],) if cfg.carry_phase else ()
+            e1, f1, s1, c1 = single(iq_b[b], ema_b[b], ALPHA, *ph)
+            singles.append((e1, f1, s1, c1))
+            sync_err = max(sync_err, float((sync[b] - s1).abs().max()))
+            frames_rel = max(frames_rel, float((frames[b] - f1).abs().max() / f1.abs().max()))
+            ema_rel = max(ema_rel, float((ema_out[b] - e1).abs().max() / (e1.max() - e1.min())))
+        # The batched alignment and EMA alone: the same step with the single
+        # streams' sync values in place of its own, so that the summation
+        # order of the sync's profiles plays no part.
+        pinned = (torch.cat([s[2][:, 0] for s in singles]), torch.cat([s[2][:, 1] for s in singles]),
+                  torch.cat([s[3] for s in singles]))
+        real_sync = poff.frame_sync_subpixel
+        poff.frame_sync_subpixel = lambda screens: pinned
+        try:
+            ema_p, frames_p, sync_p, _ = step(iq_b, ema_b, ALPHA, *phases)
+        finally:
+            poff.frame_sync_subpixel = real_sync
+        pinned_frames_rel = pinned_ema_rel = 0.0
+        for b, (e1, f1, s1, _) in enumerate(singles):
+            check(bool(torch.equal(sync_p[b], s1)), "the pinned sync values reached the step")
+            pinned_frames_rel = max(pinned_frames_rel,
+                                    float((frames_p[b] - f1).abs().max() / f1.abs().max()))
+            pinned_ema_rel = max(pinned_ema_rel,
+                                 float((ema_p[b] - e1).abs().max() / (e1.max() - e1.min())))
+        del singles, frames_p, ema_p
+        print(f"[batched, {label}] {N_STREAMS} streams of {n} samples as int16 words "
+              f"({host.nbytes / 1e6:.1f} MB in, {frames.numel() * 4 / 1e6:.1f} MB of frames out): "
+              f"1 K1 launch a step; each stream's screens equal the single-stream step's to the "
+              f"bit and their EMA to {raw_ema_rel:.3e} of range (tolerance {BATCH_EMA_REL_TOL:g}); "
+              f"after sync and alignment: sync max diff {sync_err:.3e} px (tolerance "
+              f"{SYNC_ABS_TOL:g}), aligned frames max diff {frames_rel:.3e} of the largest pixel, "
+              f"EMA max diff {ema_rel:.3e} of range (tolerance {BATCH_ALIGNED_REL_TOL:g}); with "
+              f"the single streams' sync values pinned: aligned frames {pinned_frames_rel:.3e}, "
+              f"EMA {pinned_ema_rel:.3e} (tolerance {BATCH_EMA_REL_TOL:g})")
+        check(pinned_frames_rel < BATCH_EMA_REL_TOL and pinned_ema_rel < BATCH_EMA_REL_TOL,
+              f"batched step, {label}: alignment and EMA at the single streams' sync values match")
+        check(frames_rel < BATCH_ALIGNED_REL_TOL,
+              f"batched step, {label}: aligned frames match the single streams")
+        check(sync_err < SYNC_ABS_TOL, f"batched step, {label}: sync matches the single streams")
+        check(ema_rel < BATCH_ALIGNED_REL_TOL,
+              f"batched step, {label}: EMA matches the single streams")
+
+        # K1 alone on the 144 frames, as the step calls it, against its plain version.
+        cuts = [poff._cut_fn(cfg)(*([p] if cfg.carry_phase else [])) for p in STREAM_PHASES]
+        lead, tail = poff._stream_margins(cfg, frame_len, cfg.subsample_align)
+        back = max(int(max(c[0].max() for c in cuts)) + tail - n, 0)
+        flat = iq_b
+        if back:
+            flat = torch.cat([iq_b, iq_b[:, -2:].repeat(1, back)], dim=1)
+        n_b = flat.shape[1] // 2
+        flat = flat.reshape(-1)
+        starts = torch.from_numpy(np.concatenate(
+            [c[0].astype(np.int64) + b * n_b for b, c in enumerate(cuts)]).astype(np.int32)).to(dev)
+        fracs = None
+        if cfg.subsample_align:
+            fracs = torch.from_numpy(np.concatenate([c[1] for c in cuts])).to(dev)
+        got = frames_to_screens_from_words(flat, starts, *raster, fracs, 2)
+        ref = frames_to_screens_plain(tp.am_envelope_from_iq(flat), starts,
+                                      screen_geometry(*raster, dev), fracs, 2)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        check(bool(torch.equal(got, ref)),
+              f"K1 on {N_STREAMS * N_FRAMES} frames, {label}, equals its plain version to the bit "
+              f"(max abs diff {err:.3e})")
+        plain_ms = time_call(torch, lambda: frames_to_screens_plain(
+            tp.am_envelope_from_iq(flat), starts, screen_geometry(*raster, dev), fracs, 2), calls=3)
+        del ref
+        bound_ms, bound_by, nbytes = k1_bound(N_STREAMS * n_b, 4, N_STREAMS * N_FRAMES, raster, True,
+                                              2, cfg.subsample_align)
+        ms = time_call(torch, lambda: frames_to_screens_from_words(flat, starts, *raster, fracs, 2))
+        b2b_ms = time_back_to_back(
+            torch, lambda: frames_to_screens_from_words(flat, starts, *raster, fracs, 2))
+        print(f"[K1 int16 words, {N_STREAMS * N_FRAMES} frames, {label}] equal to plain to the bit"
+              f"{' (each block padded by ' + str(back) + ' samples)' if back else ''}; "
+              f"{ms:.4f} ms single call, {b2b_ms:.4f} ms back to back; bound {bound_ms:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB, by {bound_by}), share reached {bound_ms / b2b_ms:.3f} back "
+              f"to back; plain {plain_ms:.4f} ms, on {card}")
+
+        batched_ms = time_call(torch, lambda: step(iq_b, ema_b, ALPHA, *phases), calls=10)
+
+        def four_singles():
+            for b in range(N_STREAMS):
+                ph = (STREAM_PHASES[b],) if cfg.carry_phase else ()
+                single(iq_b[b], ema_b[b], ALPHA, *ph)
+
+        singles_ms = time_call(torch, four_singles, calls=10)
+        with profile(activities=profile_activities) as prof:
+            step(iq_b, ema_b, ALPHA, *phases)
+            torch.cuda.synchronize()
+        with profile(activities=profile_activities) as prof1:
+            four_singles()
+            torch.cuda.synchronize()
+        print(f"[batched, {label}] {batched_ms:.3f} ms a batched step beside {singles_ms:.3f} ms "
+              f"for four single-stream steps (CUDA events, median of 10) = "
+              f"{N_STREAMS * n / batched_ms / 1e3:.1f} Msamples/s; device time "
+              f"{device_ms(prof):.3f} ms in {kernel_count(prof)} kernels beside "
+              f"{device_ms(prof1):.3f} ms in {kernel_count(prof1)} (profiler), on {card}")
+        out[label] = dict(launches=launches, err=err, ms=ms, b2b_ms=b2b_ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+        del iq_b, flat, got, frames
+    return out
+
+
+def phase_search(tp, torch, dev, card: str, words_f32, reset_counts) -> dict:
+    """Phase 13: the static mode search on the slice's capture."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tempest_tpu_torch.ops.resample import round_to_bfloat16
+    from tempest_tpu_torch.ops.resample_kernel import (
+        ROWS_PER_TILE, frames_to_screens, frames_to_screens_from_words,
+        frames_to_screens_plain, screen_geometry, tile_plan)
+
+    cands = tp.candidate_modes(60.0, tol_hz=SEARCH_TOL_HZ)
+    spf = SAMPLE_RATE / 60.0
+    frame_len = int(np.floor(spf))
+    need = int(np.round((SEARCH_FRAMES - 1) * spf)) + frame_len + 1
+    z = torch.view_as_complex(words_f32[: 2 * need].reshape(-1, 2))
+    tp.mode_search_static(z, SAMPLE_RATE, 60.0, cands)          # warm
+    reset_counts()
+    res = tp.mode_search_static(z, SAMPLE_RATE, 60.0, cands)
+    launches = frames_to_screens.launches_by_variant[2, False]
+    check(launches == len(cands) == frames_to_screens.launches
+          and frames_to_screens_from_words.launches == 0,
+          f"the search launched K1 once per candidate ({launches} for {len(cands)})")
+    order = np.argsort(res.scores)[::-1]
+    print(f"[search] {len(cands)} candidate modes within {SEARCH_TOL_HZ} Hz of 60 Hz, "
+          f"{SEARCH_FRAMES} frames at {SEARCH_SCORE_SIZE[0]}x{SEARCH_SCORE_SIZE[1]}, "
+          f"{SEARCH_PHASES} phases: winner {res.names[res.best_index]} "
+          f"(score {res.scores[res.best_index]:.5g}), then "
+          f"{[(res.names[i], round(float(res.scores[i]), 1)) for i in order[1:3]]}; K1 launches "
+          f"{launches}")
+    check(res.names[res.best_index] == MODE_NAME and bool(np.isfinite(res.scores).all()),
+          "the search names the capture's mode")
+    cpu = tp.mode_search_static(z.cpu(), SAMPLE_RATE, 60.0, cands, device="cpu")
+    score_rel = float(np.abs(res.scores - cpu.scores).max() / np.abs(cpu.scores).max())
+    print(f"[search] card vs CPU: scores max diff {score_rel:.3e} of the largest "
+          f"(tolerance {EMA_REL_TOL:g}), same winner: {cpu.best_index == res.best_index}")
+    check(cpu.best_index == res.best_index and score_rel < EMA_REL_TOL,
+          "card and CPU searches agree")
+
+    # K1 at the score grid against its plain version, on the search's envelope.
+    env = round_to_bfloat16(z.abs().to(torch.float32)).contiguous()
+    starts = torch.from_numpy(
+        np.round(np.arange(SEARCH_FRAMES) * spf).astype(np.int32)).to(dev)
+    timed = {}
+    by_name = dict(cands)
+    held = [MODE_NAME] + [n for n in (res.names[order[1]], res.names[order[-1]])
+                          if n != MODE_NAME]
+    for name in held:
+        m = by_name[name]
+        raster = (frame_len, m.height, m.width, SEARCH_SCORE_SIZE)
+        geom = screen_geometry(*raster, dev, SEARCH_PHASES)
+        got = frames_to_screens(env, starts, *raster, None, 2, SEARCH_PHASES)
+        ref = frames_to_screens_plain(env, starts, geom, None, 2)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        rows, run_cap = tile_plan(*raster, 4)
+        check(bool(torch.equal(got, ref)),
+              f"K1 at the score grid for {name} equals its plain version to the bit ({err:.3e})")
+        bound_ms, bound_by, nbytes = k1_bound(need, 4, SEARCH_FRAMES, raster, False)
+        ms = time_call(torch, lambda: frames_to_screens(env, starts, *raster, None, 2,
+                                                        SEARCH_PHASES))
+        b2b_ms = time_back_to_back(torch, lambda: frames_to_screens(
+            env, starts, *raster, None, 2, SEARCH_PHASES))
+        plain_ms = time_call(torch, lambda: frames_to_screens_plain(env, starts, geom, None, 2),
+                             calls=10)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                frames_to_screens(env, starts, *raster, None, 2, SEARCH_PHASES)
+            torch.cuda.synchronize()
+        dev_ms = sum(evt.self_device_time_total for evt in prof.key_averages()
+                     if "resample_tiles_kernel" in evt.key) / 1e4
+        check(dev_ms > 0, "the profiler traced K1's kernel")
+        dev_ms = dev_ms or float("nan")
+        print(f"[K1 envelope, {SEARCH_SCORE_SIZE[0]}x{SEARCH_SCORE_SIZE[1]}, {name}] "
+              f"{m.width}x{m.height} raster, {rows} rows a tile ({run_cap} samples staged): equal "
+              f"to plain to the bit; {ms:.4f} ms single call, {b2b_ms:.4f} ms back to back, "
+              f"{dev_ms:.4f} ms of device time; bound {bound_ms:.5f} ms ({nbytes / 1e6:.2f} MB, by "
+              f"{bound_by}), share reached {bound_ms / dev_ms:.3f} of device time; plain "
+              f"{plain_ms:.4f} ms, on {card}")
+        timed[name] = dict(err=err, ms=ms, b2b_ms=b2b_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, device_ms=dev_ms)
+    # Score grids so coarse that the plan halves a tile's rows, on both entries.
+    m = by_name[MODE_NAME]
+    pairs = words_f32[: 2 * need].contiguous()
+    pairs_env = tp.am_envelope_from_iq(pairs)
+    for shape in COARSE_SCORE_SIZES:
+        raster = (frame_len, m.height, m.width, shape)
+        geom = screen_geometry(*raster, dev, SEARCH_PHASES)
+        for label, kernel, data, plain_env, sample_bytes in (
+                ("envelope", frames_to_screens, env, env, 4),
+                ("float32 words", frames_to_screens_from_words, pairs, pairs_env, 8)):
+            rows, run_cap = tile_plan(*raster, sample_bytes)
+            check(rows < ROWS_PER_TILE[sample_bytes],
+                  f"a {shape[0]}-row score grid halves the rows of a tile ({rows})")
+            got = kernel(data, starts, *raster, None, 2, SEARCH_PHASES)
+            ref = frames_to_screens_plain(plain_env, starts, geom, None, 2)
+            torch.cuda.synchronize()
+            check(bool(torch.equal(got, ref)),
+                  f"K1 {label} at {shape}, {rows} rows a tile, equals its plain version to the "
+                  f"bit ({float((got - ref).abs().max()):.3e})")
+            ms = time_call(torch, lambda: kernel(data, starts, *raster, None, 2, SEARCH_PHASES))
+            print(f"[K1 {label}, {shape[0]}x{shape[1]}, {MODE_NAME}] the plan halves a tile to "
+                  f"{rows} rows of {ROWS_PER_TILE[sample_bytes]} ({run_cap} samples staged): equal "
+                  f"to plain to the bit; {ms:.4f} ms single call, on {card}")
+    whole_ms = wall_ms(torch, lambda: tp.mode_search_static(z, SAMPLE_RATE, 60.0, cands))
+    print(f"[search] {whole_ms:.2f} ms whole, {whole_ms / len(cands):.3f} ms per candidate "
+          f"(wall clock, median of 3, envelope and scoring included), on {card}")
+
+    reset_counts()
+    auto_words = words_f32[: 2 * slice_config(tp).block_samples]
+    timing, recon = tp.auto_reconstruct(auto_words, SAMPLE_RATE, alpha=ALPHA,
+                                        refine_with_search=True, search_tol_hz=SEARCH_TOL_HZ)
+    check(timing.mode_name == MODE_NAME and recon.image.shape == RENDER
+          and bool(np.isfinite(recon.image).all()),
+          "auto_reconstruct(refine_with_search=True) names the mode")
+    n_cands = len(tp.candidate_modes(timing.refresh_hz, tol_hz=SEARCH_TOL_HZ))
+    check(frames_to_screens.launches == n_cands
+          and frames_to_screens_from_words.launches == 1,
+          f"refine_with_search: one K1 launch per candidate ({frames_to_screens.launches} for "
+          f"{n_cands}), one for the reconstruction")
+    refine_ms = wall_ms(torch, lambda: tp.auto_reconstruct(
+        auto_words, SAMPLE_RATE, alpha=ALPHA, refine_with_search=True,
+        search_tol_hz=SEARCH_TOL_HZ))
+    print(f"[search] auto_reconstruct(refine_with_search=True): {timing.mode_name}, "
+          f"{refine_ms:.2f} ms from float32 words on the card (wall clock, median of 3), on {card}")
+    out = dict(timed[MODE_NAME])
+    out["launches"] = launches
+    return out
+
+
+def phase_resamplers(tp, torch, dev, card: str, words_i16, truth, reset_counts) -> dict:
+    """Phase 14: every ``resampler=`` name on the 36-frame capture."""
+    from tempest_tpu_torch.ops.resample_kernel import (
+        frames_to_screens, frames_to_screens_from_words, frames_to_screens_plain,
+        screen_geometry)
+    from tempest_tpu_torch.pipeline import offline as poff
+
+    mode = tp.ALL_VIDEO_MODES[MODE_NAME]
+    base = tp.ReconstructionConfig(sample_rate=SAMPLE_RATE, mode=mode, n_frames=N_FRAMES,
+                                   input_format="iq_interleaved", align_subpixel=True)
+    n = base.block_samples
+    block = words_i16[: 2 * n]
+    env = tp.am_envelope_from_iq(block)
+    grad = float((env[1:] - env[:-1]).abs().max())
+    top = float(env.max())
+    ema0 = torch.zeros(RENDER, dtype=torch.float32, device=dev)
+    screens = {}
+    out = {}
+    for name in ("pallas", "aligned", "mxu", "mxu2", "mxu3", "mxu4", "mxu_batched", "gather",
+                 "rows", "fft"):
+        cfg = dataclasses.replace(base, resampler=name)
+        raw = tp.make_reconstruct_fn(dataclasses.replace(cfg, do_align=False))
+        step = tp.make_reconstruct_fn(cfg)
+        reset_counts()
+        screens[name] = raw(block, ema0, ALPHA)[1]
+        k1_launches = frames_to_screens.launches + frames_to_screens_from_words.launches
+        how = poff.RESAMPLERS[name]
+        check(k1_launches == (1 if how.route == "k1" else 0),
+              f"resampler={name}: {'one K1 launch a block' if how.route == 'k1' else 'no K1 launch'}")
+        rec = tp.reconstruct_frames(block, cfg, alpha=ALPHA)
+        db, _ = tp.aligned_psnr(truth, rec.image)
+        ms = time_call(torch, lambda: step(block, ema0, ALPHA), calls=5)
+        diff = float((screens[name] - screens["pallas"])[:, :-2].abs().max())
+        if how.route == "k1":
+            bound = (grad / (2 * RESAMPLER_PHASES) if how.quantised else 0.0) \
+                + (BF16_REL * top if how.bf16_envelope else 0.0)
+            note = (f"bound {bound:.4g}: "
+                    + (f"1/(2·{RESAMPLER_PHASES}) sample times the largest step {grad:.4g}"
+                       if how.quantised else "K1 itself")
+                    + (f" plus 2^-8 of the largest sample {top:.4g}" if how.bf16_envelope else ""))
+            check(diff <= bound, f"resampler={name} within its bound of K1 ({diff} > {bound})")
+        else:
+            note = "another interpolation of the same screens, no bound"
+        print(f"[resamplers] {name:12s} aligned PSNR {db:.3f} dB; largest difference from pallas "
+              f"{diff:.4g} ({note}); {ms:.3f} ms a {N_FRAMES}-frame block (CUDA events, median "
+              f"of 5); K1 launches a block {k1_launches}, on {card}")
+        check(bool(np.isfinite(rec.image).all()) and rec.image.shape == RENDER,
+              f"resampler={name}: image finite, of the screen's shape")
+        out[name] = dict(psnr=db, launches=k1_launches)
+    check(abs(out["aligned"]["psnr"] - out["pallas"]["psnr"]) < 1e-9, "aligned is K1")
+    for name in out:
+        # One 36-frame block from an empty EMA, where the bar is the streaming
+        # chain's after three; the band-limited read is another interpolation.
+        check(name == "fft" or out[name]["psnr"] > PSNR_BAR_DB - 0.5,
+              f"resampler={name} reconstructs the screen")
+
+    # K1 with the quantised table, at the slice's shapes, against its plain version.
+    spf = base.samples_per_frame
+    frame_len = int(np.floor(spf))
+    raster = (frame_len, mode.height, mode.width, RENDER)
+    starts = torch.from_numpy(np.round(np.arange(N_FRAMES) * spf).astype(np.int32)).to(dev)
+    geom = screen_geometry(*raster, dev, RESAMPLER_PHASES)
+    for taps in (2, 4):
+        got = frames_to_screens(env, starts, *raster, None, taps, RESAMPLER_PHASES)
+        ref = frames_to_screens_plain(env, starts, geom, None, taps)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        check(bool(torch.equal(got, ref)),
+              f"K1 with the quantised table, {taps} taps, equals its plain version ({err:.3e})")
+        if taps == 2:
+            ms = time_call(torch, lambda: frames_to_screens(env, starts, *raster, None, 2,
+                                                            RESAMPLER_PHASES))
+            b2b_ms = time_back_to_back(torch, lambda: frames_to_screens(
+                env, starts, *raster, None, 2, RESAMPLER_PHASES))
+            plain_ms = time_call(torch, lambda: frames_to_screens_plain(env, starts, geom, None, 2),
+                                 calls=5)
+            bound_ms, bound_by, nbytes = k1_bound(n, 4, N_FRAMES, raster, False)
+            print(f"[K1 envelope, quantised table] {RESAMPLER_PHASES} phases: equal to plain to "
+                  f"the bit (2 and 4 taps); {ms:.4f} ms single call, {b2b_ms:.4f} ms back to "
+                  f"back; bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, by {bound_by}), share "
+                  f"reached {bound_ms / b2b_ms:.3f}; plain {plain_ms:.4f} ms, on {card}")
+            out["quantised"] = dict(err=err, ms=ms, b2b_ms=b2b_ms, plain_ms=plain_ms,
+                                    bound_ms=bound_ms, bound_by=bound_by,
+                                    launches=out["mxu3"]["launches"])
+        del got, ref
+    return out
+
+
+def phase_cli_and_web(tp, torch, dev, card: str, reset_counts) -> None:
+    """Phase 15: the command line, in process, on the card; then the web view."""
+    import contextlib
+    import io
+    import tempfile
+    import threading
+    import urllib.request
+
+    from tempest_tpu_torch.app.cli import main as cli_main
+    from tempest_tpu_torch.ops.resample_kernel import frames_to_screens, \
+        frames_to_screens_from_words
+
+    fs = f"{SAMPLE_RATE:g}"
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cap = str(tmp / "cap.dat")
+        commands = [
+            ("synth", ["synth", "--mode", MODE_NAME, "--fs", fs, "--seconds", str(CLI_SECONDS),
+                       "--snr", str(SNR_DB), "--seed", str(SEED), "--out", cap], []),
+            ("analyze", ["analyze", cap, "--fs", fs, "--plots", str(tmp / "ev"), "--peaks", "3"],
+             [tmp / "ev_refresh.png", tmp / "ev_lines.png"]),
+            ("reconstruct", ["reconstruct", cap, "--fs", fs, "--mode", "auto",
+                             "--out", str(tmp / "auto.png")], [tmp / "auto.png"]),
+            ("scan", ["scan", cap, "--fs", fs], []),
+            ("survey", ["survey", cap, "--fs", fs, "--out", str(tmp / "report")],
+             [tmp / "report" / "band.png", tmp / "report" / "screen_1.png"]),
+            ("stream", ["stream", "--source", "replay", "--file", cap, "--mode", MODE_NAME,
+                        "--fs", fs, "--blocks", "3", "--render", "png",
+                        "--out-prefix", str(tmp / "frame")],
+             [tmp / f"frame_{i:05d}.png" for i in range(3)]),
+            ("search", ["search", cap, "--fs", fs, "--tol", str(SEARCH_TOL_HZ)], []),
+            ("warmup", ["warmup", "--fs", fs, "--modes", MODE_NAME, "--frames", "6"], []),
+        ]
+        expect = {"analyze": f"closest mode      : {MODE_NAME}",
+                  "reconstruct": f"detected mode: {MODE_NAME}",
+                  "survey": f"screen 1: {MODE_NAME}",
+                  "search": " 1. " + MODE_NAME,
+                  "stream": "frames reconstructed",
+                  "warmup": "compiled timing estimator",
+                  "scan": "best candidate", "synth": "wrote"}
+        for name, argv, pngs in commands:
+            reset_counts()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli_main(argv)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            text = buf.getvalue()
+            check(rc == 0, f"cli {name} returned {rc}:\n{text}")
+            check(expect[name] in text, f"cli {name} printed {expect[name]!r}:\n{text}")
+            for png in pngs:
+                img = read_png(png)
+                # The band plot of a few channels may be one flat line.
+                check(img.size > 0 and (png.name == "band.png" or int(img.max()) > int(img.min())),
+                      f"{png.name} shows an image")
+            k1 = frames_to_screens.launches + frames_to_screens_from_words.launches
+            shown = next(l for l in text.splitlines() if expect[name].strip() in l).strip()
+            print(f"[cli] {name}: rc 0 in {ms:.1f} ms wall clock, K1 launches {k1}, "
+                  f"{len(pngs)} PNGs opened; \"{shown}\", on {card}")
+        check(cli_main(["stream", "--mesh", "4"]) == 2 and cli_main(
+            ["search", cap, "--dynamic"]) == 2, "the multi-GPU options exit with a message")
+
+        # The web view on an ephemeral port, over a runtime on the card.
+        mode = tp.ALL_VIDEO_MODES[MODE_NAME]
+        src = tp.ReplaySource(cap, SAMPLE_RATE, int(SAMPLE_RATE * 0.1))
+        rt = tp.StreamingRuntime(src, mode, alpha=0.5)
+        web = tp.WebOperatorView(rt, port=0)
+        base = f"http://{web.host}:{web.port}"
+
+        def get(path):
+            with urllib.request.urlopen(base + path, timeout=30) as r:
+                return r.read()
+
+        def post(path, body):
+            req = urllib.request.Request(base + path, data=body.encode(), method="POST")
+            with urllib.request.urlopen(req, timeout=30) as r:
+                return r.read()
+
+        def poll(pred, what):
+            t_end = time.monotonic() + 60
+            while time.monotonic() < t_end:
+                v = pred()
+                if v:
+                    return v
+                time.sleep(0.05)
+            raise RuntimeError(f"web view: {what} not reached in 60 s")
+
+        rt.start()
+        thread = threading.Thread(target=web.run, daemon=True, name="web-smoke")
+        t0 = time.perf_counter()
+        thread.start()
+        try:
+            page = get("/").decode()
+            check("operator view" in page and "/frame.png" in page, "the operator page serves")
+            png = poll(lambda: (lambda p: p if p.startswith(b"\x89PNG") and len(p) > 2000
+                                else None)(get("/frame.png")), "a live frame")
+            first_ms = 1e3 * (time.perf_counter() - t0)
+            (tmp / "live.png").write_bytes(png)
+            check(read_png(tmp / "live.png").shape == RENDER, "the live frame is a screen")
+            status = json.loads(get("/status.json"))
+            check(status["mode"]["width"] == mode.width and status["running"] is True,
+                  "the status JSON names the mode")
+            post("/command", "+ 1")
+            poll(lambda: rt.mode.height == mode.height + 1, "the +1 line command")
+        finally:
+            try:
+                post("/command", "quit")
+            except OSError:
+                pass
+            thread.join(timeout=60)
+            rt.stop()
+        check(not thread.is_alive() and not web.console.alive, "quit ends the web session")
+        print(f"[web] page, frame PNG ({len(png)} bytes, first after {first_ms:.0f} ms), status "
+              f"JSON, one command and quit over http://{web.host}:<ephemeral>, "
+              f"{web.console.blocks_done} blocks processed, on {card}")
+
+
+def phase_roofline(tp, torch, dev, card: str, words_i16) -> None:
+    """Phase 16: a roofline count of one default step."""
+    from tempest_tpu_torch.ops.resample_kernel import launch_cost
+
+    cfg = slice_config(tp)
+    step = tp.make_reconstruct_fn(cfg)
+    h, w = cfg.render_size
+    ema0 = torch.zeros((h, w), dtype=torch.float32, device=dev)
+    block = words_i16[: 2 * cfg.block_samples]
+    rep = tp.roofline(step, block, ema0, ALPHA, 0.0)
+    raster = (int(np.floor(cfg.samples_per_frame)), cfg.mode.height, cfg.mode.width, (h, w))
+    nbytes, flops, _ = launch_cost(cfg.block_samples, 4, N_FRAMES, *raster, True)
+    check(rep.kernel_launches == 1 and rep.kernel_bytes == nbytes and rep.kernel_flops == flops,
+          f"the roofline count holds K1's launch_cost ({rep.kernel_bytes} vs {nbytes})")
+    ms = time_call(torch, lambda: step(block, ema0, ALPHA, 0.0), calls=10)
+    print(f"[roofline] one default step, int16 words: {rep.summary(ms / 1e3)}; of that K1 "
+          f"{rep.kernel_bytes / 1e6:.1f} MB and {rep.kernel_flops / 1e9:.3f} GFLOP in "
+          f"{rep.kernel_launches} launch (its launch_cost); peaks {tp.H100_PEAKS['flops_per_s'] / 1e12:g} "
+          f"TFLOP/s float32 and {tp.H100_PEAKS['bytes_per_s'] / 1e12:g} TB/s, on {card}")
+    check(rep.bound() == "memory" and rep.bytes_accessed > nbytes, "the step is memory-bound")
+
+
 def main() -> int:
     import torch
 
@@ -829,7 +1420,7 @@ def main() -> int:
             print(f"[K1 {name}] {what}: relative diff {edge_rel:.3e}")
             check(edge_rel < K1_REL_TOL, f"K1 on {name}, {what}, agrees with its plain version")
             del got, ref
-        bound_ms, bound_by, nbytes = k1_bound(block, sample_bytes, N_FRAMES, h, w, demod)
+        bound_ms, bound_by, nbytes = k1_bound(block, sample_bytes, N_FRAMES, raster, demod)
         ms = time_call(torch, lambda: kernel(data, starts, *raster))
         b2b_ms = time_back_to_back(torch, lambda: kernel(data, starts, *raster))
         plain_ms = time_call(torch, lambda: plain_fn(data, starts), calls=10)
@@ -865,7 +1456,7 @@ def main() -> int:
               f"frame_to_screen at {shape} agrees with the plain version")
     # One frame alone: 333,333 samples in, one 600x800 screen out.
     one_starts = torch.zeros(1, dtype=torch.int32, device=dev)
-    one_bound_ms, one_by, one_bytes = k1_bound(frame_len, 4, 1, h, w, False)
+    one_bound_ms, one_by, one_bytes = k1_bound(frame_len, 4, 1, raster, False)
     one_ms = time_call(torch, lambda: frame_to_screen(one, mode.height, mode.width, (h, w)))
     one_b2b_ms = time_back_to_back(
         torch, lambda: frame_to_screen(one, mode.height, mode.width, (h, w)))
@@ -1018,7 +1609,7 @@ def main() -> int:
                 check(edge_rel < K1_REL_TOL,
                       f"K1 on {name}, {label}, {what}, agrees with its plain version")
                 del got, ref
-            bound_ms, bound_by, nbytes = k1_bound(block, sample_bytes, N_FRAMES, h, w, demod,
+            bound_ms, bound_by, nbytes = k1_bound(block, sample_bytes, N_FRAMES, raster, demod,
                                                   taps, exact)
             ms = time_call(torch, lambda: kernel(data, v_starts, *raster, residuals, taps))
             b2b_ms = time_back_to_back(
@@ -1199,6 +1790,15 @@ def main() -> int:
         tp, torch, dev, card, reset_counts, [ProfilerActivity.CPU, ProfilerActivity.CUDA]))
     phase_tasks(tp, torch, dev, card, blocks, mode)
 
+    # ---- 12-16. the operator surface: batched serving, the mode search, every
+    # resampler name, the command line and the web view, the roofline count
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    batched = phase_batched(tp, torch, dev, card, words, reset_counts, activities)
+    search = phase_search(tp, torch, dev, card, words_f32, reset_counts)
+    named = phase_resamplers(tp, torch, dev, card, words_i16, truth, reset_counts)
+    phase_cli_and_web(tp, torch, dev, card, reset_counts)
+    phase_roofline(tp, torch, dev, card, words_i16)
+
     # ---- the step on device-resident words, demod fused and as a pass of its own
     step = tp.make_reconstruct_fn(cfg, dev)
     ema0 = torch.zeros((h, w), dtype=torch.float32, device=dev)
@@ -1241,7 +1841,7 @@ def main() -> int:
         print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
 
     def kernel_entry(name, key, launches):
-        m = measured[key]
+        m = key if isinstance(key, dict) else measured[key]
         return {
             "name": name,
             "route": "cuda",
@@ -1290,6 +1890,18 @@ def main() -> int:
                      ("float32 words", 4, True), fidelity4_launches),
         kernel_entry("K1 frames_to_screens, 4 taps (envelope)",
                      ("envelope", 4, False), small_launches["fm"]),
+        # The operator surface's paths: 144 frames of 4 streams in one launch
+        # a batched step; one launch per candidate of the mode search, at a
+        # 150x200 grid; one launch a block under the mxu names.
+        kernel_entry("K1 frames_to_screens_from_words, batched step (int16 words, 144 frames)",
+                     batched["static cuts"], batched["static cuts"]["launches"]),
+        kernel_entry("K1 frames_to_screens_from_words, batched step, residuals "
+                     "(int16 words, 144 frames)", batched["carry_phase, exact cuts"],
+                     batched["carry_phase, exact cuts"]["launches"]),
+        kernel_entry("K1 frames_to_screens, mode search (envelope, 2 frames at 150x200, "
+                     "quantised table)", search, search["launches"]),
+        kernel_entry("K1 frames_to_screens, quantised table (envelope, the mxu names)",
+                     named["quantised"], named["quantised"]["launches"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -8,8 +8,12 @@ with the resampler as a hand-written CUDA kernel for Hopper
 (``csrc/resample.cu``); and wideband capture → carriers → fused image: the
 band scan (``scan_band``), multi-harmonic combining (``combine_harmonics``,
 ``combined_reconstruct``, ``reconstruct_all_emissions``) and the same live in
-the streaming runtime, with its tasks and operator console.  The sub-package layout mirrors ``tempest_tpu``; this
-package imports ``torch`` and never ``jax``.
+the streaming runtime, with its tasks and operator console; and the operator
+surface: the command line (``app.cli``), the web view
+(``runtime.webview``), batched serving (``make_batched_reconstruct_fn``), the
+video-mode search (``parallel.sharded.mode_search_static``) and every
+``resampler=`` name of the JAX package.  The sub-package layout mirrors
+``tempest_tpu``; this package imports ``torch`` and never ``jax``.
 
 For authorized security research into electromagnetic side-channel leakage.
 """
@@ -42,6 +46,7 @@ from .ops.demod import (
     am_envelope_from_iq,
     fm_demod,
     fm_demod_rows,
+    invert_am_demod,
     invert_envelope,
 )
 from .ops.autocorr import (
@@ -54,7 +59,15 @@ from .ops.autocorr import (
 from .ops.spectrum import get_spectrum, get_welch, get_waterfall
 from .ops.scan import ScanResult, carrier_score, channelize, scan_band, scan_centers
 from .ops.combine import CombineResult, combine_harmonics
-from .ops.resample import linear_resample, sig_to_image, downgrade_image, RENDER_SIZE
+from .ops.resample import (
+    linear_resample,
+    sig_to_image,
+    downgrade_image,
+    naive_upsample,
+    upsample_fft,
+    polyphase_resample,
+    RENDER_SIZE,
+)
 from .ops.resample import frame_to_screen as frame_to_screen_gather
 from .ops.enhance import interp_kernel_ft, restore_image, wiener_gain
 from .ops.resample_kernel import (
@@ -80,6 +93,7 @@ from .pipeline.offline import (
     timing_evidence,
     pick_line_peak,
     make_reconstruct_fn,
+    make_batched_reconstruct_fn,
     reconstruct_frames,
     auto_reconstruct,
     combined_reconstruct,
@@ -90,5 +104,9 @@ from .render.screen import aligned_psnr, psnr
 from .runtime.sources import ReplaySource, SyntheticSource
 from .runtime.stream import StreamingRuntime, state_from_jax
 from .runtime.console import OperatorConsole
+from .runtime.webview import WebOperatorView
+from .parallel.sharded import ModeSearchResult, mode_search_static
+from .utils.profiling import Metrics, annotate, trace
+from .utils.roofline import H100_PEAKS, RooflineReport, roofline
 
 __version__ = "0.1.0"

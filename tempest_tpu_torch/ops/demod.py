@@ -25,6 +25,7 @@ import torch
 
 __all__ = [
     "am_demod",
+    "invert_am_demod",
     "am_demod_power",
     "am_envelope_from_iq",
     "am_envelope_from_iq_planar",
@@ -132,3 +133,9 @@ def invert_envelope(env: torch.Tensor) -> torch.Tensor:
     """Inverted, max-normalised envelope ``1 - env / max(env)`` — the
     ``invert`` option of the reconstruction config."""
     return 1.0 - env / torch.max(env)
+
+
+def invert_am_demod(sig: torch.Tensor) -> torch.Tensor:
+    """Inverted, max-normalised envelope ``1 - |z|/max|z|`` of complex
+    samples (reference ``invert_amDemod``, ``Demodulation.jl:31-35``)."""
+    return invert_envelope(am_demod(sig))

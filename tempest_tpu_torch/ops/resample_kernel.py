@@ -29,6 +29,15 @@ The Pallas kernel carries fractions and ``wr`` in 16.16 fixed point (a
 scalar-prefetch constraint); here they stay float32, so the two differ by
 at most 2⁻¹⁷ sample in position.
 
+With ``num_phases`` the line fractions are quantised on the host before they
+go to the card (``quantise_line_frac``): the read of the JAX package's
+``mxu`` resamplers, through the same kernel and the same plain version.  The
+line starts, and so the staging plan, do not change.
+
+``launch_cost`` counts a launch's bytes and operations; the bound that
+``chip_smoke.py`` prints and what a roofline count of a step
+(``utils.roofline``) is told of each launch are that one computation.
+
 The kernel (``csrc/resample.cu``) is bound by memory: a block's input is
 read once and its screens are written once, with nothing to reuse but the
 scan line two neighbouring rows share.  Its design moves those bytes once
@@ -54,6 +63,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.roofline import report_launch
 from .demod import am_envelope_from_iq
 from .resample import RENDER_SIZE, _screen_geometry
 
@@ -66,6 +76,9 @@ __all__ = [
     "frame_to_screen",
     "catmull_rom_weights",
     "line_reach",
+    "launch_cost",
+    "frame_samples_read",
+    "quantise_line_frac",
 ]
 
 # Output rows of one tile (at most 32), by the bytes of a staged sample: a
@@ -121,17 +134,35 @@ def line_reach(interp_taps: int, exact: bool) -> tuple[int, int]:
     return lead, lead + (1 if exact else 0)
 
 
-@functools.lru_cache(maxsize=16)
+def quantise_line_frac(line_frac: np.ndarray, num_phases: int) -> np.ndarray:
+    """Each line's fraction on the grid of the JAX package's phase-quantised
+    resamplers (``mxu`` and its kin): ``frac -> (p + 0.5) / P`` with
+    ``p = floor(frac · P)``, at most ``1 / (2P)`` sample from where it was.
+    A negative fraction (row 0 of a raster with less than one sample per
+    output column) takes the negative phases of ``frames_to_screens_mxu``."""
+    p = int(num_phases)
+    if p < 1:
+        raise ValueError(f"num_phases must be at least 1, got {num_phases}")
+    phase = np.clip(np.floor(line_frac.astype(np.float64) * p), -p, p - 1)
+    return ((phase + 0.5) / p).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=64)
 def screen_geometry(
     frame_len: int,
     y_t: int,
     x_t: int,
     out_shape: tuple[int, int],
     device: torch.device,
+    num_phases: int | None = None,
 ) -> ScreenGeometry:
     """Build the line tables once per (geometry, device) from the shared
-    host ``_screen_geometry`` and keep them on ``device``."""
+    host ``_screen_geometry`` and keep them on ``device``.  With
+    ``num_phases`` the lines' fractions are quantised on the host
+    (:func:`quantise_line_frac`); the line starts stay as they are."""
     line_start, line_frac, wr, delta, span = _line_tables(frame_len, y_t, x_t, out_shape)
+    if num_phases is not None:
+        line_frac = quantise_line_frac(line_frac, num_phases)
     dev = torch.device(device)
     return ScreenGeometry(
         line_start=torch.from_numpy(line_start.astype(np.int32)).to(dev),
@@ -239,6 +270,49 @@ def tile_plan(
     return rows, run_cap
 
 
+@functools.lru_cache(maxsize=64)
+def frame_samples_read(
+    frame_len: int, y_t: int, x_t: int, out_shape: tuple[int, int], reach: int = 0,
+) -> int:
+    """Samples of the block that the line tables address for one frame: the
+    union over the rows' two scan lines of ``[line_start, line_start + span +
+    reach)``, with ``reach = sum(line_reach(...))``.  A screen with as many
+    rows as half the raster's lines or more reads the whole frame; a 150-row
+    screen of a 1125-line raster reads 300 lines of it."""
+    line_start, _, _, _, span = _line_tables(frame_len, y_t, x_t, out_shape)
+    length = span + reach
+    starts = np.sort(line_start.reshape(-1).astype(np.int64))
+    return int(length + np.minimum(np.diff(starts), length).sum())
+
+
+def launch_cost(n_samples: int, sample_bytes: int, n_frames: int, frame_len: int, y_t: int,
+                x_t: int, out_shape: tuple[int, int], demod: bool, taps: int = 2,
+                exact: bool = False) -> tuple[int, int, int]:
+    """(bytes, float32 operations, square roots) of one K1 launch: what its
+    bound on the card and a roofline count are computed from.
+
+    Bytes: the samples of the block that the frames' line tables address
+    (:func:`frame_samples_read` per frame, the whole block at most) read once,
+    the frame starts and line tables read once, the screens written once;
+    residuals are 4 bytes a frame more.  What a tile stages beyond the lines
+    it reads is the kernel's own cost and no part of the bound.
+    Operations per pixel: one product for ``c·delta``; per vertical tap add,
+    max, floor, two subtractions, two products, add; three for the blend.
+    With 4 taps a vertical tap takes add, max, floor, subtraction, 19 for the
+    Catmull-Rom weights and 7 for the four-term sum.  The demod adds two
+    products, an add and a square root per sample read."""
+    h, w = int(out_shape[0]), int(out_shape[1])
+    pixels = n_frames * h * w
+    per_frame = frame_samples_read(int(frame_len), int(y_t), int(x_t), (h, w),
+                                   sum(line_reach(taps, exact)))
+    samples = min(int(n_samples), n_frames * per_frame)
+    nbytes = (samples * sample_bytes + (8 if exact else 4) * n_frames + h * (8 + 8 + 4)
+              + 4 * pixels)
+    per_tap = 8 if taps == 2 else 4 + 19 + 7
+    flops = pixels * (1 + 2 * per_tap + 3) + (4 * samples if demod else 0)
+    return nbytes, flops, (samples if demod else 0)
+
+
 def _launch(
     src: torch.Tensor,
     n_samples: int,
@@ -250,6 +324,7 @@ def _launch(
     out_shape: tuple[int, int],
     frac_offsets: torch.Tensor | None = None,
     interp_taps: int = 2,
+    num_phases: int | None = None,
 ) -> torch.Tensor:
     """Check the arguments and launch the kernel on ``src``'s device, on the
     current stream.  ``staged`` is (what ``src`` holds, bytes per sample)."""
@@ -269,8 +344,13 @@ def _launch(
     word, sample_bytes = staged
     out_shape = (int(out_shape[0]), int(out_shape[1]))
     raster = (int(frame_len), int(y_t), int(x_t), out_shape)
-    geom = screen_geometry(*raster, src.device)
+    geom = screen_geometry(*raster, src.device, num_phases)
     rows, run_cap = tile_plan(*raster, sample_bytes, lead + extra)
+    # Frame starts index the block as int32: a block whose sample count does
+    # not fit would wrap them.
+    if n_samples > np.iinfo(np.int32).max:
+        raise ValueError(
+            f"K1 takes int32 frame starts: a block of {n_samples} samples does not fit")
     from .. import _build
 
     lib = _build.load_library("resample")
@@ -286,6 +366,8 @@ def _launch(
         )
     if rc != 0:
         raise RuntimeError(f"K1 launch failed with cudaError_t {rc}")
+    report_launch(*launch_cost(n_samples, sample_bytes, n_frames, *raster, word != 0,
+                               interp_taps, frac_offsets is not None))
     return out
 
 
@@ -320,6 +402,7 @@ def frames_to_screens(
     out_shape: tuple[int, int] = RENDER_SIZE,
     frac_offsets: torch.Tensor | None = None,
     interp_taps: int = 2,
+    num_phases: int | None = None,
 ) -> torch.Tensor:
     """All frames of a block → (n_frames, h, w) float32 screens.
 
@@ -329,15 +412,18 @@ def frames_to_screens(
     ``frac_offsets`` (float32 (n_frames,), each in [0, 1)) are the frames'
     fractional residuals: frame f is read ``frame_starts[f] +
     frac_offsets[f]`` samples into the block.  ``interp_taps`` is 2 (linear)
-    or 4 (Catmull-Rom) along the scan."""
+    or 4 (Catmull-Rom) along the scan.  ``num_phases`` quantises each line's
+    fraction on the host (:func:`quantise_line_frac`): the read of the JAX
+    package's ``mxu`` resamplers, through the same kernel."""
     _check_block(env, frame_starts, frac_offsets, interp_taps, "env")
     if env.device.type == "cpu":
-        geom = screen_geometry(int(frame_len), int(y_t), int(x_t), tuple(out_shape), env.device)
+        geom = screen_geometry(int(frame_len), int(y_t), int(x_t), tuple(out_shape), env.device,
+                               num_phases)
         return frames_to_screens_plain(env, frame_starts, geom, frac_offsets, interp_taps)
     if env.dtype != torch.float32:
         raise TypeError(f"K1 takes a float32 envelope, got {env.dtype}")
     out = _launch(env, env.shape[0], _ENVELOPE, frame_starts, frame_len, y_t, x_t, out_shape,
-                  frac_offsets, interp_taps)
+                  frac_offsets, interp_taps, num_phases)
     _count(frames_to_screens, interp_taps, frac_offsets)
     return out
 
@@ -357,6 +443,7 @@ def frames_to_screens_from_words(
     out_shape: tuple[int, int] = RENDER_SIZE,
     frac_offsets: torch.Tensor | None = None,
     interp_taps: int = 2,
+    num_phases: int | None = None,
 ) -> torch.Tensor:
     """All frames of a block of raw I/Q → (n_frames, h, w) float32 screens,
     equal to ``frames_to_screens(am_envelope_from_iq(words), ...)``.
@@ -365,17 +452,18 @@ def frames_to_screens_from_words(
     float32.  An odd trailing word is dropped, on either device, as the
     demod does.  On a CUDA tensor the words must be contiguous and of one
     of those two types: the kernel reads them as they lie, where the demod
-    would first convert and copy them.  ``frac_offsets`` and ``interp_taps``
-    as in :func:`frames_to_screens`."""
+    would first convert and copy them.  ``frac_offsets``, ``interp_taps``
+    and ``num_phases`` as in :func:`frames_to_screens`."""
     _check_block(words, frame_starts, frac_offsets, interp_taps, "words")
     if words.device.type == "cpu":
-        geom = screen_geometry(int(frame_len), int(y_t), int(x_t), tuple(out_shape), words.device)
+        geom = screen_geometry(int(frame_len), int(y_t), int(x_t), tuple(out_shape), words.device,
+                               num_phases)
         return frames_to_screens_plain(am_envelope_from_iq(words), frame_starts, geom,
                                        frac_offsets, interp_taps)
     if words.dtype not in _WORDS:
         raise TypeError(f"K1 takes int16 or float32 I/Q words, got {words.dtype}")
     out = _launch(words, words.shape[0] // 2, _WORDS[words.dtype], frame_starts,
-                  frame_len, y_t, x_t, out_shape, frac_offsets, interp_taps)
+                  frame_len, y_t, x_t, out_shape, frac_offsets, interp_taps, num_phases)
     _count(frames_to_screens_from_words, interp_taps, frac_offsets)
     return out
 

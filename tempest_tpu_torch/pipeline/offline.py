@@ -26,8 +26,13 @@ Stage 2, one step on a block of I/Q:
    and 2 or 4 taps itself — or, for interleaved I/Q words with plain AM
    demod (``fuses_demod``), does 1 and 3 in one pass with K1's fused entry
    (``frames_to_screens_from_words``), which gives the same values without
-   writing the envelope; ``resampler="gather"`` selects the JAX package's
-   gather formulation in plain PyTorch instead;
+   writing the envelope.  Every ``resampler=`` name of the JAX package is
+   accepted and keeps its values (``RESAMPLERS``): ``"gather"`` and
+   ``"rows"`` are that package's gather formulation in plain PyTorch,
+   ``"fft"`` its band-limited resampler on ``torch.fft``, and the ``mxu``
+   names go through K1 with the line fractions quantised to ``num_phases``
+   levels and, where the JAX formulation rounds the envelope to bfloat16,
+   with that rounding as one elementwise pass first;
 4. finds each frame's sub-pixel blanking position and
 5. aligns the frame by a fractional circular shift (``ops.framesync``);
 6. folds the frames into the carried EMA image (``ema_fold``).
@@ -35,6 +40,9 @@ Stage 2, one step on a block of I/Q:
 ``step(iq, ema, alpha[, phase]) -> (ema, frames, sync, score)`` runs
 eagerly on the device it was built for (the CUDA card unless the caller
 names another); there is no jit and no vmap.
+``make_batched_reconstruct_fn`` serves B streams in one step: their blocks
+are one contiguous buffer, and all B·F frames go through ONE K1 launch, one
+sync and one alignment.
 
 Frame positions.  The K1 routes compute exact-cut starts and residuals in
 float64 on the host and hand K1 int32 starts and float32 residuals: at 36
@@ -48,14 +56,15 @@ The multi-harmonic entries keep the fused envelope on the device from the
 combiner to K1's envelope entry; only the returned ``CombineResult`` holds a
 host copy.
 
-Not ported: the other resamplers, ``make_batched_reconstruct_fn`` and
-``refine_with_search``; they raise ``NotImplementedError`` naming the ROADMAP
-item that brings them.
+``auto_reconstruct(refine_with_search=True)`` scores the video modes near
+the measured refresh with ``parallel.sharded.mode_search_static`` (one
+device).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import typing
 
 import numpy as np
 import torch
@@ -89,12 +98,22 @@ from ..ops.framesync import (
     frame_sync,
     frame_sync_subpixel,
 )
-from ..ops.resample import RENDER_SIZE, frames_to_screens_gather
-from ..ops.resample_kernel import frames_to_screens, frames_to_screens_from_words
+from ..ops.resample import (
+    RENDER_SIZE,
+    frames_to_screens_fft,
+    frames_to_screens_gather,
+    round_to_bfloat16,
+)
+from ..ops.resample_kernel import (
+    _line_tables,
+    frames_to_screens,
+    frames_to_screens_from_words,
+    line_reach,
+)
 from ..ops.scan import _words, scan_band, scan_centers
 from ..utils.device import as_tensor as _as_tensor
 from ..utils.device import resolve_device
-from ..video.modes import VideoMode, find_closest_mode, find_configuration
+from ..video.modes import VideoMode, candidate_modes, find_closest_mode, find_configuration
 
 __all__ = [
     "TimingEstimate",
@@ -112,7 +131,9 @@ __all__ = [
     "ema_fold",
     "carry_phase_starts",
     "make_reconstruct_fn",
+    "make_batched_reconstruct_fn",
     "reconstruct_frames",
+    "RESAMPLERS",
     "combined_reconstruct",
     "discover_screens",
     "reconstruct_all_emissions",
@@ -140,11 +161,12 @@ class ReconstructionConfig:
     ``block_samples``.
 
     Fields that only choose a TPU formulation (``align_impl``, ``segments``,
-    ``num_phases``, ``einsum_bf16``, ``frame_loop``, ``phase_bins``,
-    ``fuse_demod_cut``) are accepted and change no value: K1 reads every
-    pixel at its exact position, so there is no phase table to quantise, and
-    the JAX package's ``align_impl="matmul"`` is the roll form up to f32
-    reassociation.
+    ``einsum_bf16``, ``frame_loop``, ``phase_bins``, ``fuse_demod_cut``) are
+    accepted and change no value: the JAX package's ``align_impl="matmul"``
+    is the roll form up to f32 reassociation, both frame loops give the same
+    values (there is one loop-free formulation here), and K1 takes each
+    frame's residual as it is, so there are no phase bins.  ``num_phases``
+    sets the quantisation of the ``mxu`` resamplers' line fractions.
     """
 
     sample_rate: float
@@ -165,7 +187,8 @@ class ReconstructionConfig:
     demod: str = "am"         # "am" envelope or "fm" discriminator
     # "pallas" is K1, the counterpart of the JAX package's Pallas kernel and
     # the default here; "gather" is that package's gather formulation in
-    # plain PyTorch (positions clipped into the frame, 2 taps only).
+    # plain PyTorch (positions clipped into the frame, 2 taps only).  The
+    # other names of the JAX package: see RESAMPLERS.
     resampler: str = "pallas"
     segments: int = 1
     num_phases: int = 64
@@ -197,12 +220,45 @@ class ReconstructionConfig:
         return int(np.ceil(self.samples_per_frame * self.n_frames)) + slack
 
 
+class Resampler(typing.NamedTuple):
+    """How one ``resampler=`` name is evaluated here."""
+
+    route: str                    # "k1", or the plain formulations "gather" and "fft"
+    quantised: bool = False       # line fractions quantised to num_phases levels
+    bf16_envelope: bool = False   # envelope rounded to bfloat16 first
+    takes_taps: bool = False      # honours config.interp_taps (else 2 taps)
+
+
+# Every ``resampler=`` name of the JAX package.  "aligned" and "mxu_batched"
+# are 2-tap formulations there whatever ``interp_taps`` says, and so here.
+RESAMPLERS = {
+    "pallas": Resampler("k1", takes_taps=True),
+    "aligned": Resampler("k1"),
+    "mxu": Resampler("k1", quantised=True, takes_taps=True),
+    "mxu2": Resampler("k1", quantised=True, takes_taps=True),
+    "mxu3": Resampler("k1", quantised=True, bf16_envelope=True, takes_taps=True),
+    "mxu4": Resampler("k1", quantised=True, bf16_envelope=True, takes_taps=True),
+    "mxu_batched": Resampler("k1", quantised=True, bf16_envelope=True),
+    "gather": Resampler("gather"),
+    "rows": Resampler("gather"),
+    "fft": Resampler("fft"),
+}
+# Resamplers that take the residual of a sub-sample-exact cut: the JAX
+# package's two, and K1 under its own name.
+_EXACT_CUT_RESAMPLERS = ("pallas", "gather", "mxu3")
+
+
 def _check_supported(config: ReconstructionConfig) -> None:
-    """Raise for the options this port does not implement yet."""
-    if config.resampler not in ("pallas", "gather"):
-        raise NotImplementedError(
-            f"resampler={config.resampler!r}: the port has K1 (resampler='pallas') and "
-            "'gather'; the other resamplers are ROADMAP Queue 1, 'Operator surface'")
+    """Raise for a config that names no known option."""
+    if config.resampler not in RESAMPLERS:
+        raise ValueError(
+            f"unknown resampler {config.resampler!r}: one of {sorted(RESAMPLERS)}")
+    if config.subsample_align and config.resampler not in _EXACT_CUT_RESAMPLERS:
+        raise ValueError(
+            "subsample_align needs a resampler that takes the boundary residual: "
+            f"one of {_EXACT_CUT_RESAMPLERS}, not {config.resampler!r}")
+    if config.frame_loop not in ("vmap", "scan"):
+        raise ValueError(f"frame_loop must be 'vmap' or 'scan', got {config.frame_loop!r}")
     if config.input_format not in ("complex64", "iq_interleaved", "iq_planar", "envelope"):
         raise ValueError(f"unknown input_format {config.input_format!r}")
     if config.demod not in ("am", "fm"):
@@ -399,9 +455,13 @@ def demodulate(iq: torch.Tensor, config: ReconstructionConfig) -> torch.Tensor:
 
 def fuses_demod(config: ReconstructionConfig, iq: torch.Tensor) -> bool:
     """Whether the step hands ``iq`` to K1 as raw words, with the demod done
-    inside the resampler: interleaved int16 or float32 words, plain AM, K1.
+    inside the resampler: interleaved int16 or float32 words, plain AM, and
+    a resampler that is K1 on the float32 envelope (the names that round the
+    envelope to bfloat16 first demodulate as a pass).
     The values are those of ``demodulate`` followed by K1 on the envelope."""
-    return (config.resampler == "pallas" and config.input_format == "iq_interleaved"
+    how = RESAMPLERS[config.resampler]
+    return (how.route == "k1" and not how.bf16_envelope
+            and config.input_format == "iq_interleaved"
             and config.demod == "am" and not config.invert
             and iq.dtype in (torch.int16, torch.float32))
 
@@ -421,11 +481,21 @@ def process_frames(
     residuals of sub-sample-exact cuts (``config.subsample_align``)."""
     mode = config.mode
     raster = (frame_len, mode.height, mode.width, config.render_size)
-    if config.resampler == "gather":
+    how = RESAMPLERS[config.resampler]
+    if how.route == "gather":
         screens = frames_to_screens_gather(env, frame_starts, *raster, frac_offsets)
+    elif how.route == "fft":
+        screens = frames_to_screens_fft(env, frame_starts, *raster)
     else:
+        if how.bf16_envelope:
+            env = round_to_bfloat16(env)
+        # A residual moves every position of its frame, so the quantised
+        # line table does not apply to an exact cut: K1 takes it unquantised.
+        quantise = ({"num_phases": config.num_phases}
+                    if how.quantised and frac_offsets is None else {})
         resample = frames_to_screens_from_words if from_words else frames_to_screens
-        screens = resample(env, frame_starts, *raster, frac_offsets, config.interp_taps)
+        screens = resample(env, frame_starts, *raster, frac_offsets,
+                           config.interp_taps if how.takes_taps else 2, **quantise)
     if config.do_align and config.align_subpixel:
         s_y, s_x, score = frame_sync_subpixel(screens)
         aligned = align_frame_subpixel(screens, s_y, s_x, config.align_interp)
@@ -485,6 +555,27 @@ def _carry_phase_exact_f32(phase: float, spf: float, n_frames: int):
     return starts.astype(np.int32), exact - starts
 
 
+def _cut_fn(config: ReconstructionConfig):
+    """``cuts(phase) -> (int32 starts, float32 residuals or None)`` of one
+    block of ``config``, on the host: rounded starts, or with
+    ``subsample_align`` the floor and the residual.  Without ``carry_phase``
+    the table is static and ``phase`` is not read."""
+    n_frames = config.n_frames
+    spf = config.samples_per_frame
+    sub = config.subsample_align
+    if not config.carry_phase:
+        if sub:
+            static_cuts = exact_cut_starts(0.0, spf, n_frames)
+        else:
+            static_cuts = (np.round(np.arange(n_frames) * spf).astype(np.int32), None)
+        return lambda phase=0.0: static_cuts
+    if not sub:
+        return lambda phase: (carry_phase_starts(phase, spf, n_frames), None)
+    if config.resampler == "gather":
+        return lambda phase: _carry_phase_exact_f32(phase, spf, n_frames)
+    return lambda phase: exact_cut_starts(phase, spf, n_frames)
+
+
 def make_reconstruct_fn(config: ReconstructionConfig, device: torch.device | str | None = None):
     """Build the stage-2 step for a fixed config on ``device`` (``None``:
     the CUDA card; raises when there is none).
@@ -496,14 +587,8 @@ def make_reconstruct_fn(config: ReconstructionConfig, device: torch.device | str
     ``device``, and the outputs stay there."""
     _check_supported(config)
     device = resolve_device(device)
-    n_frames = config.n_frames
-    spf = config.samples_per_frame
-    frame_len = int(np.floor(spf))  # samples fed to the resampler per frame
-    sub = config.subsample_align
-    if sub:
-        static_cuts = exact_cut_starts(0.0, spf, n_frames)
-    else:
-        static_cuts = (np.round(np.arange(n_frames) * spf).astype(np.int32), None)
+    frame_len = int(np.floor(config.samples_per_frame))  # samples fed to the resampler per frame
+    cuts = _cut_fn(config)
 
     def _body(iq, ema, alpha, starts: np.ndarray, fracs: np.ndarray | None):
         iq = _as_tensor(iq, device)
@@ -517,15 +602,6 @@ def make_reconstruct_fn(config: ReconstructionConfig, device: torch.device | str
         return ema_fold(ema, frames, alpha), frames, sync, score
 
     if config.carry_phase:
-        if not sub:
-            def cuts(phase):
-                return carry_phase_starts(phase, spf, n_frames), None
-        elif config.resampler == "gather":
-            def cuts(phase):
-                return _carry_phase_exact_f32(phase, spf, n_frames)
-        else:
-            def cuts(phase):
-                return exact_cut_starts(phase, spf, n_frames)
 
         def step(iq, ema, alpha, phase):
             return _body(iq, ema, alpha, *cuts(float(phase)))
@@ -533,7 +609,127 @@ def make_reconstruct_fn(config: ReconstructionConfig, device: torch.device | str
     else:
 
         def step(iq, ema, alpha):
-            return _body(iq, ema, alpha, *static_cuts)
+            return _body(iq, ema, alpha, *cuts())
+
+    return step
+
+
+# Resamplers whose frames the JAX package can fuse across streams
+# (``fuse=True``): its per-frame formulations.
+_FUSABLE_RESAMPLERS = ("gather", "rows", "mxu", "mxu2", "mxu3", "mxu4")
+
+
+def _stream_margins(config: ReconstructionConfig, frame_len: int, exact: bool) -> tuple[int, int]:
+    """(lead, tail): the samples K1 may read before a frame's start and from
+    it on (its last line's start, the span, the taps' and the residual's
+    reach).  Streams laid end to end must keep these inside their own block,
+    where a single stream's reads are clamped."""
+    how = RESAMPLERS[config.resampler]
+    if how.route != "k1":
+        return 0, frame_len  # the plain formulations read inside the frame
+    mode = config.mode
+    line_start, _, _, _, span = _line_tables(frame_len, mode.height, mode.width,
+                                             tuple(config.render_size))
+    lead, extra = line_reach(config.interp_taps if how.takes_taps else 2, exact)
+    return lead, int(line_start[-1, 1]) + span + extra
+
+
+def make_batched_reconstruct_fn(config: ReconstructionConfig, fuse: bool | None = None,
+                                device: torch.device | str | None = None):
+    """Multi-stream variant: B independent I/Q channels (different carriers,
+    antennas, or targets) reconstruct concurrently on one card.
+
+    Returns ``step(iq[B, ...], ema[B, h, w], alpha) -> (ema', frames[B, F, h,
+    w], sync[B, F, 2], score[B, F])`` (alpha shared), or with ``carry_phase``
+    ``step(iq, ema, alpha, phases)`` with one host-known phase per stream.
+
+    The B blocks are ONE contiguous buffer and stream b's frame starts are
+    offset by b·(samples per block), so all B·F frames go through one K1
+    launch (the fused words entry where ``fuses_demod`` says so, else one
+    demodulation per stream and the envelope entry), one sync and one
+    alignment over the B·F screens; the EMA folds per stream.  Each stream's
+    frames equal the single-stream step's: where a stream's last frame, or
+    the tap before its first, would read past its own block (a read the
+    single-stream kernel clamps), the buffer is first laid out with each
+    block's edge samples repeated; else it is the caller's tensor as it
+    lies.  K1 indexes the buffer with int32 frame starts: B·(samples per
+    block) beyond that raises.
+
+    ``fuse=True`` is the JAX package's option to fuse the frame axis across
+    streams; here that is the one formulation, so it changes no value, but it
+    keeps that package's ``ValueError`` for the configurations it could not
+    fuse (``carry_phase``, ``subsample_align``, ``frame_loop="scan"``, or a
+    block-level resampler)."""
+    _check_supported(config)
+    if fuse and not (not config.carry_phase and not config.subsample_align
+                     and config.frame_loop == "vmap"
+                     and config.resampler in _FUSABLE_RESAMPLERS):
+        raise ValueError(
+            "fuse=True needs static cuts and a per-frame resampler "
+            "(no carry_phase/subsample_align, frame_loop='vmap')")
+    device = resolve_device(device)
+    n_frames = config.n_frames
+    frame_len = int(np.floor(config.samples_per_frame))
+    h, w = config.render_size
+    cuts = _cut_fn(config)
+    lead, tail = _stream_margins(config, frame_len, config.subsample_align)
+
+    def _body(iq_b, ema_b, alpha, stream_cuts):
+        iq_b = _as_tensor(iq_b, device)
+        ema_b = _as_tensor(ema_b, device).to(torch.float32)
+        n_streams = iq_b.shape[0]
+        if len(stream_cuts) != n_streams or ema_b.shape[0] != n_streams:
+            raise ValueError(
+                f"{n_streams} streams of I/Q, {ema_b.shape[0]} EMA images and "
+                f"{len(stream_cuts)} phases: one of each per stream")
+        from_words = fuses_demod(config, iq_b)
+        if from_words:
+            per = 2
+            buf = iq_b[:, : 2 * (iq_b.shape[1] // 2)]
+        else:
+            per = 1
+            buf = torch.stack([demodulate(iq_b[b], config) for b in range(n_streams)])
+        n_block = buf.shape[1] // per
+        starts = np.stack([c[0] for c in stream_cuts]).astype(np.int64)         # [B, F]
+        fracs = None
+        if stream_cuts[0][1] is not None:
+            fracs = np.stack([c[1] for c in stream_cuts]).astype(np.float32).reshape(-1)
+        front = lead if int(starts.min()) < lead else 0
+        back = max(int(starts.max()) + tail - n_block, 0)
+        if front or back:
+            # Repeat each block's first and last sample (for words: I/Q pair),
+            # as the single-stream kernel's index clamp does.
+            first = buf[:, :per].repeat(1, front)
+            last = buf[:, per * (n_block - 1): per * n_block].repeat(1, back)
+            buf = torch.cat([first, buf[:, : per * n_block], last], dim=1)
+            n_block += front + back
+        if n_streams * n_block > np.iinfo(np.int32).max:
+            raise ValueError(
+                f"{n_streams} streams of {n_block} samples do not fit K1's int32 frame "
+                "starts: serve them in smaller batches")
+        offsets = np.arange(n_streams, dtype=np.int64)[:, None] * n_block + front
+        fstarts = torch.from_numpy((starts + offsets).reshape(-1).astype(np.int32)).to(device)
+        frac_offsets = None if fracs is None else torch.from_numpy(fracs).to(device)
+        frames, sync, score = process_frames(
+            buf.reshape(-1), fstarts, config, frame_len, from_words=from_words,
+            frac_offsets=frac_offsets)
+        frames = frames.reshape(n_streams, n_frames, h, w)
+        a = torch.as_tensor(alpha, dtype=torch.float32, device=device)
+        k = torch.arange(n_frames - 1, -1, -1, dtype=torch.float32, device=device)
+        wgt = (1.0 - a) * a ** k
+        ema_out = a ** n_frames * ema_b + torch.einsum("f,bfhw->bhw", wgt, frames)
+        return (ema_out, frames, sync.reshape(n_streams, n_frames, 2),
+                score.reshape(n_streams, n_frames))
+
+    if config.carry_phase:
+
+        def step(iq_b, ema_b, alpha, phases):
+            return _body(iq_b, ema_b, alpha, [cuts(float(p)) for p in np.asarray(phases)])
+
+    else:
+
+        def step(iq_b, ema_b, alpha):
+            return _body(iq_b, ema_b, alpha, [cuts()] * len(iq_b))
 
     return step
 
@@ -614,13 +810,10 @@ def auto_reconstruct(
     cannot even find its refresh.  ``alpha="auto"`` takes the EMA coefficient
     from the measured SNR proxy.  ``pick_line_peak=N`` adopts ranked
     line-period peak N from the correlation evidence instead of the automatic
-    lock.  ``refine_with_search=True`` (scoring every video mode near the
-    measured refresh by sync contrast) needs the sharded mode search and is
-    not ported."""
-    if refine_with_search:
-        raise NotImplementedError(
-            "refine_with_search=True needs parallel.sharded.mode_search_static: "
-            "ROADMAP Queue 1, 'Multi-GPU'")
+    lock.  ``refine_with_search=True`` additionally scores every video mode
+    within ``search_tol_hz`` of the measured refresh by sync contrast
+    (``parallel.sharded.mode_search_static``) and keeps the winner — a
+    safety net when the line-count estimate is ambiguous at low SNR."""
     device = resolve_device(device)
     if isinstance(iq, np.ndarray) and np.iscomplexobj(iq):
         iq = np.ascontiguousarray(iq, np.complex64).view(np.float32)
@@ -643,6 +836,23 @@ def auto_reconstruct(
                                  envelope=envelope)
     if alpha == "auto":
         alpha = timing.suggested_alpha
+    if refine_with_search:
+        from ..parallel.sharded import mode_search_static
+
+        cands = candidate_modes(timing.refresh_hz, tol_hz=search_tol_hz)
+        if len(cands) > 1:
+            # The search scores an envelope: the discriminator's output, or
+            # the AM envelope of the words (a raw real array would be scored
+            # as an envelope that is demodulated already).
+            if envelope:
+                env = timing_sig
+            else:
+                env = am_envelope_from_iq(sig) if interleaved else am_demod(sig)
+            res = mode_search_static(env, fs, timing.refresh_hz, cands, device=device)
+            best = res.best_mode
+            timing = dataclasses.replace(
+                timing, mode_name=res.names[res.best_index],
+                mode=VideoMode(best.width, best.height, timing.refresh_hz))
     spf = fs / timing.mode.refresh
     if n_frames is None:
         n_frames = max(int((n_complex - 1) / spf), 1)

@@ -54,10 +54,41 @@ def test_native_loader_differs_only_in_where_it_builds():
     ]
 
 
+def test_web_view_differs_only_in_its_docstring():
+    """``runtime/webview.py`` has no JAX in it: the port's is the original
+    (page, routes, handlers and all) but for three docstring lines that named
+    the reference checkout's place and the TPU."""
+    original = (ROOT / "tempest_tpu/runtime/webview.py").read_text().splitlines()
+    copy = (ROOT / "tempest_tpu_torch/runtime/webview.py").read_text().splitlines()
+    diff = [l for l in difflib.unified_diff(original, copy, lineterm="", n=0)
+            if l[:1] in "+-" and l[:3] not in ("+++", "---")]
+    assert [l for l in diff if l[0] == "+"] == [
+        "+all updating together (``GUI.jl:296-356``,",
+        "+``ScreenRenderer.jl:93-148``).  This module is that surface for headless",
+        "+GPU hosts, with zero dependencies beyond the standard library: a localhost",
+    ]
+    assert len(diff) == 6 and all(i < 8 for i, l in enumerate(original) if l not in copy)
+
+
+def test_metrics_class_is_the_original():
+    """``utils/profiling.py``: ``trace`` and ``annotate`` are ported to
+    ``torch.profiler``; the ``Metrics`` registry has no JAX in it and keeps
+    the original's source text."""
+    def metrics_source(path):
+        text = path.read_text()
+        return text[text.index("class Metrics:"): text.index("@contextlib.contextmanager")]
+
+    assert (metrics_source(ROOT / "tempest_tpu_torch/utils/profiling.py")
+            == metrics_source(ROOT / "tempest_tpu/utils/profiling.py"))
+
+
 def test_port_imports_no_jax():
     code = ("import sys, tempest_tpu_torch, tempest_tpu_torch.runtime.stream, "
             "tempest_tpu_torch.runtime.console, tempest_tpu_torch.native, "
-            "tempest_tpu_torch.render.plots, tempest_tpu_torch.ops.spectrum; "
+            "tempest_tpu_torch.render.plots, tempest_tpu_torch.ops.spectrum, "
+            "tempest_tpu_torch.app.cli, tempest_tpu_torch.runtime.webview, "
+            "tempest_tpu_torch.parallel.sharded, tempest_tpu_torch.utils.roofline, "
+            "tempest_tpu_torch.utils.profiling; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m.startswith('tempest_tpu.') or m == 'tempest_tpu'); "
             "assert not bad, bad")
@@ -70,7 +101,8 @@ def test_port_sources_name_no_jax():
     """No module of the port, nor ``chip_smoke.py``, imports jax or the JAX
     package, even lazily inside a function (a scan of the sources: it needs
     no card)."""
-    sources = sorted((ROOT / "tempest_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    sources = (sorted((ROOT / "tempest_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+               + sorted((ROOT / "examples").glob("torch_*.py")))
     assert len(sources) > 30
     for path in sources:
         for line in path.read_text().splitlines():

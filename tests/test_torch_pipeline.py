@@ -4,6 +4,7 @@ Small config: 640x480 @ 60 Hz (800x525 total) at 2 Msps onto 48x64
 screens, 3 frames per block, except where a test says otherwise.  The JAX
 side runs ``resampler="pallas"`` in interpret mode, the kernel K1 ports."""
 
+import dataclasses
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -164,14 +165,25 @@ def test_reconstruct_frames_complex_input_matches_jax():
     dict(resampler="aligned"), dict(resampler="fft"),
 ], ids=lambda o: "-".join(o.values()))
 def test_unported_options_raise(option):
-    """What the port still leaves out names its ROADMAP heading: the TPU
-    formulations of the resampler, and the sharded mode search."""
-    cfg = poff.ReconstructionConfig(sample_rate=FS, mode=MODE, n_frames=3, **option)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        poff.make_reconstruct_fn(cfg, device="cpu")
-    iq = np.zeros(8, np.complex64)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*Multi-GPU"):
-        poff.auto_reconstruct(iq, FS, refine_with_search=True, device="cpu")
+    """What the port still leaves out names its ROADMAP heading.  Since the
+    operator surface that is the mesh functions alone: the resampler names
+    that raised here until then now build and run a block, and
+    ``refine_with_search`` reaches the static mode search (which rejects a
+    capture too short to search instead of raising ``NotImplementedError``)."""
+    from tempest_tpu_torch.parallel import sharded as psharded
+
+    cfg = poff.ReconstructionConfig(sample_rate=FS, mode=MODE, n_frames=3, render_size=SHAPE,
+                                    input_format="envelope", **option)
+    env = np.random.default_rng(0).random(cfg.block_samples, dtype=np.float32)
+    ema, frames, _, _ = poff.make_reconstruct_fn(cfg, device="cpu")(
+        env, np.zeros(SHAPE, np.float32), ALPHA)
+    assert frames.shape == (3, *SHAPE) and bool(torch.isfinite(ema).all())
+    for fn in (psharded.sharded_reconstruct_fn, psharded.sharded_mode_search,
+               psharded.sharded_mode_search_2d):
+        with pytest.raises(NotImplementedError, match="ROADMAP.*Multi-GPU"):
+            fn(env, FS)
+    with pytest.raises(ValueError, match="unknown resampler"):
+        poff.make_reconstruct_fn(dataclasses.replace(cfg, resampler="mxu9"), device="cpu")
 
 
 @pytest.mark.parametrize("variant", ["plain", "invert", "exact_cuts", "carry_phase"])
