@@ -69,9 +69,26 @@ Phases, each of which fails the run if it fails:
     capture: PSNR beside K1's, the difference from K1 beside the bound the
     quantisation gives, K1 with the quantised table against its plain version;
 15. the command line in process (``synth``, ``analyze``, ``reconstruct``,
-    ``scan``, ``survey``, ``stream``, ``search``, ``warmup``) and the web
-    view on an ephemeral port;
-16. ``roofline()`` of one default step: K1's bytes equal ``launch_cost``'s.
+    ``scan``, ``survey``, ``stream``, ``search``, ``warmup``, and ``stream
+    --mesh 4`` and ``search --dynamic --devices 4`` on four shards of the
+    card) and the web view on an ephemeral port;
+16. ``roofline()`` of one default step: K1's bytes equal ``launch_cost``'s;
+17. (m) the mesh on one card: ``MeshStreamingRuntime`` over four shards of
+    12,333,336 samples (36 frames each) of the capture replayed in a loop,
+    two dispatches, default and fidelity chains, held to the bit against
+    the single-device runtime on the same stream in blocks of one span; its
+    times, the collectives' times and bytes, K1 once a shard a dispatch; the
+    same stream through a process group of one NCCL rank;
+18. (n) ``sharded_mode_search`` over the 26 candidates of phase 13 on four
+    shards of the card (its winner the static search's), and
+    ``sharded_scan_band``, ``sharded_combine_harmonics`` and
+    ``sharded_combined_reconstruct_fn`` on the capture of phase 9, held
+    against the single-device functions;
+19. (o) with 2 or more cards only: the (m) stream over the cards in one
+    process and on one NCCL rank a card (ranks this script starts), and the
+    live combine front on those ranks, held against the single-device
+    results; ``--phase o`` runs the build, the capture, phase 17 (the
+    reference) and this phase alone.
 
 Run ``python3 chip_smoke.py`` from the root of a checkout on a machine with
 a CUDA card; it ends with torch.profiler tables of three steps, with the
@@ -82,6 +99,7 @@ demod fused and as a separate pass.  The last line of standard output is
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -193,6 +211,21 @@ SEARCH_PHASES = 16
 RESAMPLER_PHASES = 64         # the config's default num_phases
 BF16_REL = 2.0 ** -8          # bound of a bfloat16 rounding, relative
 CLI_SECONDS = 0.35            # the capture the command line phase synthesises
+
+# The mesh: four shards of the smallest span that holds 36 frames (one less
+# sample holds 35), two dispatches; the capture replayed in a loop of 111
+# frame periods (37 x 3 frames of 1e6/3 samples), so that the frame grid
+# runs on across the loop's seam.
+MESH_SHARDS = 4
+MESH_SPAN = 12_333_336
+MESH_DISPATCHES = 2
+LOOP_SAMPLES = 37_000_000
+# Carrier shards against the single-device functions: the tolerances of the
+# single-device parity tests (cuFFT's rows and the fusion's sums come in
+# another order when each shard has its own rows).
+WIDE_DB_TOL = 0.05
+WIDE_WEIGHT_REL = 1e-4
+WIDE_ENV_REL = 1e-5
 
 
 class BlockSource:
@@ -417,10 +450,10 @@ def hold_envelope_entry(tp, torch, env, starts, fracs, raster, label: str) -> No
           and rel < K1_REL_TOL, f"K1's envelope entry, {label}, agrees with its plain version")
 
 
-def phase_offline_wideband(tp, torch, dev, card: str, reset_counts) -> dict:
+def phase_offline_wideband(tp, torch, dev, card: str, reset_counts):
     """Phase 9: wideband capture -> carriers -> fused image, offline, at the
     size of the JAX package's combining fixture.  Returns the launch counts
-    of K1's envelope entry over the path."""
+    of K1's envelope entry over the path, and the capture (fixture (e))."""
     from tempest_tpu_torch.ops import combine as pcomb
     from tempest_tpu_torch.ops import scan as pscan
     from tempest_tpu_torch.ops.resample_kernel import frames_to_screens, \
@@ -564,7 +597,7 @@ def phase_offline_wideband(tp, torch, dev, card: str, reset_counts) -> dict:
     hold_envelope_entry(tp, torch, env, starts, None,
                         (int(np.floor(spf_c)), mode.height, mode.width, RENDER),
                         "offline combine")
-    return {"offline": launches}
+    return {"offline": launches}, cap
 
 
 def run_combine_runtime(tp, blocks, mode, device, centers, **options):
@@ -1210,6 +1243,13 @@ def phase_cli_and_web(tp, torch, dev, card: str, reset_counts) -> None:
              [tmp / f"frame_{i:05d}.png" for i in range(3)]),
             ("search", ["search", cap, "--fs", fs, "--tol", str(SEARCH_TOL_HZ)], []),
             ("warmup", ["warmup", "--fs", fs, "--modes", MODE_NAME, "--frames", "6"], []),
+            # The mesh options, four shards on this card.
+            ("stream --mesh", ["stream", "--source", "replay", "--file", cap, "--mode", MODE_NAME,
+                               "--fs", fs, "--block-seconds", "0.2", "--blocks", "1", "--mesh",
+                               str(MESH_SHARDS), "--device", str(dev)], []),
+            ("search --dynamic", ["search", cap, "--fs", fs, "--tol", str(SEARCH_TOL_HZ),
+                                  "--dynamic", "--devices", str(MESH_SHARDS), "--device",
+                                  str(dev)], []),
         ]
         expect = {"analyze": f"closest mode      : {MODE_NAME}",
                   "reconstruct": f"detected mode: {MODE_NAME}",
@@ -1217,7 +1257,9 @@ def phase_cli_and_web(tp, torch, dev, card: str, reset_counts) -> None:
                   "search": " 1. " + MODE_NAME,
                   "stream": "frames reconstructed",
                   "warmup": "compiled timing estimator",
-                  "scan": "best candidate", "synth": "wrote"}
+                  "scan": "best candidate", "synth": "wrote",
+                  "stream --mesh": f"'n_shards': {MESH_SHARDS}",
+                  "search --dynamic": " 1. " + MODE_NAME}
         for name, argv, pngs in commands:
             reset_counts()
             buf = io.StringIO()
@@ -1238,8 +1280,15 @@ def phase_cli_and_web(tp, torch, dev, card: str, reset_counts) -> None:
             shown = next(l for l in text.splitlines() if expect[name].strip() in l).strip()
             print(f"[cli] {name}: rc 0 in {ms:.1f} ms wall clock, K1 launches {k1}, "
                   f"{len(pngs)} PNGs opened; \"{shown}\", on {card}")
-        check(cli_main(["stream", "--mesh", "4"]) == 2 and cli_main(
-            ["search", cap, "--dynamic"]) == 2, "the multi-GPU options exit with a message")
+        if torch.cuda.device_count() < MESH_SHARDS:
+            # Without --device the mesh takes one card a shard: with fewer
+            # cards it refuses, it does not put two shards on one card.
+            try:
+                cli_main(["stream", "--mesh", str(MESH_SHARDS), "--blocks", "1"])
+                refused = False
+            except RuntimeError as err:
+                refused = f"sees {torch.cuda.device_count()}" in str(err)
+            check(refused, f"stream --mesh {MESH_SHARDS} refuses {torch.cuda.device_count()} card")
 
         # The web view on an ephemeral port, over a runtime on the card.
         mode = tp.ALL_VIDEO_MODES[MODE_NAME]
@@ -1318,7 +1367,485 @@ def phase_roofline(tp, torch, dev, card: str, words_i16) -> None:
     check(rep.bound() == "memory" and rep.bytes_accessed > nbytes, "the step is memory-bound")
 
 
-def main() -> int:
+class LoopSource:
+    """A file replay in small: blocks cut from ``samples`` played in a loop,
+    ``n_blocks`` of them, then the capture reports itself exhausted."""
+
+    def __init__(self, samples: np.ndarray, block_size: int, n_blocks: int) -> None:
+        self.samples = samples
+        self.sample_rate = SAMPLE_RATE
+        self.block_size = int(block_size)
+        self.n_blocks = int(n_blocks)
+        self._pos = 0
+        self._served = 0
+
+    def read(self, out: np.ndarray) -> None:
+        if self._served >= self.n_blocks:
+            raise EOFError("capture exhausted")
+        done, n = 0, len(out)
+        while done < n:
+            k = min(n - done, len(self.samples) - self._pos)
+            out[done:done + k] = self.samples[self._pos:self._pos + k]
+            done += k
+            self._pos = (self._pos + k) % len(self.samples)
+        self._served += 1
+
+    def close(self) -> None:
+        pass
+
+
+def run_stream(tp, runtime_cls, source, mode, n_blocks, *args, **options):
+    """``n_blocks`` dispatches through ``runtime_cls(source, mode, *args)``
+    with its producer thread; returns (final EMA, every frame as the steps
+    returned them on the device, every sync, each dispatch's host EMA,
+    seconds, the runtime)."""
+    rt = runtime_cls(source, mode, *args, alpha=ALPHA, ring_depth=source.n_blocks, **options)
+    step = rt._step
+    frames = []
+
+    @functools.wraps(step)          # and its geometry attributes
+    def traced_step(*step_args):
+        out = step(*step_args)
+        frames.append(out[1])
+        return out
+
+    rt._step = traced_step
+    syncs, emas = [], []
+    rt.start()
+    try:
+        t0 = time.perf_counter()
+        ema = rt.process_blocks(n_blocks, sink=lambda img, info: (syncs.append(info["sync"]),
+                                                                  emas.append(img)))
+        seconds = time.perf_counter() - t0
+    finally:
+        rt.stop()
+        rt._step = step
+    check(rt.ring.overflows == 0 and len(syncs) == n_blocks,
+          f"{type(rt).__name__} took its blocks in order and dispatched {n_blocks} "
+          f"(overflows {rt.ring.overflows}, dispatched {len(syncs)})")
+    import torch
+
+    return ema, torch.cat(frames), np.concatenate(syncs), emas, seconds, rt
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_mesh_one_card(tp, torch, dev, card: str, reset_counts, loop, truth, activities) -> dict:
+    """Phase 17 (m): the mesh runtime, four shards on one card, over two
+    dispatches of the slice's capture replayed in a loop, default and
+    fidelity chains, held to the bit against the single-device runtime on
+    the same stream in blocks of one span; its times, the collectives', K1
+    launches; and the same stream through a process group of one NCCL rank.
+    Returns the launch counts and the single-device reference."""
+    import torch.distributed as dist
+    from torch.profiler import profile
+
+    from tempest_tpu_torch.ops.resample_kernel import frames_to_screens, \
+        frames_to_screens_from_words
+    from tempest_tpu_torch.parallel import distributed
+    from tempest_tpu_torch.parallel.mesh import ProcessGroupCollectives
+    from tempest_tpu_torch.runtime.stream import frames_per_window
+
+    mode = tp.ALL_VIDEO_MODES[MODE_NAME]
+    spf = SAMPLE_RATE / mode.refresh
+    S = MESH_SPAN
+    check(frames_per_window(S, spf) == N_FRAMES and frames_per_window(S - 1, spf) == N_FRAMES - 1,
+          f"{S} samples is the smallest span of {N_FRAMES} frames")
+    block = MESH_SHARDS * S
+    n_spans = MESH_SHARDS * MESH_DISPATCHES
+    mesh = tp.make_mesh(devices=[dev] * MESH_SHARDS)
+    out = {"reference": {}}
+    for chain, options, bar in (("default", {}, PSNR_BAR_DB),
+                                ("fidelity", {"fidelity": True}, FIDELITY_PSNR_BAR_DB)):
+        variant = (2, chain == "fidelity")
+        reset_counts()
+        ema1, frames1, sync1, emas1, s1, srt = run_stream(
+            tp, tp.StreamingRuntime, LoopSource(loop, S, n_spans), mode, n_spans, **options)
+        single_launches = frames_to_screens_from_words.launches_by_variant[variant]
+        reset_counts()
+        mesh.comm.reset()
+        ema, frames, sync, _, seconds, rt = run_stream(
+            tp, tp.MeshStreamingRuntime, LoopSource(loop, block, MESH_DISPATCHES + 1), mode,
+            MESH_DISPATCHES, mesh, **options)
+        launches = frames_to_screens_from_words.launches_by_variant[variant]
+        traffic = dict(mesh.comm.nbytes)
+        check(launches == n_spans and frames_to_screens_from_words.launches == n_spans
+              and frames_to_screens.launches == 0,
+              f"K1's fused entry launched once a shard a dispatch ({launches} for {n_spans})")
+        check(rt.config == srt.config and rt._n_frames == N_FRAMES
+              and ema.dispatched == MESH_DISPATCHES, "the mesh chain is the single-device chain")
+        equal = (bool(np.array_equal(ema, ema1)) and bool(torch.equal(frames, frames1))
+                 and bool(np.array_equal(sync, sync1)))
+        ema_diff = float(np.abs(ema - ema1).max())
+        db, _ = tp.aligned_psnr(truth, ema)
+        print(f"[mesh, {chain}] {MESH_SHARDS} shards of {S} samples on one card, "
+              f"{MESH_DISPATCHES} dispatches ({MESH_DISPATCHES + 1} ring blocks of {block} "
+              f"samples, the capture replayed in a loop of {len(loop)}): {frames.shape[0]} frames, "
+              f"EMA, frames and sync equal to the single-device runtime's on {n_spans} blocks of "
+              f"{S}: {equal} (EMA max diff {ema_diff:.3e}); K1 launches {launches} (single "
+              f"device: {single_launches}); through process_blocks {1e3 * seconds:.1f} ms, "
+              f"{1e3 * seconds / MESH_DISPATCHES:.1f} ms a dispatch incl. ring copy and uploads "
+              f"(single device: {1e3 * s1 / n_spans:.1f} ms a block); collectives' bytes a "
+              f"run {traffic}; aligned PSNR {db:.3f} dB (bar {bar} dB)")
+        check(equal, f"the mesh runtime equals the single-device runtime to the bit ({chain})")
+        check(db > bar, f"mesh PSNR clears the bar ({chain})")
+        out[chain] = launches
+        out["reference"][chain] = emas1
+
+        # The dispatch on device-resident words: time, device time, kernels,
+        # and each collective on its own.
+        host = np.empty(block, np.complex64)
+        LoopSource(loop, block, 1).read(host)
+        rows = torch.from_numpy(host.view(np.float32)).to(dev).reshape(MESH_SHARDS, 2 * S)
+        tail = rows[0, :2 * rt._step.overlap].clone()
+        ema0 = torch.zeros(RENDER, device=dev)
+        phases = [(-(d * S)) % spf for d in range(MESH_SHARDS)]
+        step = rt._step
+        dispatch_ms = time_call(torch, lambda: step(rows, tail, ema0, ALPHA, phases), calls=5)
+        single_ms = time_call(torch, lambda: srt._step(rows[0, :2 * srt.config.block_samples],
+                                                       ema0, ALPHA, 0.0), calls=5)
+        with profile(activities=activities) as prof:
+            step(rows, tail, ema0, ALPHA, phases)
+            torch.cuda.synchronize()
+        kernels = kernel_count(prof)
+        b_parts = [torch.zeros(RENDER, device=dev) for _ in range(MESH_SHARDS)]
+        f_parts = list(frames[:MESH_SHARDS * N_FRAMES].reshape(MESH_SHARDS, N_FRAMES, *RENDER))
+        halo_ms = time_call(torch, lambda: mesh.comm.from_next([r[:2] for r in rows], "blocks"))
+        gather_ms = time_call(torch, lambda: mesh.comm.all_gather(b_parts, "blocks"))
+        frames_ms = time_call(torch, lambda: mesh.gather(f_parts, "blocks"), calls=5)
+        frame_mb = MESH_SHARDS * N_FRAMES * RENDER[0] * RENDER[1] * 4 / 1e6
+        print(f"[mesh, {chain}] one dispatch on device-resident words: {dispatch_ms:.3f} ms = "
+              f"{block / dispatch_ms / 1e3:.1f} Msamples/s (one single-device step of {S} "
+              f"samples: {single_ms:.3f} ms); device time {device_ms(prof):.3f} ms in {kernels} "
+              f"kernels (profiler); collectives: halos {halo_ms:.4f} ms, the EMA combine's "
+              f"all_gather of {MESH_SHARDS} x {RENDER[0] * RENDER[1] * 4 / 1e6:.2f} MB "
+              f"{gather_ms:.4f} ms, the frames' gather ({frame_mb:.1f} MB) {frames_ms:.4f} ms; "
+              f"CUDA events, on {card}")
+        del frames, frames1, rows, f_parts
+
+    # The same stream through a process group of one NCCL rank: the
+    # process-group collectives on the card, one span a dispatch.
+    distributed.initialize(f"localhost:{_free_port()}", 1, 0)
+    try:
+        gmesh = distributed.global_mesh()
+        check(isinstance(gmesh.comm, ProcessGroupCollectives) and gmesh.devices == [dev]
+              and dist.get_backend() == "nccl", "a one-rank NCCL mesh on the card")
+        reset_counts()
+        ema_g, _, _, _, seconds, _ = run_stream(tp, tp.MeshStreamingRuntime, LoopSource(loop, S, 3),
+                                                mode, 2, gmesh)
+        launches = frames_to_screens_from_words.launches_by_variant[2, False]
+        equal = bool(np.array_equal(ema_g, out["reference"]["default"][1]))
+        print(f"[mesh, NCCL] one rank, {launches} dispatches of one span: EMA equal to the "
+              f"single-device runtime's after 2 blocks: {equal}; collectives "
+              f"{dict(gmesh.comm.calls)} in {1e3 * seconds:.1f} ms")
+        check(equal and launches == 2, "the one-rank NCCL mesh equals the single-device runtime")
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def phase_mesh_candidates_and_carriers(tp, torch, dev, card: str, reset_counts, words_f32,
+                                       wide) -> dict:
+    """Phase 18 (n): the sharded mode search over the 26 candidates of phase
+    13 and the carrier shards on fixture (e), four shards on one card, held
+    against the single-device functions.  Returns K1's launch counts."""
+    from tempest_tpu_torch.ops.combine import combine_core
+    from tempest_tpu_torch.ops.resample_kernel import frames_to_screens, \
+        frames_to_screens_from_words
+    from tempest_tpu_torch.ops.scan import _channel_geometry, scan_centers
+
+    mesh = tp.make_mesh(devices=[dev] * MESH_SHARDS)
+    cands = tp.candidate_modes(60.0, tol_hz=SEARCH_TOL_HZ)
+    spf = SAMPLE_RATE / 60.0
+    need = int(np.round((SEARCH_FRAMES - 1) * spf)) + int(np.floor(spf)) + 1
+    z = torch.view_as_complex(words_f32[: 2 * need].reshape(-1, 2))
+    static = tp.mode_search_static(z, SAMPLE_RATE, 60.0, cands)
+    tp.sharded_mode_search(z, SAMPLE_RATE, 60.0, cands, mesh)            # warm
+    reset_counts()
+    res = tp.sharded_mode_search(z, SAMPLE_RATE, 60.0, cands, mesh)
+    launches = {"search": frames_to_screens.launches_by_variant[2, False]}
+    padded = -(-len(cands) // MESH_SHARDS) * MESH_SHARDS
+    check(launches["search"] == padded == frames_to_screens.launches
+          and frames_to_screens_from_words.launches == 0,
+          f"one K1 launch per candidate and pad ({launches['search']} for {padded})")
+    cpu = tp.sharded_mode_search(z.cpu(), SAMPLE_RATE, 60.0, cands,
+                                 tp.make_mesh(devices=["cpu"] * MESH_SHARDS))
+    score_rel = float(np.abs(res.scores - cpu.scores).max() / np.abs(cpu.scores).max())
+    search_ms = wall_ms(torch, lambda: tp.sharded_mode_search(z, SAMPLE_RATE, 60.0, cands, mesh))
+    print(f"[mesh search] {len(cands)} candidates over {MESH_SHARDS} shards of one card at "
+          f"{RENDER[0]}x{RENDER[1]}, exact line tables: winner {res.names[res.best_index]} (static "
+          f"search: {static.names[static.best_index]}); card vs CPU scores max diff "
+          f"{score_rel:.3e} of the largest; K1 launches {launches['search']}; {search_ms:.2f} ms "
+          f"(wall clock, median of 3), on {card}")
+    check(res.best_index == static.best_index and res.names[res.best_index] == MODE_NAME,
+          "the sharded search's winner is the static search's")
+    check(cpu.best_index == res.best_index and score_rel < EMA_REL_TOL,
+          "card and CPU sharded searches agree")
+
+    # Carrier shards on fixture (e).
+    fs = SMALL_SAMPLE_RATE
+    words = torch.from_numpy(wide.iq.view(np.float32)).to(dev)
+    centers = scan_centers(fs, CHAN_BW / 2, CHAN_BW / 2)
+    got = tp.sharded_scan_band(words, fs, centers, mesh, chan_bw=CHAN_BW)
+    ref = tp.scan_band(words, fs, centers, chan_bw=CHAN_BW)
+    scan_db = max(float(np.abs(got.scores_db - ref.scores_db).max()),
+                  float(np.abs(got.prominence_db - ref.prominence_db).max()))
+    scan_ms = wall_ms(torch, lambda: tp.sharded_scan_band(words, fs, centers, mesh,
+                                                          chan_bw=CHAN_BW))
+    print(f"[mesh scan_band] {len(centers)} channels over {MESH_SHARDS} shards: masses and "
+          f"prominences max diff {scan_db:.3e} dB from scan_band (tolerance {WIDE_DB_TOL} dB), "
+          f"floor {got.floor_db[0]:.3f} / {ref.floor_db[0]:.3f} dB; {scan_ms:.2f} ms (wall "
+          f"clock, median of 3), on {card}")
+    check(scan_db < WIDE_DB_TOL and np.array_equal(got.floor_db, ref.floor_db)
+          and np.abs(got.refresh_hz - ref.refresh_hz).max() < 1e-3,
+          "the sharded scan gives scan_band's scores")
+    sc = tp.sharded_combine_harmonics(words, fs, WIDE_CARRIERS, mesh, chan_bw=CHAN_BW)
+    rc = tp.combine_harmonics(words, fs, WIDE_CARRIERS, chan_bw=CHAN_BW)
+    w_rel = float(np.abs(sc.weights - rc.weights).max() / rc.weights.max())
+    env_rel = float(np.abs(sc.envelope - rc.envelope).max() / np.abs(rc.envelope).max())
+    comb_ms = wall_ms(torch, lambda: tp.sharded_combine_harmonics(words, fs, WIDE_CARRIERS, mesh,
+                                                                  chan_bw=CHAN_BW))
+    print(f"[mesh combine_harmonics] 3 carriers over {MESH_SHARDS} shards: weights "
+          f"{np.round(sc.weights, 4).tolist()}, max diff {w_rel:.3e} of the largest, polarity "
+          f"{sc.polarity.tolist()}, envelope max diff {env_rel:.3e} of its peak from "
+          f"combine_harmonics; {comb_ms:.2f} ms (wall clock, median of 3), on {card}")
+    check(np.array_equal(sc.polarity, rc.polarity) and w_rel < WIDE_WEIGHT_REL
+          and env_rel < WIDE_ENV_REL and np.abs(sc.mass_db - rc.mass_db).max() < WIDE_DB_TOL,
+          "the sharded fusion gives combine_harmonics' result")
+
+    n_c = len(wide.iq)
+    small = tp.ALL_VIDEO_MODES[SMALL_MODE_NAME]
+    _, m_chan, fs_chan = _channel_geometry(n_c, fs, CHAN_BW)
+    n_frames = int((m_chan // MESH_SHARDS) // (fs_chan / small.refresh))
+    cfg = tp.ReconstructionConfig(sample_rate=fs_chan, mode=small, n_frames=n_frames,
+                                  input_format="envelope", align_subpixel=True)
+    reset_counts()
+    step = tp.sharded_combined_reconstruct_fn(cfg, mesh, fs, n_c, WIDE_CARRIERS, small.refresh,
+                                              chan_bw=CHAN_BW)
+    ema0 = torch.zeros(RENDER, device=dev)
+    ema, frames, _, _, w, pol = step(words, ema0, WIDE_ALPHA)
+    launches["combined"] = frames_to_screens.launches
+    fvq = fs_chan / round(fs_chan / small.refresh)
+    env, w1, pol1, _, _ = combine_core(words, fs, WIDE_CARRIERS, CHAN_BW, fs_chan, 0.1,
+                                       max(fvq - 5.0, 20.0), fvq + 5.0, "mrc", refresh_hz=fvq)
+    S = step.shard_samples
+    ema_ref, *_ = tp.sharded_reconstruct_fn(cfg, mesh)(env[: MESH_SHARDS * S].reshape(
+        MESH_SHARDS, S), ema0, WIDE_ALPHA)
+    img_rel = float((ema - ema_ref).abs().max() / ema_ref.abs().max())
+    fused_ms = wall_ms(torch, lambda: step(words, ema0, WIDE_ALPHA))
+    print(f"[mesh combined_reconstruct_fn] carriers -> time over {MESH_SHARDS} shards: "
+          f"{frames.shape[0]} frames ({n_frames} a shard at {fs_chan / 1e6:g} Msps), weights "
+          f"max diff {float((w - w1).abs().max()):.3e} from combine_core, EMA max diff "
+          f"{img_rel:.3e} of its peak from the two stages run apart (tolerance 5e-3); K1 "
+          f"launches {launches['combined']}; {fused_ms:.2f} ms a step (wall clock, median of "
+          f"3), on {card}")
+    check(launches["combined"] == MESH_SHARDS and torch.equal(pol, pol1)
+          and float((w - w1).abs().max()) < WIDE_WEIGHT_REL and img_rel < 5e-3,
+          "the fused mesh step equals its two stages")
+    return launches
+
+
+_RANK_FLAG = "--rank"
+
+
+def rank_main(argv: list[str]) -> int:
+    """One NCCL rank of phase 19 (o), started by the smoke itself: the mesh
+    stream and the combine front over one shard a card."""
+    import argparse
+
+    import torch
+    import torch.distributed as dist
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument(_RANK_FLAG, type=int, required=True)
+    ap.add_argument("--world", type=int, required=True)
+    ap.add_argument("--port", type=int, required=True)
+    ap.add_argument("--data", required=True)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, str(ROOT))
+    import tempest_tpu_torch as tp
+    from tempest_tpu_torch.ops.resample_kernel import frames_to_screens_from_words
+    from tempest_tpu_torch.parallel import distributed
+
+    distributed.initialize(f"localhost:{args.port}", args.world, args.rank)
+    data = Path(args.data)
+    try:
+        mesh = distributed.global_mesh()
+        dev = mesh.device
+        mode = tp.ALL_VIDEO_MODES[MODE_NAME]
+        loop = np.load(data / "loop.npy", mmap_mode="r")
+        S, n = MESH_SPAN, args.world
+        frames_to_screens_from_words.launches = 0
+        ema, frames, _, _, seconds, rt = run_stream(
+            tp, tp.MeshStreamingRuntime, LoopSource(loop, n * S, MESH_DISPATCHES + 1), mode,
+            MESH_DISPATCHES, mesh)
+        launches = frames_to_screens_from_words.launches
+        traffic = dict(mesh.comm.nbytes)
+        host = np.empty(n * S, np.complex64)
+        LoopSource(loop, n * S, 1).read(host)
+        rows = torch.from_numpy(host.view(np.float32)).to(dev).reshape(n, 2 * S)
+        tail = rows[0, :2 * rt._step.overlap].clone()
+        ema0 = torch.zeros(RENDER, device=dev)
+        phases = [(-(d * S)) % (SAMPLE_RATE / mode.refresh) for d in range(n)]
+        step = rt._step
+        dist.barrier()
+        dispatch_ms = time_call(torch, lambda: step(rows, tail, ema0, ALPHA, phases), calls=5)
+        mine = [rows[args.rank][:2]]
+        b_part = [torch.zeros(RENDER, device=dev)]
+        f_part = [frames[:N_FRAMES]]
+        halo_ms = time_call(torch, lambda: mesh.comm.from_next(mine, "blocks"))
+        gather_ms = time_call(torch, lambda: mesh.comm.all_gather(b_part, "blocks"))
+        frames_ms = time_call(torch, lambda: mesh.gather(f_part, "blocks"), calls=5)
+        wide = np.load(data / "wide.npy")
+        front = tp.sharded_streaming_combine_front(SAMPLE_RATE, wide.size // 2, LIVE_CARRIERS,
+                                                   mode.refresh, mesh, chan_bw=CHAN_BW)
+        words = torch.from_numpy(wide).to(dev)
+        env, w, pol, mass = front(words)
+        front_ms = time_call(torch, lambda: front(words), calls=5)
+        if args.rank == 0:
+            np.savez(data / "rank0.npz", ema=np.asarray(ema), env=env.cpu().numpy(),
+                     w=w.cpu().numpy(), pol=pol.cpu().numpy(), mass=mass.cpu().numpy(),
+                     report=np.array(json.dumps(dict(
+                         launches=launches, seconds=seconds, dispatch_ms=dispatch_ms,
+                         halo_ms=halo_ms, gather_ms=gather_ms, frames_ms=frames_ms,
+                         front_ms=front_ms, traffic=traffic,
+                         dispatched=int(ema.dispatched)))))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_several_cards(tp, torch, card: str, reset_counts, loop, reference, activities) -> None:
+    """Phase 19 (o): the (m) stream over several cards, in one process
+    (``make_mesh``) and on one NCCL rank a card started here, and the combine
+    front on those ranks, each held against the single-device result."""
+    import tempfile
+
+    from tempest_tpu_torch.ops.combine import combine_core
+    from tempest_tpu_torch.ops.resample_kernel import frames_to_screens_from_words
+    from tempest_tpu_torch.ops.scan import _channel_geometry
+
+    n_cards = min(torch.cuda.device_count(), MESH_SHARDS)
+    if n_cards < 2:
+        print(f"[cards] phase (o) needs 2 or more cards and sees {torch.cuda.device_count()}: "
+              "not run here (`--phase o` on a machine of 2-4 cards runs it)")
+        return
+    mode = tp.ALL_VIDEO_MODES[MODE_NAME]
+    S = MESH_SPAN
+    n_spans = n_cards * MESH_DISPATCHES
+    mesh = tp.make_mesh(n_cards)
+    reset_counts()
+    ema, _, _, _, seconds, rt = run_stream(
+        tp, tp.MeshStreamingRuntime, LoopSource(loop, n_cards * S, MESH_DISPATCHES + 1), mode,
+        MESH_DISPATCHES, mesh)
+    want = reference["default"][n_spans - 1]
+    diff = float(np.abs(ema - want).max())
+    launches = frames_to_screens_from_words.launches
+    host = np.empty(n_cards * S, np.complex64)
+    LoopSource(loop, n_cards * S, 1).read(host)
+    rows = torch.from_numpy(host.view(np.float32)).to(mesh.device).reshape(n_cards, 2 * S)
+    tail = rows[0, :2].clone()
+    ema0 = torch.zeros(RENDER, device=mesh.device)
+    phases = [(-(d * S)) % (SAMPLE_RATE / mode.refresh) for d in range(n_cards)]
+    step = rt._step
+    dispatch_ms = time_call(torch, lambda: step(rows, tail, ema0, ALPHA, phases), calls=5)
+    # The collectives alone, between the cards: the shards' heads and B
+    # images on their own cards, one dispatch's frames gathered onto card 0.
+    heads = [rows[d, :2].to(dev) for d, dev in enumerate(mesh.devices)]
+    b_parts = [torch.zeros(RENDER, device=dev) for dev in mesh.devices]
+    f_parts = [torch.zeros((N_FRAMES, *RENDER), device=dev) for dev in mesh.devices]
+    halo_ms = time_call(torch, lambda: mesh.comm.from_next(heads, "blocks"))
+    gather_ms = time_call(torch, lambda: mesh.comm.all_gather(b_parts, "blocks"))
+    frames_ms = time_call(torch, lambda: mesh.gather(f_parts, "blocks"), calls=5)
+    collectives = halo_ms + gather_ms + frames_ms
+    print(f"[cards, one process] make_mesh({n_cards}): {MESH_DISPATCHES} dispatches, EMA max "
+          f"diff {diff:.3e} from the single-device runtime after {n_spans} blocks (equal: "
+          f"{diff == 0.0}); K1 launches {launches}; {1e3 * seconds / MESH_DISPATCHES:.1f} ms a "
+          f"dispatch through process_blocks; {dispatch_ms:.3f} ms a dispatch on words on the "
+          f"first card = {n_cards * S / dispatch_ms / 1e3:.1f} Msamples/s; collectives alone: "
+          f"halo {halo_ms:.4f} ms, EMA all_gather {gather_ms:.4f} ms, frames' gather onto card 0 "
+          f"{frames_ms:.4f} ms, {collectives:.3f} ms = {collectives / dispatch_ms:.3f} of the "
+          f"dispatch; CUDA events, on {card} x {n_cards}")
+    check(launches == n_spans and diff <= EMA_REL_TOL * float(np.ptp(want)),
+          "the one-process multi-card mesh matches the single-device runtime")
+    del rows, heads, b_parts, f_parts, rt, step
+    torch.cuda.empty_cache()
+
+    mode_fs = SAMPLE_RATE
+    wide = tp.generate_iq_harmonics(mode, mode_fs, 1 << 23, LIVE_CARRIERS, amplitudes=[1.0, 1.0],
+                                    snr_db=LIVE_SNR_DB, seed=SEED).iq.view(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(Path(tmp) / "loop.npy", loop)
+        np.save(Path(tmp) / "wide.npy", wide)
+        port = str(_free_port())
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), _RANK_FLAG,
+                                   str(r), "--world", str(n_cards), "--port", port, "--data", tmp],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(n_cards)]
+        try:
+            logs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        ranks_s = time.perf_counter() - t0
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                print(f"[cards, rank {r}] exit {p.returncode}:\n{log[-4000:]}")
+        check(all(p.returncode == 0 for p in procs), f"{n_cards} NCCL ranks ran to the end")
+        got = np.load(Path(tmp) / "rank0.npz")
+        report = json.loads(str(got["report"]))
+        diff = float(np.abs(got["ema"] - want).max())
+        collectives = report["halo_ms"] + report["gather_ms"] + report["frames_ms"]
+        print(f"[cards, NCCL] {n_cards} ranks, one a card: EMA max diff {diff:.3e} from the "
+              f"single-device runtime after {n_spans} blocks (equal: {diff == 0.0}); rank 0: K1 "
+              f"launches {report['launches']}, {report['dispatched']} dispatches, "
+              f"{1e3 * report['seconds'] / MESH_DISPATCHES:.1f} ms a dispatch through "
+              f"process_blocks, {report['dispatch_ms']:.3f} ms a dispatch on device-resident "
+              f"words = {n_cards * S / report['dispatch_ms'] / 1e3:.1f} Msamples/s; collectives "
+              f"alone: halo {report['halo_ms']:.4f} ms, EMA all_gather {report['gather_ms']:.4f} "
+              f"ms, frames' gather {report['frames_ms']:.4f} ms, {collectives:.3f} ms = "
+              f"{collectives / report['dispatch_ms']:.3f} of the dispatch; bytes a run "
+              f"{report['traffic']}; {ranks_s:.1f} s for the ranks from start to exit; CUDA "
+              f"events, on {card} x {n_cards}")
+        check(report["launches"] == MESH_DISPATCHES and diff <= EMA_REL_TOL * float(np.ptp(want)),
+              "the NCCL mesh matches the single-device runtime")
+        n_samples = wide.size // 2
+        _, _, fs_chan = _channel_geometry(n_samples, mode_fs, CHAN_BW)
+        fvq = fs_chan / round(fs_chan / mode.refresh)
+        env, w, pol, mass, _ = combine_core(torch.from_numpy(wide).to(mesh.device), mode_fs,
+                                            LIVE_CARRIERS, CHAN_BW, fs_chan, 0.1,
+                                            max(fvq - 5.0, 20.0), fvq + 5.0, "mrc",
+                                            refresh_hz=fvq)
+        env_rel = float(np.abs(got["env"] - env.cpu().numpy()).max() / env.abs().max())
+        w_rel = float(np.abs(got["w"] - w.cpu().numpy()).max() / w.abs().max())
+        print(f"[cards, NCCL] combine front over {n_cards} ranks: weights "
+              f"{np.round(got['w'], 4).tolist()}, max diff {w_rel:.3e} of the largest, envelope "
+              f"max diff {env_rel:.3e} of its peak from combine_core; {report['front_ms']:.3f} ms "
+              f"a block (CUDA events, rank 0), on {card} x {n_cards}")
+        check(np.array_equal(got["pol"], pol.cpu().numpy()) and w_rel < WIDE_WEIGHT_REL
+              and env_rel < WIDE_ENV_REL, "the NCCL combine front matches combine_core")
+
+
+def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if _RANK_FLAG in argv:
+        return rank_main(argv)
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on the card.")
+    ap.add_argument("--phase", choices=["all", "o"], default="all",
+                    help="'o': only phase 19 (several cards), after the build, the capture and "
+                         "phase 17, its reference")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -1373,6 +1900,19 @@ def main() -> int:
           f"{SAMPLE_RATE / 1e6:g} Msps in {time.perf_counter() - t0:.1f} s")
     blocks = words[: 2 * N_BLOCKS * block].astype(np.float32).view(np.complex64)
     blocks = blocks.reshape(N_BLOCKS, block)
+    loop = words[: 2 * LOOP_SAMPLES].astype(np.float32).view(np.complex64)
+    truth = tp.downgrade_image(torch.from_numpy(truth_raster), (h, w)).numpy()
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    if args.phase == "o":
+        mesh_out = phase_mesh_one_card(tp, torch, dev, card, reset_counts, loop, truth,
+                                       activities)
+        phase_several_cards(tp, torch, card, reset_counts, loop, mesh_out["reference"],
+                            activities)
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # ---- 2. both K1 entries against their plain versions, at the slice's shapes
     words_i16 = torch.from_numpy(words[: 2 * block]).to(dev)
@@ -1544,7 +2084,6 @@ def main() -> int:
     check(ema_rel < EMA_REL_TOL, "card EMA matches the CPU run")
     check(sync_err < SYNC_ABS_TOL, "card sync matches the CPU run")
 
-    truth = tp.downgrade_image(torch.from_numpy(truth_raster), (h, w)).numpy()
     db, shift = tp.aligned_psnr(truth, ema_gpu)
     print(f"[runtime] aligned PSNR {db:.3f} dB (bar {PSNR_BAR_DB} dB), shift {shift}")
     check(db > PSNR_BAR_DB, "PSNR clears the bar")
@@ -1785,19 +2324,26 @@ def main() -> int:
               f"auto_reconstruct ({kind}) image finite, of the screen's shape")
 
     # ---- 9-11. the wideband path: scan, combine offline and live, the tasks
-    combine_launches = phase_offline_wideband(tp, torch, dev, card, reset_counts)
+    combine_launches, wide = phase_offline_wideband(tp, torch, dev, card, reset_counts)
     combine_launches.update(phase_live_wideband(
         tp, torch, dev, card, reset_counts, [ProfilerActivity.CPU, ProfilerActivity.CUDA]))
     phase_tasks(tp, torch, dev, card, blocks, mode)
 
     # ---- 12-16. the operator surface: batched serving, the mode search, every
     # resampler name, the command line and the web view, the roofline count
-    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     batched = phase_batched(tp, torch, dev, card, words, reset_counts, activities)
     search = phase_search(tp, torch, dev, card, words_f32, reset_counts)
     named = phase_resamplers(tp, torch, dev, card, words_i16, truth, reset_counts)
     phase_cli_and_web(tp, torch, dev, card, reset_counts)
     phase_roofline(tp, torch, dev, card, words_i16)
+
+    # ---- 17-19. the mesh: time shards on one card (m), candidate and carrier
+    # shards on one card (n), several cards in one process and on NCCL ranks (o)
+    mesh_out = phase_mesh_one_card(tp, torch, dev, card, reset_counts, loop, truth, activities)
+    mesh_launches = phase_mesh_candidates_and_carriers(tp, torch, dev, card, reset_counts,
+                                                       words_f32, wide)
+    del wide
+    phase_several_cards(tp, torch, card, reset_counts, loop, mesh_out["reference"], activities)
 
     # ---- the step on device-resident words, demod fused and as a pass of its own
     step = tp.make_reconstruct_fn(cfg, dev)
@@ -1863,7 +2409,7 @@ def main() -> int:
     i16 = measured["int16 words"]
     words_entry.update(int16_max_abs_err=i16["err"], int16_ms=i16["ms"],
                        int16_back_to_back_ms=i16["b2b_ms"], int16_plain_ms=i16["plain_ms"],
-                       int16_bound_ms=i16["bound_ms"])
+                       int16_bound_ms=i16["bound_ms"], mesh_launches=mesh_out["default"])
     # Each variant under the instantiation its main path launched: the
     # fidelity runtime uploads float32 words, auto_reconstruct was handed
     # int16 words, and its FM chain demodulates first.  All timed at the
@@ -1873,7 +2419,9 @@ def main() -> int:
     envelope_entry = kernel_entry("K1 frames_to_screens", "envelope", envelope_launches)
     envelope_entry.update(
         combine_offline_launches=combine_launches["offline"],
-        combine_live_launches=combine_launches["default"])
+        combine_live_launches=combine_launches["default"],
+        mesh_search_launches=mesh_launches["search"],
+        mesh_combined_reconstruct_launches=mesh_launches["combined"])
     residual_envelope = measured["envelope", 2, True]
     envelope_entry.update(
         combine_live_fidelity_launches=combine_launches["fidelity"],
@@ -1882,8 +2430,9 @@ def main() -> int:
     kernels = [
         envelope_entry,
         words_entry,
-        kernel_entry("K1 frames_to_screens_from_words, residuals (float32 words)",
-                     ("float32 words", 2, True), fidelity_launches),
+        dict(kernel_entry("K1 frames_to_screens_from_words, residuals (float32 words)",
+                          ("float32 words", 2, True), fidelity_launches),
+             mesh_launches=mesh_out["fidelity"]),
         kernel_entry("K1 frames_to_screens_from_words, 4 taps (int16 words)",
                      ("int16 words", 4, False), small_launches["am"]),
         kernel_entry("K1 frames_to_screens_from_words, 4 taps, residuals (float32 words)",

@@ -12,8 +12,12 @@ the streaming runtime, with its tasks and operator console; and the operator
 surface: the command line (``app.cli``), the web view
 (``runtime.webview``), batched serving (``make_batched_reconstruct_fn``), the
 video-mode search (``parallel.sharded.mode_search_static``) and every
-``resampler=`` name of the JAX package.  The sub-package layout mirrors
-``tempest_tpu``; this package imports ``torch`` and never ``jax``.
+``resampler=`` name of the JAX package; and the multi-device layer: device
+meshes of one process or of one process a card (``parallel.mesh``,
+``parallel.distributed``), the time-, stream-, candidate- and carrier-sharded
+pipelines (``parallel.sharded``) and the live mesh runtime
+(``runtime.mesh_stream``).  The sub-package layout mirrors ``tempest_tpu``;
+this package imports ``torch`` and never ``jax``.
 
 For authorized security research into electromagnetic side-channel leakage.
 """
@@ -56,7 +60,7 @@ from .ops.autocorr import (
     estimate_line_count,
     top_line_period_peaks,
 )
-from .ops.spectrum import get_spectrum, get_welch, get_waterfall
+from .ops.spectrum import get_spectrum, get_welch, get_welch_sharded, get_waterfall
 from .ops.scan import ScanResult, carrier_score, channelize, scan_band, scan_centers
 from .ops.combine import CombineResult, combine_harmonics
 from .ops.resample import (
@@ -105,7 +109,22 @@ from .runtime.sources import ReplaySource, SyntheticSource
 from .runtime.stream import StreamingRuntime, state_from_jax
 from .runtime.console import OperatorConsole
 from .runtime.webview import WebOperatorView
-from .parallel.sharded import ModeSearchResult, mode_search_static
+from .runtime.mesh_stream import MeshStreamingRuntime
+from .parallel.mesh import Mesh, block_sharding, make_mesh, replicated
+from .parallel.distributed import global_mesh, initialize, is_distributed
+from .parallel.sharded import (
+    ModeSearchResult,
+    mode_search_static,
+    sharded_batched_reconstruct_fn,
+    sharded_combine_harmonics,
+    sharded_combined_reconstruct_fn,
+    sharded_mode_search,
+    sharded_mode_search_2d,
+    sharded_reconstruct_fn,
+    sharded_scan_band,
+    sharded_streaming_combine_front,
+    sharded_streaming_reconstruct_fn,
+)
 from .utils.profiling import Metrics, annotate, trace
 from .utils.roofline import H100_PEAKS, RooflineReport, roofline
 

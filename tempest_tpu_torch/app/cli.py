@@ -21,8 +21,9 @@ The subcommands, their options and the printed lines are those of the JAX
 package's CLI, so that an operator's scripts read both.  One option is this
 port's own: ``--device`` on every command that computes, default the CUDA
 card (the command fails when there is none), ``cpu`` to run on the CPU.
-``stream --mesh`` and ``search --dynamic`` are parsed and exit with a
-message: they wait for the multi-GPU modules (ROADMAP, "Multi-GPU").
+``stream --mesh N`` and ``search --dynamic --devices N`` shard over the
+first N cards, or with ``--device`` over N shards on that one device (the
+CPU, or one card).
 
 Run ``python -m tempest_tpu_torch.app.cli <cmd> --help`` for options.
 """
@@ -50,10 +51,39 @@ def _add_device(p: argparse.ArgumentParser) -> None:
                         "there is none), or 'cpu'")
 
 
-def _needs_multi_gpu(option: str) -> int:
-    print(f"error: {option} runs over several devices, which this port does not do "
-          "yet: ROADMAP Queue 1, 'Multi-GPU'")
-    return 2
+def _mesh(n: int | None, device: str | None):
+    """The one-process mesh of ``--mesh``/``--devices``: the first ``n``
+    cards (all of them when ``n`` is None), or ``n`` shards on ``--device``."""
+    from ..parallel.mesh import make_mesh
+
+    if device is None:
+        return make_mesh(n)
+    return make_mesh(devices=[device] * (n or 1))
+
+
+def _mesh_block(block: int, n: int, combine: bool, fs: float, chan_bw: float) -> int:
+    """The source block of ``stream --mesh n``: equal spans of the block, or
+    with ``--combine`` the power-of-two channeliser window, whose channel
+    length must split into ``n`` equal spans.  Refuses what it cannot split,
+    rather than change the block behind the operator's back."""
+    if n < 1:
+        raise SystemExit(f"--mesh {n}: a mesh needs at least one shard")
+    if not combine:
+        if block < n:
+            raise SystemExit(f"--mesh {n}: a block of {block} samples cannot be split into "
+                             f"{n} spans; raise --block-seconds")
+        return block - block % n
+    from ..ops.scan import _channel_geometry
+
+    # The lookahead tail must continue exactly where the previous envelope
+    # ends, so the block IS the channeliser's FFT window.
+    block = 1 << (max(block, 2).bit_length() - 1)
+    _, m_chan, _ = _channel_geometry(block, fs, chan_bw)
+    if block % n or m_chan % n:
+        raise SystemExit(f"--mesh {n} with --combine: the power-of-two block of {block} "
+                         f"samples ({m_chan} channel samples) does not split into {n} equal "
+                         "spans; use a power-of-two mesh size")
+    return block
 
 
 def cmd_analyze(args: argparse.Namespace) -> int:
@@ -277,10 +307,10 @@ def cmd_stream(args: argparse.Namespace) -> int:
     from ..runtime.stream import StreamingRuntime
     from ..video.modes import ALL_VIDEO_MODES
 
-    if args.mesh:
-        return _needs_multi_gpu("stream --mesh")
     mode = ALL_VIDEO_MODES[args.mode]
     block = int(args.fs * args.block_seconds)
+    if args.mesh is not None:
+        block = _mesh_block(block, args.mesh, bool(args.combine), args.fs, args.chan_bw)
     source = open_source(
         args.source,
         sample_rate=args.fs,
@@ -312,16 +342,21 @@ def cmd_stream(args: argparse.Namespace) -> int:
     combine = None
     if args.combine and args.combine != "auto":
         combine = [float(x) for x in args.combine.split(",")]
-    rt = StreamingRuntime(source, mode, alpha=args.alpha,
-                          invert=args.invert,
-                          fidelity=args.fidelity and not args.drift_lock,
-                          fidelity_bins=args.fidelity_bins,
-                          ring_impl=args.ring,
-                          config_overrides=overrides or None,
-                          combine=combine, combine_bw=args.chan_bw,
-                          combine_demod=args.combine_demod,
-                          combine_excise_db=args.excise,
-                          device=args.device)
+    options = dict(alpha=args.alpha, invert=args.invert,
+                   fidelity=args.fidelity and not args.drift_lock,
+                   fidelity_bins=args.fidelity_bins, ring_impl=args.ring,
+                   config_overrides=overrides or None, combine=combine,
+                   combine_bw=args.chan_bw, combine_demod=args.combine_demod,
+                   combine_excise_db=args.excise)
+    if args.mesh is not None:
+        # Live streaming over a mesh: each ring block split into N time
+        # spans, one a shard (halos, the associative EMA combine, one block
+        # of lookahead); --fidelity and --combine compose with it.
+        from ..runtime.mesh_stream import MeshStreamingRuntime
+
+        rt = MeshStreamingRuntime(source, mode, _mesh(args.mesh, args.device), **options)
+    else:
+        rt = StreamingRuntime(source, mode, device=args.device, **options)
     if args.render == "terminal":
         sink = TerminalRenderer(crosshair=args.crosshair)
     elif args.render == "png":
@@ -400,19 +435,26 @@ def cmd_search(args: argparse.Namespace) -> int:
     from ..pipeline.offline import estimate_timing
     from ..video.modes import candidate_modes
 
-    if args.dynamic:
-        # The JAX package's dynamic-geometry scoring shards the candidates
-        # over a device mesh.
-        return _needs_multi_gpu("search --dynamic")
     iq = read_complex_binary(args.input, args.format, count=args.samples)
     timing = estimate_timing(iq, args.fs, device=args.device)
     cands = candidate_modes(timing.refresh_hz, tol_hz=args.tol)
-    # Static scoring: one K1 launch per candidate geometry on a small score
-    # grid; also what auto_reconstruct(refine_with_search=True) uses.
-    print(f"fv = {timing.refresh_hz:.4f} Hz; static-table scoring "
-          f"{len(cands)} candidate modes")
-    res = mode_search_static(iq, args.fs, timing.refresh_hz, cands,
-                             n_frames=args.frames or 2, device=args.device)
+    if args.dynamic:
+        # The candidates split over a mesh, each scored with its exact line
+        # table at the full screen size.
+        from ..parallel.sharded import sharded_mode_search
+
+        mesh = _mesh(args.devices, args.device)
+        print(f"fv = {timing.refresh_hz:.4f} Hz; scoring {len(cands)} "
+              f"candidate modes on {mesh.shape['blocks']} devices")
+        res = sharded_mode_search(iq, args.fs, timing.refresh_hz, cands, mesh,
+                                  n_frames=args.frames or 2)
+    else:
+        # Static scoring: one K1 launch per candidate geometry on a small
+        # score grid; also what auto_reconstruct(refine_with_search=True) uses.
+        print(f"fv = {timing.refresh_hz:.4f} Hz; static-table scoring "
+              f"{len(cands)} candidate modes")
+        res = mode_search_static(iq, args.fs, timing.refresh_hz, cands,
+                                 n_frames=args.frames or 2, device=args.device)
     order = np.argsort(res.scores)[::-1]
     for rank, i in enumerate(order[:10]):
         marker = " <== best" if i == res.best_index else ""
@@ -795,9 +837,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="overlay the detected sync position on the live view "
                         "(displayScreen_vsync! parity)")
     p.add_argument("--mesh", type=int, default=None, metavar="N",
-                   help="stream through the N-device mesh runtime; not "
-                        "ported yet (ROADMAP, 'Multi-GPU'): the command "
-                        "exits with a message")
+                   help="stream through the mesh runtime: each block split "
+                        "into N time spans over the first N cards (with "
+                        "--device: N shards on that device)")
     p.add_argument("--ring", default="python", choices=["python", "native"],
                    help="host ring buffer implementation (native = C++, "
                         "GIL-free)")
@@ -843,11 +885,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--samples", type=int, default=None)
     p.add_argument("--tol", type=float, default=2.0, help="refresh tolerance [Hz]")
     p.add_argument("--frames", type=int, default=None)
-    p.add_argument("--devices", type=int, default=None)
+    p.add_argument("--devices", type=int, default=None,
+                   help="shards of --dynamic (default: every card; with "
+                        "--device, one)")
     p.add_argument("--dynamic", action="store_true",
-                   help="dynamic-geometry scoring sharded across a device "
-                        "mesh; not ported yet (ROADMAP, 'Multi-GPU'): the "
-                        "command exits with a message")
+                   help="score every candidate with its exact geometry at "
+                        "the full screen size, the candidates split over a "
+                        "mesh (--devices)")
     p.add_argument("--fast", action="store_true",
                    help="(deprecated, now the default) static-table scoring")
     _add_device(p)

@@ -38,6 +38,7 @@ coherent in-channel interference as signal.
 from __future__ import annotations
 
 import dataclasses
+import typing
 
 import numpy as np
 import torch
@@ -76,6 +77,11 @@ def _channel_envelopes(words, fs, centers, chan_bw, demod, excise_db) -> torch.T
     check_excise_demod(demod, excise_db)
     chans, _ = _channelize_complex(words, fs, np.asarray(centers), chan_bw,
                                    excise_db=excise_db)
+    return _demod_channels(chans, demod)
+
+
+def _demod_channels(chans: torch.Tensor, demod: str) -> torch.Tensor:
+    """Complex channels (K, M) → their float32 demodulated rows."""
     if demod == "fm":
         return fm_demod_rows(chans)
     return torch.abs(chans).to(torch.float32)
@@ -100,62 +106,89 @@ def _comb_dots(env0: torch.Tensor, spf_c: float, half_off: int) -> torch.Tensor:
     return acc / max(cnt, 1)
 
 
-def _fuse(amp, fs_chan, corr_seconds, rate_min, rate_max, weighting, refresh_hz):
-    """Polarity → MRC weights → fusion of demodulated channels ``amp``
-    (K, M): ``(env, weights, polarity, mass_db, refresh)``."""
+class _RowStats(typing.NamedTuple):
+    """What each demodulated channel contributes to the fusion, row by row."""
+
+    mean: torch.Tensor       # (K, 1)
+    env0: torch.Tensor       # (K, M) mean removed
+    var: torch.Tensor        # (K,) σ_k²
+    comb: torch.Tensor | None       # on-comb dots (known refresh only)
+    comb_off: torch.Tensor | None   # off-comb dots at half-frame offsets
+    mass_db: torch.Tensor    # (K,) refresh-comb mass
+    fv: torch.Tensor         # (K,) refresh per channel
+
+
+def _row_stats(amp, fs_chan, corr_seconds, rate_min, rate_max, refresh_hz) -> _RowStats:
+    """Per-channel statistics of demodulated channels ``amp`` (K, M); every
+    row on its own, so that a carrier-sharded fusion computes them shard by
+    shard."""
     mean = torch.mean(amp, dim=1, keepdim=True)
     env0 = amp - mean
-    var = torch.mean(env0 * env0, dim=1)               # σ_k²
+    var = torch.mean(env0 * env0, dim=1)
+    if refresh_hz is None:
+        mass_db, _, fv = _comb_score(env0, fs_chan, corr_seconds, rate_min, rate_max, 5)
+        return _RowStats(mean, env0, var, None, None, mass_db, fv)
+    spf_c = fs_chan / float(refresh_hz)
+    comb = _comb_dots(env0, spf_c, 0)
+    # Off-comb null at half-frame lag offsets: any NON-frame-periodic
+    # correlated power (a CW interferer's envelope beat, hum, receiver
+    # artifacts) contributes to both on- and off-comb dots alike, while
+    # screen content is frame-periodic and does not — the difference
+    # isolates SCREEN power for the MRC weights below.
+    comb_off = _comb_dots(env0, spf_c, 1)
+    mass_db = 10.0 * torch.log10(torch.clamp(comb, min=1e-30))
+    return _RowStats(mean, env0, var, comb, comb_off, mass_db,
+                     torch.full_like(var, float(refresh_hz)))
 
-    if refresh_hz is not None:
-        spf_c = fs_chan / float(refresh_hz)
-        comb = _comb_dots(env0, spf_c, 0)
-        # Off-comb null at half-frame lag offsets: any NON-frame-periodic
-        # correlated power (a CW interferer's envelope beat, hum, receiver
-        # artifacts) contributes to both on- and off-comb dots alike, while
-        # screen content is frame-periodic and does not — the difference
-        # isolates SCREEN power for the MRC weights below.
-        comb_off = _comb_dots(env0, spf_c, 1)
-        mass_db = 10.0 * torch.log10(torch.clamp(comb, min=1e-30))
-        fv = torch.full_like(var, float(refresh_hz))
+
+def _gated_weights(st: _RowStats, weighting: str, comb_max, mass_max) -> torch.Tensor:
+    """Unnormalised MRC weights of each row, zero where a gate refuses the
+    channel.  ``comb_max`` and ``mass_max`` are the largest on-comb dot and
+    comb mass over ALL the channels of the fusion."""
+    var = st.var
+    if weighting == "equal":
+        return torch.ones_like(var)
+    if st.comb is not None:
+        # Interference-robust MRC: signal power = frame-PERIODIC correlated
+        # power (on-comb minus off-comb — a CW beat, hum, or any correlated
+        # non-screen power cancels in the difference); noise = everything
+        # else, interference included.
+        s = torch.clamp(st.comb - st.comb_off, min=0.0)
+        noise = torch.maximum(var - s, 1e-6 * var)
+        w = torch.sqrt(s) / noise
         # Raw envelope dots scale as amplitude² where the offline linear-
         # autocorrelation mass scales as amplitude⁴: the offline 40 dB gate
         # is 20 dB here.  Second gate: the selection-biased noise null of a
         # max-of-3 mean-of-5 dot estimate is a few c0/√M; 6× clears noise
         # even when the anchor itself is weak.
-        gate = ((comb > torch.max(comb) * 1e-2)
-                & (comb * float(np.sqrt(env0.shape[1])) > 6.0 * var))
-    else:
-        mass_db, _, fv = _comb_score(env0, fs_chan, corr_seconds, rate_min, rate_max, 5)
-    anchor = torch.argmax(mass_db)
+        gate = ((st.comb > comb_max * 1e-2)
+                & (st.comb * float(np.sqrt(st.env0.shape[1])) > 6.0 * var))
+        return torch.where(gate, w, torch.zeros_like(w))
+    # MRC from the lag-1 decorrelation split (estimate_snr's separation):
+    # signal power s = c1 (correlated), noise N = c0 - c1 (white).
+    # Assumes WHITE receiver noise — coherent interference inside a
+    # channel is misread as signal; the refresh_hz path above is the
+    # robust estimator (the public wrappers run it by default).
+    c1 = torch.mean(st.env0[:, :-1] * st.env0[:, 1:], dim=1)
+    s = torch.clamp(c1, min=0.0)
+    noise = torch.maximum(var - c1, 1e-6 * var)
+    w = torch.sqrt(s) / noise
+    # Zero out channels with no refresh-comb evidence (correlated
+    # interference is not screen signal).
+    return torch.where(st.mass_db > mass_max - 40.0, w, torch.zeros_like(w))
+
+
+def _fuse(amp, fs_chan, corr_seconds, rate_min, rate_max, weighting, refresh_hz):
+    """Polarity → MRC weights → fusion of demodulated channels ``amp``
+    (K, M): ``(env, weights, polarity, mass_db, refresh)``."""
+    st = _row_stats(amp, fs_chan, corr_seconds, rate_min, rate_max, refresh_hz)
+    anchor = torch.argmax(st.mass_db)
     # Modulation polarity: sign of the correlation against the anchor
     # channel's envelope (intermodulation regularly inverts video).
-    dots = torch.mv(env0, env0.index_select(0, anchor.reshape(1))[0])
+    dots = torch.mv(st.env0, st.env0.index_select(0, anchor.reshape(1))[0])
     pol = torch.where(dots >= 0.0, 1.0, -1.0).to(torch.float32)
-    if weighting == "equal":
-        w = torch.ones_like(var)
-    elif refresh_hz is not None:
-        # Interference-robust MRC: signal power = frame-PERIODIC correlated
-        # power (on-comb minus off-comb — a CW beat, hum, or any correlated
-        # non-screen power cancels in the difference); noise = everything
-        # else, interference included.
-        s = torch.clamp(comb - comb_off, min=0.0)
-        noise = torch.maximum(var - s, 1e-6 * var)
-        w = torch.sqrt(s) / noise
-        w = torch.where(gate, w, torch.zeros_like(w))
-    else:
-        # MRC from the lag-1 decorrelation split (estimate_snr's separation):
-        # signal power s = c1 (correlated), noise N = c0 - c1 (white).
-        # Assumes WHITE receiver noise — coherent interference inside a
-        # channel is misread as signal; the refresh_hz path above is the
-        # robust estimator (the public wrappers run it by default).
-        c1 = torch.mean(env0[:, :-1] * env0[:, 1:], dim=1)
-        s = torch.clamp(c1, min=0.0)
-        noise = torch.maximum(var - c1, 1e-6 * var)
-        w = torch.sqrt(s) / noise
-        # Zero out channels with no refresh-comb evidence (correlated
-        # interference is not screen signal).
-        w = torch.where(mass_db > torch.max(mass_db) - 40.0, w, torch.zeros_like(w))
+    w = _gated_weights(st, weighting, None if st.comb is None else torch.max(st.comb),
+                       torch.max(st.mass_db))
     w = w / torch.clamp(torch.sum(w), min=1e-30)
     # Deterministic output polarity: ``pol`` is measured relative to the
     # data-dependent anchor (the strongest channel), which may itself carry
@@ -167,11 +200,11 @@ def _fuse(amp, fs_chan, corr_seconds, rate_min, rate_max, weighting, refresh_hz)
     # sense.
     first = torch.argmax((w > 0.0).to(torch.int32))
     pol = pol * pol.index_select(0, first.reshape(1))
-    env = torch.mv(env0.T, w * pol)
+    env = torch.mv(st.env0.T, w * pol)
     # Re-add the combined DC so the output looks like a standard positive
     # envelope to downstream consumers (blanking-polarity detection etc.).
-    env = env + torch.sum(w * mean[:, 0])
-    return env, w, pol, mass_db, fv
+    env = env + torch.sum(w * st.mean[:, 0])
+    return env, w, pol, st.mass_db, st.fv
 
 
 def combine_core(words, fs, centers, chan_bw, fs_chan, corr_seconds,

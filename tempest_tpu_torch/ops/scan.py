@@ -387,23 +387,45 @@ def _channelize_complex(
     inverse FFT (see :func:`_excise_spikes`)."""
     n_c = iq_words.shape[0] // 2
     N, M, fs_chan = _channel_geometry(n_c, fs, chan_bw)
-    z = torch.view_as_complex(iq_words[: 2 * N].to(torch.float32).reshape(N, 2))
-    spec = torch.fft.fft(z)
-    # Circular band slices: bin b covers frequency b/N·fs (negative
-    # frequencies wrap into the upper half), so a band that crosses the end
-    # of the spectrum continues at its start.
-    rows = []
-    for fc in np.atleast_1d(np.asarray(centers_hz)):
-        s = int(np.round(float(fc) / fs * N)) % N
-        a = (s - M // 2) % N
-        rows.append(spec[a : a + M] if a + M <= N
-                    else torch.cat([spec[a:], spec[: a + M - N]]))
-    bands = torch.stack(rows)                     # (K, M), centered at DC+M/2
-    # Rotate so each channel's center lands at bin 0 (DC) of its own FFT.
-    bands = torch.roll(bands, -(M // 2), dims=1)
+    bands = _band_slices(_spectrum(iq_words, N), _band_starts(centers_hz, fs, N, M), M)
+    return _channels_from_bands(bands, N, excise_db), fs_chan
+
+
+def _spectrum(iq_words: torch.Tensor, n_fft: int) -> torch.Tensor:
+    """The N-point FFT of the capture's first N complex samples."""
+    return torch.fft.fft(torch.view_as_complex(
+        iq_words[: 2 * n_fft].to(torch.float32).reshape(n_fft, 2)))
+
+
+def _band_starts(centers_hz, fs: float, n_fft: int, m_chan: int) -> np.ndarray:
+    """First bin of each carrier's M-bin band: the carrier's bin minus M/2,
+    mod N — the one rounding of a carrier onto the spectrum, for the
+    channeliser and every carrier-sharded path."""
+    return np.array([(int(np.round(float(fc) / fs * n_fft)) - m_chan // 2) % n_fft
+                     for fc in np.atleast_1d(np.asarray(centers_hz))], np.int64)
+
+
+def _band_slices(spec: torch.Tensor, starts, m_chan: int) -> torch.Tensor:
+    """(K, M) circular band slices of the spectrum: bin b covers frequency
+    b/N·fs (negative frequencies wrap into the upper half), so a band that
+    crosses the end of the spectrum continues at its start."""
+    n_fft = spec.shape[0]
+    rows = [spec[a: a + m_chan] if a + m_chan <= n_fft
+            else torch.cat([spec[a:], spec[: a + m_chan - n_fft]])
+            for a in (int(s) for s in starts)]
+    return torch.stack(rows)                      # (K, M), centered at DC+M/2
+
+
+def _channels_from_bands(bands: torch.Tensor, n_fft: int,
+                         excise_db: float | None = None) -> torch.Tensor:
+    """Band slices → (K, M) complex baseband channels, each row on its own:
+    the center rotated to bin 0, optional excision, the M-point inverse
+    FFT."""
+    m_chan = bands.shape[1]
+    bands = torch.roll(bands, -(m_chan // 2), dims=1)
     if excise_db is not None:
         bands = _excise_spikes(bands, excise_db)
-    return torch.fft.ifft(bands, dim=1) * (M / N), fs_chan
+    return torch.fft.ifft(bands, dim=1) * (m_chan / n_fft)
 
 
 def channelize(

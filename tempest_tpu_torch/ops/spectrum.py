@@ -5,8 +5,9 @@ The Welch and waterfall estimators reshape the signal into a
 (segments, fft_size) matrix and run one batched FFT.  Signals may be numpy
 arrays or tensors, complex or real, of any float or int dtype; with
 ``device=None`` a tensor is taken where it lies and a host array goes to the
-CUDA card (raising when there is none).  The sharded Welch estimator of the
-JAX package spans several devices and is not ported (ROADMAP, "Multi-GPU").
+CUDA card (raising when there is none).  ``get_welch_sharded`` splits the
+segment axis over a device mesh (``parallel.mesh``): each shard accumulates
+its segments and one ``all_reduce_sum`` adds the parts.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 
 from ..utils.device import as_tensor
 
-__all__ = ["get_spectrum", "get_welch", "welch_accumulate", "get_waterfall"]
+__all__ = ["get_spectrum", "get_welch", "get_welch_sharded", "welch_accumulate", "get_waterfall"]
 
 _EPS = 1e-30  # keep log10 finite; 10*log10(1e-30) = -300 dB floor
 
@@ -75,6 +76,29 @@ def get_welch(
     acc = welch_accumulate(_segments(sig, fft_size))
     power = 10.0 * torch.log10(torch.fft.fftshift(acc) + _EPS)
     return _freq_axis(fft_size, fs, sig.device), power
+
+
+def get_welch_sharded(
+    fs: float, sig, mesh, fft_size: int = 1024, axis: str = "blocks"
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`get_welch` with the segment axis split over ``mesh``: each
+    shard FFTs and accumulates its segments, one ``all_reduce_sum`` adds the
+    parts (in shard order on a one-process mesh).  The segment count is cut
+    to a multiple of the mesh axis (trailing samples dropped, as in the
+    single-device version).  The result lies on ``mesh.device``."""
+    from ..parallel.mesh import block_sharding
+
+    n_dev = mesh.shape[axis]
+    sig = _signal(sig, mesh.device)
+    n_seg = sig.shape[0] // fft_size
+    n_seg -= n_seg % n_dev
+    if n_seg == 0:
+        raise ValueError("signal too short for one segment per device")
+    segs = sig[: n_seg * fft_size].reshape(n_dev, n_seg // n_dev, fft_size)
+    parts = [welch_accumulate(s) for s in block_sharding(mesh, axis).place(segs)]
+    acc = mesh.comm.all_reduce_sum(parts, axis)[0]
+    power = 10.0 * torch.log10(torch.fft.fftshift(acc) + _EPS)
+    return _freq_axis(fft_size, fs, acc.device), power
 
 
 def get_waterfall(

@@ -188,12 +188,28 @@ class StreamingRuntime:
             self._phase_scale = 1.0
             self._upload_samples = None  # the chain's block, set below
             self._combine_geometry = None
-        # Whole frame periods that fit one chain window; re-derived on every
-        # mode change (a slower refresh may fit one frame less).
+        self.config = self._chain_config(chain_fs, cap)
+        self._spf = self.source.sample_rate / self._mode.refresh
+        self.abs_pos = 0  # absolute SOURCE-sample index of the next block
+        if self.config.block_samples > cap:
+            raise ValueError(
+                f"blocks ({cap} chain samples) are smaller than "
+                f"{self._n_frames} frame periods ({self.config.block_samples})")
+        if self._upload_samples is None:
+            self._upload_samples = self.config.block_samples
+        self._step = make_reconstruct_fn(self.config, self.device)
+        self._combine_front = self._make_combine_front() if self._combine_centers else None
+
+    def _chain_config(self, chain_fs: float, cap: int) -> ReconstructionConfig:
+        """The chain's config at ``chain_fs`` for windows of ``cap`` samples
+        (one block, or one span of the mesh runtime's block): as many whole
+        frame periods as fit, re-derived on every mode change (a slower
+        refresh may fit one frame less); default or fidelity chain; the
+        overrides on top."""
         spf = chain_fs / self._mode.refresh
         self._n_frames = (frames_per_window(cap, spf) if self._n_frames_fixed is None
                           else self._n_frames_fixed)
-        self.config = ReconstructionConfig(
+        config = ReconstructionConfig(
             sample_rate=chain_fs,
             mode=self._mode,
             n_frames=self._n_frames,
@@ -206,18 +222,7 @@ class StreamingRuntime:
             align_subpixel=not self.fidelity,
             phase_bins=self.fidelity_bins if self.fidelity else 0,
         )
-        if self._overrides:
-            self.config = dataclasses.replace(self.config, **self._overrides)
-        self._spf = self.source.sample_rate / self._mode.refresh
-        self.abs_pos = 0  # absolute SOURCE-sample index of the next block
-        if self.config.block_samples > cap:
-            raise ValueError(
-                f"blocks ({cap} chain samples) are smaller than "
-                f"{self._n_frames} frame periods ({self.config.block_samples})")
-        if self._upload_samples is None:
-            self._upload_samples = self.config.block_samples
-        self._step = make_reconstruct_fn(self.config, self.device)
-        self._combine_front = self._make_combine_front() if self._combine_centers else None
+        return dataclasses.replace(config, **self._overrides) if self._overrides else config
 
     def _make_combine_front(self):
         """The per-block combine front: raw I/Q words on the device → the

@@ -400,14 +400,63 @@ def test_warmup_prints_the_jax_cli_s_lines(capsys):
     assert "--cache-dir unused: ignored" in text and "native ring" in text
 
 
-# --------------------------------------------------- what waits, the parser
-@pytest.mark.parametrize("argv,what", [
-    (["stream", "--mesh", "4"], "stream --mesh"),
-    (["search", "missing.dat", "--dynamic", "--devices", "2"], "search --dynamic")])
-def test_multi_gpu_options_are_parsed_and_exit_with_a_message(argv, what, capsys):
-    assert torch_main(argv) == 2
+# ------------------------------------------ the mesh options, the parser
+def test_stream_mesh_runs_on_a_cpu_mesh(workdir, capture, wideband, capsys):
+    """``stream --mesh N`` with ``--device cpu``: N shards on the CPU, the
+    port's counterpart of ``tests/test_runtime.py::test_cli_stream_mesh``.
+    --fidelity and --combine compose with --mesh: the fidelity chain and
+    live combining run on the mesh as on one device."""
+    base = ["stream", "--source", "replay", "--file", str(capture), "--mode", MODE_NAME,
+            "--fs", FS, "--block-seconds", "0.2", "--mesh", "4", "--device", "cpu",
+            "--render", "png"]
+    assert torch_main(base + ["--blocks", "2", "--out-prefix", str(workdir / "mesh")]) == 0
     text = capsys.readouterr().out
-    assert what in text and "Multi-GPU" in text
+    assert "| 8 frames reconstructed" in text and "'n_shards': 4" in text
+    assert "'dispatched': 2" in text
+    assert _read_png(workdir / "mesh_00001.png").shape == (600, 800)
+    assert torch_main(base + ["--blocks", "1", "--fidelity",
+                              "--out-prefix", str(workdir / "meshfid")]) == 0
+    assert "| 4 frames reconstructed" in capsys.readouterr().out
+    assert (workdir / "meshfid_00000.png").exists()
+    # Live combining on the mesh: the block is the channeliser's power-of-two
+    # window (0.3 s at 8 Msps -> 2^21 samples), its channel split in two.
+    assert torch_main(["stream", "--source", "replay", "--file", str(wideband), "--mode",
+                       MODE_NAME, "--fs", WIDE_FS, "--block-seconds", "0.3", "--blocks", "1",
+                       "--combine=-2e6,2e6", "--chan-bw", "2e6", "--mesh", "2",
+                       "--device", "cpu"]) == 0
+    text = capsys.readouterr().out
+    assert "'combine': {" in text and "'shard_samples': 262144" in text
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--block-seconds", "5e-7", "--mesh", "8"], "4 samples cannot be split into 8 spans"),
+    (["--block-seconds", "0.3", "--mesh", "3", "--combine=-2e6,2e6", "--chan-bw", "2e6"],
+     "does not split into 3 equal spans"),
+], ids=["block_smaller_than_mesh", "combine_mesh_not_dividing"])
+def test_stream_mesh_refuses_what_it_cannot_split(argv, message, wideband):
+    """A block smaller than the mesh, or with --combine a mesh size that does
+    not divide the power-of-two block, is refused with a message; the block
+    is not changed behind the operator's back."""
+    with pytest.raises(SystemExit, match=message):
+        torch_main(["stream", "--source", "replay", "--file", str(wideband), "--mode",
+                    MODE_NAME, "--fs", WIDE_FS, "--blocks", "1", "--device", "cpu", *argv])
+
+
+def test_search_dynamic_matches_the_jax_cli(jax_main, capture, capsys):
+    """``search --dynamic``: the candidates split over 8 CPU shards here, over
+    the JAX package's 8 virtual devices there; the same ranking of the
+    leaders and the winner."""
+    (rc_j, tj), (rc_t, tt) = _both(jax_main, capsys,
+                                   ["search", str(capture), "--fs", FS, "--tol", "0.5",
+                                    "--dynamic", "--devices", "8"])
+    assert rc_j == rc_t == 0
+    assert tt.splitlines()[0] == tj.splitlines()[0]
+    assert "on 8 devices" in tt
+    rank_t = [l for l in tt.splitlines()[1:] if l.strip()]
+    rank_j = [l for l in tj.splitlines()[1:] if l.strip()]
+    assert MODE_NAME in rank_t[0] and rank_t[0].endswith("<== best")
+    names = lambda rows: [r[4:44].strip() for r in rows]   # noqa: E731
+    assert names(rank_t)[:3] == names(rank_j)[:3]
 
 
 def test_parser_has_the_jax_cli_s_subcommands_and_options(jax_main):

@@ -165,11 +165,12 @@ def test_reconstruct_frames_complex_input_matches_jax():
     dict(resampler="aligned"), dict(resampler="fft"),
 ], ids=lambda o: "-".join(o.values()))
 def test_unported_options_raise(option):
-    """What the port still leaves out names its ROADMAP heading.  Since the
-    operator surface that is the mesh functions alone: the resampler names
-    that raised here until then now build and run a block, and
-    ``refine_with_search`` reaches the static mode search (which rejects a
-    capture too short to search instead of raising ``NotImplementedError``)."""
+    """Nothing of the JAX package is left out of the port any more: the
+    resampler names that raised here until the operator surface build and
+    run a block, the mesh functions that raised until the multi-device
+    slice take a mesh and run (``tests/test_torch_sharded_time.py``), and
+    only a name that neither package knows raises."""
+    from tempest_tpu_torch.parallel.mesh import make_mesh
     from tempest_tpu_torch.parallel import sharded as psharded
 
     cfg = poff.ReconstructionConfig(sample_rate=FS, mode=MODE, n_frames=3, render_size=SHAPE,
@@ -178,10 +179,13 @@ def test_unported_options_raise(option):
     ema, frames, _, _ = poff.make_reconstruct_fn(cfg, device="cpu")(
         env, np.zeros(SHAPE, np.float32), ALPHA)
     assert frames.shape == (3, *SHAPE) and bool(torch.isfinite(ema).all())
-    for fn in (psharded.sharded_reconstruct_fn, psharded.sharded_mode_search,
-               psharded.sharded_mode_search_2d):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*Multi-GPU"):
-            fn(env, FS)
+    # The same block as two spans of a mesh: each shard's frames from its
+    # span and the halo that follows it.
+    S = cfg.block_samples // 2
+    step = psharded.sharded_reconstruct_fn(dataclasses.replace(cfg, n_frames=1),
+                                           make_mesh(devices=["cpu"] * 2))
+    ema2, frames2, _, _ = step(env[: 2 * S].reshape(2, S), np.zeros(SHAPE, np.float32), ALPHA)
+    assert frames2.shape == (2, *SHAPE) and bool(torch.isfinite(ema2).all())
     with pytest.raises(ValueError, match="unknown resampler"):
         poff.make_reconstruct_fn(dataclasses.replace(cfg, resampler="mxu9"), device="cpu")
 

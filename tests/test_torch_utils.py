@@ -161,13 +161,20 @@ def test_launch_cost_is_the_stated_arithmetic(taps, exact, demod, sample_bytes, 
                                        exact)[0] == nbytes - (read - 1000) * sample_bytes
 
 
-# Names that ``tempest_tpu/__init__.py`` exports and the port lacks: after the
-# operator surface, none.  (The multi-GPU functions are not exported by either
-# package's ``__init__``: they live in ``parallel/``.)
+# Names that ``tempest_tpu/__init__.py`` exports and the port lacks: none.
 MISSING_FROM_THE_PORT: set[str] = set()
+# The multi-device layer, which neither package's ``__init__`` exports in
+# the JAX package (it lives in ``parallel/`` and ``runtime/mesh_stream.py``):
+# every public name of those modules resolves in the port's module of the
+# same name, and the port exports them from its top level too.
+MESH_MODULES = ("parallel.mesh", "parallel.distributed", "parallel.sharded",
+                "runtime.mesh_stream")
+JAX_ONLY_MESH_NAMES = {"P", "NamedSharding"}   # JAX's own classes, re-exported there
 
 
 def test_every_public_name_of_the_jax_package_resolves_in_the_port():
+    import importlib
+
     tt = pytest.importorskip("tempest_tpu")
     public = {n for n in vars(tt) if not n.startswith("_")
               and not isinstance(getattr(tt, n), type(os))}   # no sub-modules
@@ -177,25 +184,33 @@ def test_every_public_name_of_the_jax_package_resolves_in_the_port():
                  "Metrics", "trace", "annotate", "roofline", "H100_PEAKS", "RooflineReport",
                  "RENDER_SIZE", "downgrade_image", "linear_resample", "sig_to_image"):
         assert hasattr(tp, name), name
+    for module in MESH_MODULES:
+        theirs = importlib.import_module(f"tempest_tpu.{module}")
+        ours = importlib.import_module(f"tempest_tpu_torch.{module}")
+        names = set(theirs.__all__) - JAX_ONLY_MESH_NAMES
+        assert names <= set(ours.__all__), (module, sorted(names - set(ours.__all__)))
+        assert names <= set(vars(tp)) | {"ModeSearchResult"}, (module, sorted(names - set(vars(tp))))
+    assert set(importlib.import_module("tempest_tpu.ops.spectrum").__all__) <= set(
+        importlib.import_module("tempest_tpu_torch.ops.spectrum").__all__)
 
 
-def test_the_only_not_implemented_errors_name_multi_gpu():
+def test_no_not_implemented_error_is_left_in_the_port():
+    """Every module of the JAX package is ported: no function of the port
+    raises ``NotImplementedError`` (the mesh functions did until the
+    multi-device slice), and the mesh functions take a mesh and run."""
     from pathlib import Path
 
     root = Path(tp.__file__).parent
-    hits = []
-    for path in sorted(root.rglob("*.py")):
-        lines = path.read_text().splitlines()
-        for i, line in enumerate(lines):
-            if "raise NotImplementedError" in line:
-                hits.append((path.name, " ".join(lines[i: i + 4])))
-    assert hits, "the mesh functions raise until the multi-GPU modules are ported"
-    for name, text in hits:
-        assert "Multi-GPU" in text, (name, text)
-    with pytest.raises(NotImplementedError, match="Multi-GPU"):
-        from tempest_tpu_torch.parallel.sharded import sharded_mode_search
+    hits = [(path.name, i + 1) for path in sorted(root.rglob("*.py"))
+            for i, line in enumerate(path.read_text().splitlines())
+            if "NotImplementedError" in line]
+    assert hits == []
+    mode = tp.ALL_VIDEO_MODES["640x480 @ 60Hz"]
+    res = tp.sharded_mode_search(np.ones(140_000, np.float32), 4e6, 60.0,
+                                 [("640x480 @ 60Hz", mode)], tp.make_mesh(devices=["cpu"] * 2),
+                                 render_size=(30, 40))
+    assert res.scores.shape == (1,) and res.best_index == 0
 
-        sharded_mode_search(np.zeros(4), 1.0, 60.0, [])
 
 
 def test_invert_am_demod_matches_jax():

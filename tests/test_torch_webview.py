@@ -5,8 +5,8 @@ The cases of ``tests/test_webview.py`` on ``tempest_tpu_torch``'s
 routes, the same JSON of ``/status.json``, the same ``corr_click``.  The view
 is the JAX package's module but for three docstring lines
 (``tests/test_torch_copies.py``), so what is under test here is that it
-composes with the port's runtime and console.  Its case on a mesh runtime
-waits for the multi-GPU modules.  No numeric tolerance: the checks are on
+composes with the port's runtime and console, and with its mesh runtime on
+eight CPU shards (``tests/test_webview.py:165``).  No numeric tolerance: the checks are on
 modes, names, PNG headers and log lines, except the clicked refresh, held to
 0.05 Hz of the detected one as in the JAX test (the click snaps to the local
 maximum of a curve sampled on the lag grid).
@@ -176,6 +176,37 @@ def test_web_quit_ends_session(session):
     _poll(lambda: web.console.blocks_done >= 1)
     _post(f"{base}/command", "quit")
     _poll(lambda: not web.console.alive)
+
+
+def test_web_view_on_mesh_runtime():
+    """The web operator surface drives the MESH runtime unchanged: live
+    frame, status with the mesh's health, a command dispatch."""
+    from tempest_tpu_torch.parallel.mesh import make_mesh
+    from tempest_tpu_torch.runtime.mesh_stream import MeshStreamingRuntime
+
+    S = int(FS * 0.05)
+    src = SyntheticSource(MODE, FS, 8 * S, snr_db=25.0, seed=3)
+    rt = MeshStreamingRuntime(src, MODE, make_mesh(devices=["cpu"] * 8), alpha=0.5,
+                              config_overrides={"render_size": (150, 200)})
+    web = WebOperatorView(rt, port=0)
+    base = f"http://{web.host}:{web.port}"
+    rt.start()
+    t = threading.Thread(target=web.run, daemon=True, name="web-mesh")
+    t.start()
+    try:
+        _poll(lambda: (lambda p: p if len(p) > 2000 else None)(_get(f"{base}/frame.png")))
+        s = json.loads(_get(f"{base}/status.json"))
+        assert s["health"]["mesh"]["n_shards"] == 8
+        assert s["health"]["mesh"]["dispatched_total"] >= 1
+        _post(f"{base}/command", "+ 1")
+        _poll(lambda: rt.mode.height == MODE.height + 1)
+    finally:
+        try:
+            _post(f"{base}/command", "quit")
+        except OSError:
+            pass
+        t.join(timeout=30)
+        rt.stop()
 
 
 def test_web_unknown_paths_404(session):
