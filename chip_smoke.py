@@ -8,7 +8,9 @@ runtime's tasks) — at full size: 1920x1080 @ 60 Hz (2576x1125 total) sampled
 at 20 Msps, 36 frames (12,333,335 samples) per block, 600x800 screens.
 Phases, each of which fails the run if it fails:
 
-1. build K1 (``tempest_tpu_torch/csrc/resample.cu``) with nvcc for sm_90a;
+1. build K1 (``tempest_tpu_torch/csrc/resample.cu``), K2 (``csrc/sync.cu``)
+   and K3 (``csrc/align_ema.cu``) with nvcc for sm_90a, one nvcc a source,
+   all started together, and print what ptxas reports of each kernel;
 2. hold both entries of K1 against their plain PyTorch versions on the
    card, at the slice's shapes: the envelope entry (``frames_to_screens``)
    and the fused entry (``frames_to_screens_from_words``, AM demod taken
@@ -20,7 +22,8 @@ Phases, each of which fails the run if it fails:
    through ``frame_to_screen``; time each entry at 4, 8 and 16 rows a tile;
 3. run three blocks of a synthetic capture through
    ``StreamingRuntime.process_blocks`` on the card, check that the fused
-   entry carried them with no separate demod pass, that the outputs stayed
+   entry carried them with no separate demod pass, K2 twice a block at most
+   and K3 once a block (aligning and folding), that the outputs stayed
    on the card, that the final EMA matches the port's CPU run of the same
    blocks, and that its PSNR against the capture's ground truth clears the
    bar; time the step;
@@ -32,8 +35,8 @@ Phases, each of which fails the run if it fails:
    source, and at the shapes of 640x480 @ 60 Hz at 32 Msps; time each beside
    the 2-tap rounded-cut times;
 6. run three blocks through ``StreamingRuntime(fidelity=True)`` (exact cuts
-   through K1's residuals, sync skipped), and one with 4 taps: PSNR against
-   its bar, card against CPU;
+   through K1's residuals, sync skipped, K3's fold alone once a block), and
+   one with 4 taps: PSNR against its bar, card against CPU;
 7. ``auto_reconstruct`` on the first 0.62 s of the capture as int16 words:
    the mode's name, the refresh, the line count against the port's CPU run,
    PSNR of the restored and of the raw image, the two stages' times;
@@ -58,8 +61,9 @@ Phases, each of which fails the run if it fails:
 12. batched serving: ``make_batched_reconstruct_fn`` on 4 streams of the
     slice's int16 words, static cuts and ``carry_phase`` with exact cuts: one
     K1 launch a step for the 144 frames, equal to its plain version to the
-    bit, each stream's frames equal to the single-stream step's, alignment
-    and EMA held once more with the single streams' sync values pinned in;
+    bit, each stream's EMA, frames, sync and score equal to the single-stream
+    step's to the bit with the sync NOT pinned (and once more pinned), K2
+    giving each frame the same bits among 144 and among its stream's 36;
     the step's time beside four single-stream steps;
 13. the mode search: ``mode_search_static`` over the video modes near 60 Hz,
     one K1 launch per candidate at a 150x200 score grid, the winner the
@@ -72,13 +76,15 @@ Phases, each of which fails the run if it fails:
     ``scan``, ``survey``, ``stream``, ``search``, ``warmup``, and ``stream
     --mesh 4`` and ``search --dynamic --devices 4`` on four shards of the
     card) and the web view on an ephemeral port;
-16. ``roofline()`` of one default step: K1's bytes equal ``launch_cost``'s;
+16. ``roofline()`` of one default step: the kernels' bytes equal K1's, K2's
+    and K3's ``launch_cost``;
 17. (m) the mesh on one card: ``MeshStreamingRuntime`` over four shards of
     12,333,336 samples (36 frames each) of the capture replayed in a loop,
     two dispatches, default and fidelity chains, held to the bit against
     the single-device runtime on the same stream in blocks of one span; its
-    times, the collectives' times and bytes, K1 once a shard a dispatch; the
-    same stream through a process group of one NCCL rank;
+    times, the collectives' times and bytes, K1 and K3 once and K2 twice a
+    shard a dispatch (K2 not with fidelity); the same stream through a
+    process group of one NCCL rank;
 18. (n) ``sharded_mode_search`` over the 26 candidates of phase 13 on four
     shards of the card (its winner the static search's), and
     ``sharded_scan_band``, ``sharded_combine_harmonics`` and
@@ -88,7 +94,16 @@ Phases, each of which fails the run if it fails:
     process and on one NCCL rank a card (ranks this script starts), and the
     live combine front on those ranks, held against the single-device
     results; ``--phase o`` runs the build, the capture, phase 17 (the
-    reference) and this phase alone.
+    reference) and this phase alone;
+20. (run after phase 2) K2 and K3 against their plain versions on the
+    slice's 36 screens: K2's integer centres equal, sub-pixel centres and
+    scores within their tolerances, a frame's bits the same alone and in the
+    block; K3 equal to the bit, integer, linear, cubic and the fold alone,
+    its EMA beside one ``torch.tensordot``; each timed beside its bound and
+    its plain version;
+21. the default step stage by stage with CUDA events (demod and K1, K2, K3),
+    and its wall clock, device time and kernel count with the kernels and
+    with their plain versions in their place, in turns.
 
 Run ``python3 chip_smoke.py`` from the root of a checkout on a machine with
 a CUDA card; it ends with torch.profiler tables of three steps, with the
@@ -104,6 +119,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -131,8 +147,18 @@ K1_REL_TOL = 1e-6     # K1 and its plain version do the same f32 operations
 # the sub-pixel sync fraction (2.7e-3 px measured, PERF.md) and the EMA.
 EMA_REL_TOL = 1e-3    # of the EMA's range
 SYNC_ABS_TOL = 1e-2   # px
+# K2 against its plain version on the card: the same operations, the sums in
+# another order (tests/test_torch_sync_kernel.py derives both bounds).
+K2_FRAC_TOL = 1e-2    # px, sub-pixel centres
+K2_SCORE_REL = 1e-4   # scores, relative
+# K3's fold against one torch.tensordot of the same weights and frames: the
+# 36 products added in another order, and the EMA's own product and sum, on
+# non-negative screens: at most 38 roundings of 2^-24 of the EMA's value.
+K3_TENSORDOT_REL = (N_FRAMES + 2) * 2.0 ** -24
 TIMED_CALLS = 30
 BACK_TO_BACK = 50     # launches between two events
+# The kernels' sources, built at once, one nvcc each.
+KERNEL_SOURCES = ("resample", "sync", "align_ema")
 ENVELOPE_BLOCKS = 2   # depth of the envelope-entry run of phase 4
 # Screens whose width is no multiple of 4 (one column a work item; fewer and
 # more work items a row than the block has threads), one of more than
@@ -190,16 +216,11 @@ DRIFT_TOL_HZ = 1e-3
 # Batched serving: streams a step, and the phases of the carried streams.
 N_STREAMS = 4
 STREAM_PHASES = [0.0, 1234.56, 98765.4321, 222222.125]
-# Batched vs single EMA of the same screens: one einsum over [B, F, h, w]
-# against a tensordot over [F, h, w], the same 36 products in another order.
-BATCH_EMA_REL_TOL = 1e-5      # of the EMA's range
-# After sync and alignment the sub-pixel fraction comes from float32 profile
-# sums whose order changes with the batch (2.7e-3 px between 36 and 144
-# frames, as between card and CPU), which moved the aligned frames by 6.3e-4
-# of the largest pixel and the EMA by 9.6e-4 of its range when measured:
-# twice that.  With the single streams' sync values pinned into the batched
-# step, alignment and EMA alone are held to BATCH_EMA_REL_TOL.
-BATCH_ALIGNED_REL_TOL = 2e-3  # of the EMA's range, of the largest pixel
+# A batched step equals the single steps to the bit, sync not pinned: K1 is
+# per frame, K2's sums depend on the frame alone, and K3 folds each stream in
+# the single step's order.  (Before K2 the plain sync's float32 profile sums
+# changed order with the batch and moved the sub-pixel fraction by 2.7e-3
+# px between 36 and 144 frames, the EMA by up to 9.6e-4 of its range.)
 # The mode search: modes within this of 60 Hz, on the JAX package's defaults.
 SEARCH_TOL_HZ = 0.5
 SEARCH_SCORE_SIZE = (150, 200)
@@ -804,6 +825,22 @@ def kernel_count(prof) -> int:
     return sum(evt.count for evt in prof.key_averages() if evt.device_type == DeviceType.CUDA)
 
 
+def profiled(torch, fn, activities, tries: int = 3):
+    """A torch.profiler run of ``fn()``, fenced.  A run that records no
+    kernel at all (the profiler has dropped a whole run's device events
+    when two runs followed each other closely) is made again, up to
+    ``tries`` times."""
+    from torch.profiler import profile
+
+    for _ in range(tries):
+        with profile(activities=activities) as prof:
+            fn()
+            torch.cuda.synchronize()
+        if kernel_count(prof):
+            break
+    return prof
+
+
 def read_png(path) -> np.ndarray:
     """Decode an 8-bit grayscale PNG as ``render/screen.py`` writes it."""
     import struct
@@ -828,11 +865,10 @@ def phase_batched(tp, torch, dev, card: str, words: np.ndarray, reset_counts,
     """Phase 12: batched serving at full width.  ``words`` is the capture's
     int16 words; stream b is the block that starts 2/3 of a block after
     stream b-1's.  Returns what the kernels line reports of K1 at 144 frames."""
-    from torch.profiler import profile
-
     from tempest_tpu_torch.ops.resample_kernel import (
         frames_to_screens, frames_to_screens_from_words, frames_to_screens_plain,
         screen_geometry)
+    from tempest_tpu_torch.ops.sync_kernel import blanking_sync
     from tempest_tpu_torch.pipeline import offline as poff
 
     mode = tp.ALL_VIDEO_MODES[MODE_NAME]
@@ -863,18 +899,22 @@ def phase_batched(tp, torch, dev, card: str, words: np.ndarray, reset_counts,
         raw_ema, raw_frames, _, _ = tp.make_batched_reconstruct_fn(raw_cfg)(
             iq_b, ema_b, ALPHA, *phases)
         raw_single = tp.make_reconstruct_fn(raw_cfg)
-        raw_ema_rel = 0.0
         for b in range(N_STREAMS):
             ph = (STREAM_PHASES[b],) if cfg.carry_phase else ()
             e1, f1, _, _ = raw_single(iq_b[b], ema_b[b], ALPHA, *ph)
-            check(bool(torch.equal(raw_frames[b], f1)),
-                  f"batched step, {label}: stream {b}'s screens equal the single-stream step's "
-                  "to the bit")
-            raw_ema_rel = max(raw_ema_rel,
-                              float((raw_ema[b] - e1).abs().max() / (e1.max() - e1.min())))
-        check(raw_ema_rel < BATCH_EMA_REL_TOL,
-              f"batched step, {label}: the EMA of the same screens matches ({raw_ema_rel:.3e})")
-        del raw_frames, raw_ema
+            check(bool(torch.equal(raw_frames[b], f1)) and bool(torch.equal(raw_ema[b], e1)),
+                  f"batched step, {label}: stream {b}'s screens and their EMA (K3's fold alone) "
+                  "equal the single-stream step's to the bit")
+        # K2 on the 144 screens and on each stream's 36: the same bits.
+        screens = raw_frames.reshape(-1, h, w)
+        whole = blanking_sync(screens, subpixel=True)
+        for b in range(N_STREAMS):
+            part = blanking_sync(raw_frames[b], subpixel=True)
+            check(all(bool(torch.equal(x[b * N_FRAMES:(b + 1) * N_FRAMES], y))
+                      for x, y in zip(whole, part)),
+                  f"batched step, {label}: K2 gives stream {b}'s frames the same bits in a batch "
+                  f"of {N_FRAMES} and of {N_STREAMS * N_FRAMES}")
+        del raw_frames, raw_ema, screens, whole
         step(iq_b, ema_b, ALPHA, *phases)          # warm: allocator, FFT plans
         reset_counts()
         ema_out, frames, sync, score = step(iq_b, ema_b, ALPHA, *phases)
@@ -891,10 +931,14 @@ def phase_batched(tp, torch, dev, card: str, words: np.ndarray, reset_counts,
               f"batched step, {label}: outputs finite, of the stated shapes, on the card")
         sync_err = ema_rel = frames_rel = 0.0
         singles = []
+        unpinned_equal = True
         for b in range(N_STREAMS):
             ph = (STREAM_PHASES[b],) if cfg.carry_phase else ()
             e1, f1, s1, c1 = single(iq_b[b], ema_b[b], ALPHA, *ph)
             singles.append((e1, f1, s1, c1))
+            unpinned_equal = unpinned_equal and all(
+                bool(torch.equal(x, y)) for x, y in
+                ((ema_out[b], e1), (frames[b], f1), (sync[b], s1), (score[b], c1)))
             sync_err = max(sync_err, float((sync[b] - s1).abs().max()))
             frames_rel = max(frames_rel, float((frames[b] - f1).abs().max() / f1.abs().max()))
             ema_rel = max(ema_rel, float((ema_out[b] - e1).abs().max() / (e1.max() - e1.min())))
@@ -909,30 +953,24 @@ def phase_batched(tp, torch, dev, card: str, words: np.ndarray, reset_counts,
             ema_p, frames_p, sync_p, _ = step(iq_b, ema_b, ALPHA, *phases)
         finally:
             poff.frame_sync_subpixel = real_sync
-        pinned_frames_rel = pinned_ema_rel = 0.0
+        pinned_equal = True
         for b, (e1, f1, s1, _) in enumerate(singles):
             check(bool(torch.equal(sync_p[b], s1)), "the pinned sync values reached the step")
-            pinned_frames_rel = max(pinned_frames_rel,
-                                    float((frames_p[b] - f1).abs().max() / f1.abs().max()))
-            pinned_ema_rel = max(pinned_ema_rel,
-                                 float((ema_p[b] - e1).abs().max() / (e1.max() - e1.min())))
+            pinned_equal = (pinned_equal and bool(torch.equal(frames_p[b], f1))
+                            and bool(torch.equal(ema_p[b], e1)))
         del singles, frames_p, ema_p
         print(f"[batched, {label}] {N_STREAMS} streams of {n} samples as int16 words "
               f"({host.nbytes / 1e6:.1f} MB in, {frames.numel() * 4 / 1e6:.1f} MB of frames out): "
-              f"1 K1 launch a step; each stream's screens equal the single-stream step's to the "
-              f"bit and their EMA to {raw_ema_rel:.3e} of range (tolerance {BATCH_EMA_REL_TOL:g}); "
-              f"after sync and alignment: sync max diff {sync_err:.3e} px (tolerance "
-              f"{SYNC_ABS_TOL:g}), aligned frames max diff {frames_rel:.3e} of the largest pixel, "
-              f"EMA max diff {ema_rel:.3e} of range (tolerance {BATCH_ALIGNED_REL_TOL:g}); with "
-              f"the single streams' sync values pinned: aligned frames {pinned_frames_rel:.3e}, "
-              f"EMA {pinned_ema_rel:.3e} (tolerance {BATCH_EMA_REL_TOL:g})")
-        check(pinned_frames_rel < BATCH_EMA_REL_TOL and pinned_ema_rel < BATCH_EMA_REL_TOL,
+              f"1 K1 launch a step; each stream's screens and their EMA equal the single-stream "
+              f"step's to the bit; after sync, alignment and the fold, sync NOT pinned: EMA, "
+              f"frames, sync and score equal to the bit: {unpinned_equal} (sync max diff "
+              f"{sync_err:.3e} px, aligned frames {frames_rel:.3e} of the largest pixel, EMA "
+              f"{ema_rel:.3e} of range); with the single streams' sync values pinned: equal to the "
+              f"bit: {pinned_equal}")
+        check(unpinned_equal, f"batched step, {label}: EMA, frames, sync and score equal the "
+                              "single streams' to the bit, sync not pinned")
+        check(pinned_equal,
               f"batched step, {label}: alignment and EMA at the single streams' sync values match")
-        check(frames_rel < BATCH_ALIGNED_REL_TOL,
-              f"batched step, {label}: aligned frames match the single streams")
-        check(sync_err < SYNC_ABS_TOL, f"batched step, {label}: sync matches the single streams")
-        check(ema_rel < BATCH_ALIGNED_REL_TOL,
-              f"batched step, {label}: EMA matches the single streams")
 
         # K1 alone on the 144 frames, as the step calls it, against its plain version.
         cuts = [poff._cut_fn(cfg)(*([p] if cfg.carry_phase else [])) for p in STREAM_PHASES]
@@ -978,12 +1016,8 @@ def phase_batched(tp, torch, dev, card: str, words: np.ndarray, reset_counts,
                 single(iq_b[b], ema_b[b], ALPHA, *ph)
 
         singles_ms = time_call(torch, four_singles, calls=10)
-        with profile(activities=profile_activities) as prof:
-            step(iq_b, ema_b, ALPHA, *phases)
-            torch.cuda.synchronize()
-        with profile(activities=profile_activities) as prof1:
-            four_singles()
-            torch.cuda.synchronize()
+        prof = profiled(torch, lambda: step(iq_b, ema_b, ALPHA, *phases), profile_activities)
+        prof1 = profiled(torch, four_singles, profile_activities)
         print(f"[batched, {label}] {batched_ms:.3f} ms a batched step beside {singles_ms:.3f} ms "
               f"for four single-stream steps (CUDA events, median of 10) = "
               f"{N_STREAMS * n / batched_ms / 1e3:.1f} Msamples/s; device time "
@@ -1347,6 +1381,7 @@ def phase_cli_and_web(tp, torch, dev, card: str, reset_counts) -> None:
 
 def phase_roofline(tp, torch, dev, card: str, words_i16) -> None:
     """Phase 16: a roofline count of one default step."""
+    from tempest_tpu_torch.ops import align_kernel, sync_kernel
     from tempest_tpu_torch.ops.resample_kernel import launch_cost
 
     cfg = slice_config(tp)
@@ -1356,15 +1391,230 @@ def phase_roofline(tp, torch, dev, card: str, words_i16) -> None:
     block = words_i16[: 2 * cfg.block_samples]
     rep = tp.roofline(step, block, ema0, ALPHA, 0.0)
     raster = (int(np.floor(cfg.samples_per_frame)), cfg.mode.height, cfg.mode.width, (h, w))
-    nbytes, flops, _ = launch_cost(cfg.block_samples, 4, N_FRAMES, *raster, True)
-    check(rep.kernel_launches == 1 and rep.kernel_bytes == nbytes and rep.kernel_flops == flops,
-          f"the roofline count holds K1's launch_cost ({rep.kernel_bytes} vs {nbytes})")
+    costs = [launch_cost(cfg.block_samples, 4, N_FRAMES, *raster, True)[:2],
+             sync_kernel.launch_cost(N_FRAMES, h, w, subpixel=True),
+             align_kernel.launch_cost(N_FRAMES, h, w, 1, cfg.align_interp, True, True)]
+    nbytes, flops = (sum(c[i] for c in costs) for i in range(2))
+    check(rep.kernel_launches == 4 and rep.kernel_bytes == nbytes and rep.kernel_flops == flops,
+          f"the roofline count holds K1's, K2's and K3's launch_cost ({rep.kernel_launches} "
+          f"launches, {rep.kernel_bytes} vs {nbytes} bytes)")
     ms = time_call(torch, lambda: step(block, ema0, ALPHA, 0.0), calls=10)
-    print(f"[roofline] one default step, int16 words: {rep.summary(ms / 1e3)}; of that K1 "
-          f"{rep.kernel_bytes / 1e6:.1f} MB and {rep.kernel_flops / 1e9:.3f} GFLOP in "
-          f"{rep.kernel_launches} launch (its launch_cost); peaks {tp.H100_PEAKS['flops_per_s'] / 1e12:g} "
+    print(f"[roofline] one default step, int16 words: {rep.summary(ms / 1e3)}; of that the "
+          f"kernels (K1, K2a, K2b, K3) {rep.kernel_bytes / 1e6:.1f} MB and "
+          f"{rep.kernel_flops / 1e9:.3f} GFLOP in {rep.kernel_launches} launches (their "
+          f"launch_cost: K1 {costs[0][0] / 1e6:.1f}, K2 {costs[1][0] / 1e6:.1f}, K3 "
+          f"{costs[2][0] / 1e6:.1f} MB); peaks {tp.H100_PEAKS['flops_per_s'] / 1e12:g} "
           f"TFLOP/s float32 and {tp.H100_PEAKS['bytes_per_s'] / 1e12:g} TB/s, on {card}")
     check(rep.bound() == "memory" and rep.bytes_accessed > nbytes, "the step is memory-bound")
+
+
+def kernels_device_ms(torch, fn, names, calls: int = 10) -> dict:
+    """Device milliseconds a call of each named kernel takes, from
+    torch.profiler over ``calls`` calls of ``fn``: the kernels alone, without
+    the host's time between launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {name: sum(evt.self_device_time_total for evt in prof.key_averages()
+                      if name in evt.key) / 1e3 / calls for name in names}
+
+
+def _circular_err(torch, a, b, n) -> float:
+    d = (a - b).abs() % n
+    return float(torch.minimum(d, n - d).max())
+
+
+def phase_sync_align(tp, torch, dev, card: str, words_i16, starts, raster) -> dict:
+    """Phase 20: K2 and K3 against their plain versions on the slice's 36
+    screens (K1 on the first block's int16 words), each timed, single fenced
+    call and back to back, beside its bound and its plain version; K3's EMA
+    beside one ``torch.tensordot`` of the same weights.  Returns what the
+    kernels line reports of them."""
+    from tempest_tpu_torch.ops import align_kernel, sync_kernel
+    from tempest_tpu_torch.ops.align_kernel import align_fold, align_fold_plain, fold_weights
+    from tempest_tpu_torch.ops.resample_kernel import frames_to_screens_from_words
+    from tempest_tpu_torch.ops.sync_kernel import blanking_sync, blanking_sync_plain
+    from tempest_tpu_torch.utils.roofline import H100_PEAKS
+
+    def bound(nbytes, flops):
+        by_bytes = 1e3 * nbytes / H100_PEAKS["bytes_per_s"]
+        by_ops = 1e3 * flops / H100_PEAKS["flops_per_s"]
+        return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations")
+
+    screens = frames_to_screens_from_words(words_i16, starts, *raster)
+    n, h, w = screens.shape
+    out = {}
+    sync = {}
+    for subpixel in (False, True):
+        label = "sub-pixel" if subpixel else "integer"
+        got = blanking_sync(screens, subpixel=subpixel)
+        ref = blanking_sync_plain(screens, subpixel=subpixel)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(t.float()).all()) and t.shape == (n,) for t in got),
+              f"K2 ({label}): finite outputs, one a frame")
+        score_rel = float(((got[2] - ref[2]).abs() / ref[2].abs()).max())
+        if subpixel:
+            err = max(_circular_err(torch, got[0], ref[0], h),
+                      _circular_err(torch, got[1], ref[1], w))
+            check(err < K2_FRAC_TOL,
+                  f"K2 sub-pixel centres within {K2_FRAC_TOL} px of plain ({err:.3e})")
+        else:
+            err = float(max((got[0] - ref[0]).abs().max(), (got[1] - ref[1]).abs().max()))
+            check(err == 0, "K2's integer centres equal its plain version's on the capture")
+        check(score_rel < K2_SCORE_REL, f"K2 ({label}) scores within {K2_SCORE_REL:g} of plain")
+        # A frame alone and in the block: the same bits.
+        for k in (0, n - 1):
+            alone = blanking_sync(screens[k:k + 1], subpixel=subpixel)
+            check(all(bool(torch.equal(a[0], b[k])) for a, b in zip(alone, got)),
+                  f"K2 ({label}) gives frame {k} the same bits alone and among {n}")
+        print(f"[K2 {label}] {n} screens of {h}x{w}: centres max diff vs plain {err:.3e} px "
+              f"(tolerance {K2_FRAC_TOL:g} sub-pixel, 0 integer), scores {score_rel:.3e} "
+              f"relative (tolerance {K2_SCORE_REL:g}); frames 0 and {n - 1} alone: the same bits")
+        sync[subpixel] = got
+        nbytes, flops = sync_kernel.launch_cost(n, h, w, subpixel=subpixel)
+        bound_ms, bound_by = bound(nbytes, flops)
+        ms = time_call(torch, lambda: blanking_sync(screens, subpixel=subpixel))
+        b2b_ms = time_back_to_back(torch, lambda: blanking_sync(screens, subpixel=subpixel))
+        plain_ms = time_call(torch, lambda: blanking_sync_plain(screens, subpixel=subpixel),
+                             calls=5)
+        dev_ms = kernels_device_ms(torch, lambda: blanking_sync(screens, subpixel=subpixel),
+                                   ("profiles_kernel", "search_kernel"))
+        device = sum(dev_ms.values())
+        check(min(dev_ms.values()) > 0, f"the profiler saw K2a and K2b on the card ({dev_ms})")
+        print(f"[K2 {label}] {ms:.4f} ms single call, {b2b_ms:.4f} ms back to back per "
+              f"{n}-frame block; device time of the kernels alone {device:.4f} ms (K2a "
+              f"{dev_ms['profiles_kernel']:.4f}, K2b {dev_ms['search_kernel']:.4f}; profiler, 10 "
+              f"calls); bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, {flops / 1e6:.1f} M "
+              f"operations, by {bound_by}), share reached {bound_ms / b2b_ms:.3f} back to back, "
+              f"{bound_ms / device:.3f} of device time; plain {plain_ms:.4f} ms, on {card}")
+        out["K2", subpixel] = dict(err=err, score_rel=score_rel, ms=ms, b2b_ms=b2b_ms,
+                                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                   device_ms=device, k2a_device_ms=dev_ms["profiles_kernel"],
+                                   k2b_device_ms=dev_ms["search_kernel"])
+
+    ema_in = screens.mean(dim=0).contiguous()
+    fold_w, big_a = fold_weights(ALPHA, n, dev)
+    for align in ("integer", "linear", "cubic", None):
+        s_y, s_x, _ = sync[align != "integer"]
+        got = align_fold(screens, s_y, s_x, ema_in, ALPHA, align)
+        ref = align_fold_plain(screens, s_y, s_x, ema_in, ALPHA, align)
+        torch.cuda.synchronize()
+        err = max(float((got[0] - ref[0]).abs().max()), float((got[1] - ref[1]).abs().max()))
+        check(bool(torch.equal(got[0], ref[0])) and bool(torch.equal(got[1], ref[1])),
+              f"K3 ({align}) equals its plain version to the bit, aligned frames and EMA")
+        lib_ref = big_a * ema_in + torch.tensordot(fold_w, ref[0], dims=1)
+        lib_rel = float((got[1] - lib_ref).abs().max() / lib_ref.abs().max())
+        check(lib_rel < K3_TENSORDOT_REL,
+              f"K3's EMA ({align}) within {K3_TENSORDOT_REL:.2e} of one tensordot ({lib_rel:.3e})")
+        print(f"[K3 {align or 'fold only'}] {n} screens: aligned frames and EMA equal to plain "
+              f"to the bit; EMA vs one torch.tensordot {lib_rel:.3e} of its largest value "
+              f"(tolerance {K3_TENSORDOT_REL:.2e})")
+        if align in ("linear", None):
+            nbytes, flops = align_kernel.launch_cost(n, h, w, 1, align, align is not None, True)
+            bound_ms, bound_by = bound(nbytes, flops)
+            ms = time_call(torch, lambda: align_fold(screens, s_y, s_x, ema_in, ALPHA, align))
+            b2b_ms = time_back_to_back(
+                torch, lambda: align_fold(screens, s_y, s_x, ema_in, ALPHA, align))
+            plain_ms = time_call(
+                torch, lambda: align_fold_plain(screens, s_y, s_x, ema_in, ALPHA, align), calls=5)
+            tensordot_ms = time_call(torch, lambda: torch.tensordot(fold_w, ref[0], dims=1))
+            device = kernels_device_ms(
+                torch, lambda: align_fold(screens, s_y, s_x, ema_in, ALPHA, align),
+                ("align_fold_kernel",))["align_fold_kernel"]
+            check(device > 0, "the profiler saw K3 on the card")
+            print(f"[K3 {align or 'fold only'}] {ms:.4f} ms single call, {b2b_ms:.4f} ms back to "
+                  f"back per {n}-frame block, the weights' torch operations included; device "
+                  f"time of the kernel alone {device:.4f} ms (profiler, 10 calls); bound "
+                  f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, by {bound_by}), share reached "
+                  f"{bound_ms / b2b_ms:.3f} back to back, {bound_ms / device:.3f} of device time; "
+                  f"plain {plain_ms:.4f} ms; one torch.tensordot of the EMA's sum alone "
+                  f"{tensordot_ms:.4f} ms, on {card}")
+            out["K3", align] = dict(err=err, lib_rel=lib_rel, ms=ms, b2b_ms=b2b_ms,
+                                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                                    tensordot_ms=tensordot_ms, device_ms=device)
+    return out
+
+
+def phase_step_split(tp, torch, dev, card: str, words_i16, activities) -> None:
+    """Phase 21: the default step on the card's int16 words, stage by stage
+    with CUDA events (demod and K1 in one launch, K2, K3 with its weights),
+    and the whole step's device time and kernels with the kernels and with
+    their plain versions in their place, in turns."""
+    from torch.profiler import profile
+
+    from tempest_tpu_torch.ops.align_kernel import align_fold, align_fold_plain
+    from tempest_tpu_torch.ops.resample_kernel import frames_to_screens_from_words
+    from tempest_tpu_torch.ops.sync_kernel import blanking_sync, blanking_sync_plain
+    from tempest_tpu_torch.pipeline import offline as poff
+
+    cfg = slice_config(tp)
+    mode = cfg.mode
+    spf = cfg.samples_per_frame
+    raster = (int(np.floor(spf)), mode.height, mode.width, cfg.render_size)
+    block = words_i16[: 2 * cfg.block_samples]
+    starts = torch.from_numpy(poff.carry_phase_starts(0.0, spf, N_FRAMES)).to(dev)
+    ema0 = torch.zeros(cfg.render_size, dtype=torch.float32, device=dev)
+    routes = {
+        "kernels": (lambda s: blanking_sync(s, subpixel=True), align_fold),
+        "plain": (lambda s: blanking_sync_plain(s, subpixel=True), align_fold_plain),
+    }
+
+    def stages(route):
+        sync_fn, fold_fn = routes[route]
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        events[0].record()
+        screens = frames_to_screens_from_words(block, starts, *raster)
+        events[1].record()
+        s_y, s_x, _ = sync_fn(screens)
+        events[2].record()
+        fold_fn(screens, s_y, s_x, ema0, ALPHA, cfg.align_interp)
+        events[3].record()
+        torch.cuda.synchronize()
+        return [events[i].elapsed_time(events[i + 1]) for i in range(3)]
+
+    step = tp.make_reconstruct_fn(cfg, dev)
+
+    def with_route(route, fn):
+        sync_fn, fold_fn = routes[route]
+        real = poff.frame_sync_subpixel, poff.align_fold
+        poff.frame_sync_subpixel, poff.align_fold = sync_fn, fold_fn
+        try:
+            return fn()
+        finally:
+            poff.frame_sync_subpixel, poff.align_fold = real
+
+    results = {route: {"split": [], "ms": [], "device": [], "kernels": []} for route in routes}
+    for route in ("kernels", "plain", "plain", "kernels"):
+        r = results[route]
+        stages(route)
+        r["split"].append(np.median([stages(route) for _ in range(10)], axis=0))
+        r["ms"].append(with_route(route, lambda: time_call(
+            torch, lambda: step(block, ema0, ALPHA, 0.0), calls=10)))
+        with profile(activities=activities) as prof:
+            with_route(route, lambda: [step(block, ema0, ALPHA, 0.0) for _ in range(3)])
+            torch.cuda.synchronize()
+        r["device"].append(device_ms(prof) / 3)
+        r["kernels"].append(kernel_count(prof) / 3)
+    kernels_ema = step(block, ema0, ALPHA, 0.0)[0]
+    plain_ema = with_route("plain", lambda: step(block, ema0, ALPHA, 0.0)[0])
+    torch.cuda.synchronize()
+    ema_rel = float((kernels_ema - plain_ema).abs().max() / (plain_ema.max() - plain_ema.min()))
+    for route, r in results.items():
+        split = " / ".join(f"{a:.4f} {b:.4f}" for a, b in zip(*r["split"]))
+        print(f"[step split, {route}] demod+K1 / sync / align+EMA, ms, CUDA events, median of 10, "
+              f"two turns: {split}; whole step {r['ms'][0]:.3f} {r['ms'][1]:.3f} ms wall clock "
+              f"(median of 10); device time {r['device'][0]:.4f} {r['device'][1]:.4f} ms in "
+              f"{r['kernels'][0]:.0f} {r['kernels'][1]:.0f} kernels a step (profiler, 3 steps), "
+              f"on {card}")
+    print(f"[step split] the step's EMA through the kernels vs through their plain versions: "
+          f"{ema_rel:.3e} of its range (the sub-pixel fractions' summation order)")
+    check(ema_rel < EMA_REL_TOL, "the step's EMA through the kernels matches the plain route")
 
 
 class LoopSource:
@@ -1446,8 +1696,10 @@ def phase_mesh_one_card(tp, torch, dev, card: str, reset_counts, loop, truth, ac
     import torch.distributed as dist
     from torch.profiler import profile
 
+    from tempest_tpu_torch.ops.align_kernel import align_fold
     from tempest_tpu_torch.ops.resample_kernel import frames_to_screens, \
         frames_to_screens_from_words
+    from tempest_tpu_torch.ops.sync_kernel import blanking_sync
     from tempest_tpu_torch.parallel import distributed
     from tempest_tpu_torch.parallel.mesh import ProcessGroupCollectives
     from tempest_tpu_torch.runtime.stream import frames_per_window
@@ -1474,10 +1726,13 @@ def phase_mesh_one_card(tp, torch, dev, card: str, reset_counts, loop, truth, ac
             tp, tp.MeshStreamingRuntime, LoopSource(loop, block, MESH_DISPATCHES + 1), mode,
             MESH_DISPATCHES, mesh, **options)
         launches = frames_to_screens_from_words.launches_by_variant[variant]
+        k2_k3 = (blanking_sync.launches, align_fold.launches)
         traffic = dict(mesh.comm.nbytes)
         check(launches == n_spans and frames_to_screens_from_words.launches == n_spans
               and frames_to_screens.launches == 0,
               f"K1's fused entry launched once a shard a dispatch ({launches} for {n_spans})")
+        check(k2_k3 == ((0 if chain == "fidelity" else 2 * n_spans), n_spans),
+              f"K2 twice and K3 once a shard a dispatch, K2 not with fidelity ({k2_k3})")
         check(rt.config == srt.config and rt._n_frames == N_FRAMES
               and ema.dispatched == MESH_DISPATCHES, "the mesh chain is the single-device chain")
         equal = (bool(np.array_equal(ema, ema1)) and bool(torch.equal(frames, frames1))
@@ -1487,9 +1742,10 @@ def phase_mesh_one_card(tp, torch, dev, card: str, reset_counts, loop, truth, ac
         print(f"[mesh, {chain}] {MESH_SHARDS} shards of {S} samples on one card, "
               f"{MESH_DISPATCHES} dispatches ({MESH_DISPATCHES + 1} ring blocks of {block} "
               f"samples, the capture replayed in a loop of {len(loop)}): {frames.shape[0]} frames, "
-              f"EMA, frames and sync equal to the single-device runtime's on {n_spans} blocks of "
-              f"{S}: {equal} (EMA max diff {ema_diff:.3e}); K1 launches {launches} (single "
-              f"device: {single_launches}); through process_blocks {1e3 * seconds:.1f} ms, "
+              f"EMA, frames and sync equal to the bit to the single-device runtime's on {n_spans} "
+              f"blocks of {S}: {equal} (EMA max diff {ema_diff:.3e}); K1 launches {launches} "
+              f"(single device: {single_launches}), K2 {k2_k3[0]}, K3 {k2_k3[1]}; through "
+              f"process_blocks {1e3 * seconds:.1f} ms, "
               f"{1e3 * seconds / MESH_DISPATCHES:.1f} ms a dispatch incl. ring copy and uploads "
               f"(single device: {1e3 * s1 / n_spans:.1f} ms a block); collectives' bytes a "
               f"run {traffic}; aligned PSNR {db:.3f} dB (bar {bar} dB)")
@@ -1859,9 +2115,11 @@ def main(argv: list[str] | None = None) -> int:
     import tempest_tpu_torch as tp
     from tempest_tpu_torch import _build
     from tempest_tpu_torch.ops import resample_kernel
+    from tempest_tpu_torch.ops.align_kernel import align_fold
     from tempest_tpu_torch.ops.resample_kernel import (
         frame_to_screen, frames_to_screens, frames_to_screens_from_words,
         frames_to_screens_plain, screen_geometry)
+    from tempest_tpu_torch.ops.sync_kernel import blanking_sync
     from tempest_tpu_torch.pipeline import offline as poff
 
     from torch.autograd import DeviceType
@@ -1874,6 +2132,9 @@ def main(argv: list[str] | None = None) -> int:
         for wrapper in (frames_to_screens, frames_to_screens_from_words):
             wrapper.launches = 0
             wrapper.launches_by_variant.clear()
+        blanking_sync.launches = 0
+        align_fold.launches = 0
+        align_fold.launches_by_mode.clear()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1882,11 +2143,14 @@ def main(argv: list[str] | None = None) -> int:
 
     # ---- 1. build
     t0 = time.perf_counter()
-    lib = _build.load_library("resample")
-    print(f"[build] {Path(lib.path).name} in {time.perf_counter() - t0:.2f} s")
-    for line in lib.build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"[build] {line.strip()}")
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        libs = dict(zip(KERNEL_SOURCES, pool.map(_build.load_library, KERNEL_SOURCES)))
+    print(f"[build] {', '.join(Path(lib.path).name for lib in libs.values())} in "
+          f"{time.perf_counter() - t0:.2f} s, one nvcc a source, all started together")
+    for name, lib in libs.items():
+        for line in lib.build_log.splitlines():
+            if "Compiling" in line or "registers" in line or "spill" in line or "smem" in line:
+                print(f"[build] {name}: {line.strip()}")
 
     cfg = slice_config(tp)
     mode = cfg.mode
@@ -2048,6 +2312,9 @@ def main(argv: list[str] | None = None) -> int:
               f"back (the demod alone {demod_ms:.4f}), against the fused entry's "
               f"{measured[name]['b2b_ms']:.4f}, on {card}")
 
+    # ---- 20. K2 and K3 against their plain versions at the slice's shapes
+    sync_align = phase_sync_align(tp, torch, dev, card, words_i16, starts, raster)
+
     # ---- 3. the slice end to end through the streaming runtime
     demod_calls = []
     demodulate = poff.demodulate
@@ -2060,6 +2327,11 @@ def main(argv: list[str] | None = None) -> int:
     reset_counts()
     ema_gpu, sync_gpu, out_devices, seconds = run_runtime(tp, blocks, mode, dev)
     fused_launches = frames_to_screens_from_words.launches
+    k2_launches, k3_launches = blanking_sync.launches, align_fold.launches
+    check(0 < k2_launches <= 2 * fused_launches
+          and k3_launches == align_fold.launches_by_mode["linear", True] == fused_launches,
+          f"K2 launched twice a block at most ({k2_launches}) and K3 once a block, aligning and "
+          f"folding ({dict(align_fold.launches_by_mode)}), over {fused_launches} blocks")
     check(fused_launches >= N_BLOCKS,
           f"the fused entry launched for every block ({fused_launches})")
     check(frames_to_screens.launches == 0 and not demod_calls,
@@ -2071,7 +2343,8 @@ def main(argv: list[str] | None = None) -> int:
           "final EMA finite, of the screen's shape")
     print(f"[runtime] {N_BLOCKS} blocks through process_blocks in {seconds:.3f} s "
           f"({1e3 * seconds / N_BLOCKS:.2f} ms per block incl. ring copy and upload), "
-          f"fused K1 launches {fused_launches}, separate demod passes 0")
+          f"fused K1 launches {fused_launches}, K2 launches {k2_launches}, K3 launches "
+          f"{k3_launches}, separate demod passes 0")
 
     t0 = time.perf_counter()
     ema_cpu, sync_cpu, _, _ = run_runtime(tp, blocks, mode, "cpu")
@@ -2211,6 +2484,11 @@ def main(argv: list[str] | None = None) -> int:
     fid_gpu, fid_sync, fid_devices, seconds = run_runtime(tp, blocks, mode, dev, fidelity=True)
     poff.demodulate = demodulate
     fidelity_launches = frames_to_screens_from_words.launches_by_variant[2, True]
+    fidelity_folds = align_fold.launches_by_mode[None, True]
+    check(blanking_sync.launches == 0
+          and fidelity_folds == align_fold.launches == fidelity_launches,
+          f"the fidelity chain runs no sync and K3's fold alone once a block "
+          f"({dict(align_fold.launches_by_mode)}, K2 {blanking_sync.launches})")
     check(fidelity_launches >= N_BLOCKS
           and frames_to_screens_from_words.launches == fidelity_launches
           and frames_to_screens.launches == 0 and not demod_calls,
@@ -2222,7 +2500,7 @@ def main(argv: list[str] | None = None) -> int:
           "fidelity EMA finite, of the screen's shape, sync stage skipped")
     print(f"[fidelity runtime] {N_BLOCKS} blocks through process_blocks in {seconds:.3f} s "
           f"({1e3 * seconds / N_BLOCKS:.2f} ms per block incl. ring copy and upload), K1 "
-          f"launches with residuals {fidelity_launches}")
+          f"launches with residuals {fidelity_launches}, K3 folds {fidelity_folds}, K2 0")
     t0 = time.perf_counter()
     fid_cpu, _, _, _ = run_runtime(tp, blocks, mode, "cpu", fidelity=True)
     fid_rel = float(np.abs(fid_gpu - fid_cpu).max()) / float(fid_cpu.max() - fid_cpu.min())
@@ -2386,6 +2664,10 @@ def main(argv: list[str] | None = None) -> int:
         print(f"[profile] {name}, int16 words: device time {device_ms(prof) / 3:.4f} ms per step")
         print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
 
+    # ---- 21. the default step stage by stage, with the kernels and with their
+    # plain versions in their place
+    phase_step_split(tp, torch, dev, card, words_i16, activities)
+
     def kernel_entry(name, key, launches):
         m = key if isinstance(key, dict) else measured[key]
         return {
@@ -2452,6 +2734,42 @@ def main(argv: list[str] | None = None) -> int:
         kernel_entry("K1 frames_to_screens, quantised table (envelope, the mxu names)",
                      named["quantised"], named["quantised"]["launches"]),
     ]
+    # K2 and K3, timed at the slice's 36 screens of 600x800 (phase 20); their
+    # launches are the runtime's over its 3 blocks (phase 3) and the fidelity
+    # runtime's (phase 6).  No single PyTorch call computes either function:
+    # library_ms is null; K3's entry also gives one torch.tensordot of the
+    # EMA's weighted sum alone.
+    for key, name, source, replaces, launches, extra in (
+            (("K2", True), "K2 blanking_sync, sub-pixel (K2a profiles + K2b search)",
+             "tempest_tpu_torch/csrc/sync.cu", "tempest_tpu/ops/framesync.py:239", k2_launches,
+             {"integer_ms": sync_align["K2", False]["ms"],
+              "integer_back_to_back_ms": sync_align["K2", False]["b2b_ms"],
+              "integer_plain_ms": sync_align["K2", False]["plain_ms"],
+              "integer_max_abs_err": sync_align["K2", False]["err"]}),
+            (("K3", "linear"), "K3 align_fold, linear alignment with the EMA fold",
+             "tempest_tpu_torch/csrc/align_ema.cu",
+             "tempest_tpu/ops/framesync.py:302 and tempest_tpu/pipeline/offline.py:664",
+             k3_launches,
+             {"fold_only_launches_fidelity": fidelity_folds,
+              "fold_only_ms": sync_align["K3", None]["ms"],
+              "fold_only_back_to_back_ms": sync_align["K3", None]["b2b_ms"],
+              "fold_only_plain_ms": sync_align["K3", None]["plain_ms"],
+              "fold_only_bound_ms": sync_align["K3", None]["bound_ms"],
+              "fold_only_device_ms": sync_align["K3", None]["device_ms"]})):
+        m = sync_align[key]
+        entry = {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": m["err"], "ms": m["ms"],
+            "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": None, "back_to_back_ms": m["b2b_ms"], "device_ms": m["device_ms"],
+        }
+        if key[0] == "K2":
+            entry.update(score_max_rel_err=m["score_rel"], k2a_device_ms=m["k2a_device_ms"],
+                         k2b_device_ms=m["k2b_device_ms"])
+        else:
+            entry.update(tensordot_ema_ms=m["tensordot_ms"], tensordot_ema_rel_err=m["lib_rel"])
+        entry.update(extra)
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

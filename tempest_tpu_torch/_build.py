@@ -36,6 +36,16 @@ SIGNATURES = {
             [_P, _LL, _I, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
             ctypes.c_int),
     },
+    "sync": {
+        "tt_blanking_sync": (
+            [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P],
+            ctypes.c_int),
+    },
+    "align_ema": {
+        "tt_align_fold": (
+            [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+            ctypes.c_int),
+    },
 }
 
 

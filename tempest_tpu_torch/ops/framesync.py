@@ -14,7 +14,13 @@ Every function takes a leading frame axis written out ([F, n] profiles,
 of the large-magnitude prefix corrupted the argmax in the JAX package.  The
 registration is the roll form of the JAX package (``align_frame_subpixel``);
 its circulant-matmul form is the same math up to f32 reassociation and has
-no counterpart here.  All of it is plain torch in this version.
+no counterpart here.
+
+On the CPU every function here is plain torch.  On a CUDA tensor
+``frame_sync`` and ``frame_sync_subpixel`` launch K2 (``ops.sync_kernel``),
+and ``align_frame`` and ``align_frame_subpixel`` launch K3
+(``ops.align_kernel``) without its EMA: every caller on the card goes through
+the kernels.  The plain versions of the four are the ones below on the CPU.
 """
 
 from __future__ import annotations
@@ -193,11 +199,9 @@ def frame_sync(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Integer (row, column) blanking position of each frame of [F, h, w]:
     ``(s_y, s_x, score)``, each [F]; score sums both axes' best contrasts."""
-    _, h, w = frames.shape
-    row_p, col_p = _profiles(frames)
-    s_y, score_y = find_blank(row_p, sync_spec_for_axis(h, y_min_frac), method)
-    s_x, score_x = find_blank(col_p, sync_spec_for_axis(w, x_min_frac), method)
-    return s_y.to(torch.int32), s_x.to(torch.int32), score_y + score_x
+    from .sync_kernel import blanking_sync
+
+    return blanking_sync(frames, y_min_frac, x_min_frac, method, subpixel=False)
 
 
 def frame_sync_subpixel(
@@ -208,11 +212,9 @@ def frame_sync_subpixel(
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """:func:`frame_sync` with parabolic sub-pixel refinement on both axes:
     float32 ``(s_y, s_x, score)``, each [F]."""
-    _, h, w = frames.shape
-    row_p, col_p = _profiles(frames)
-    s_y, score_y = find_blank_subpixel(row_p, sync_spec_for_axis(h, y_min_frac), method)
-    s_x, score_x = find_blank_subpixel(col_p, sync_spec_for_axis(w, x_min_frac), method)
-    return s_y, s_x, score_y + score_x
+    from .sync_kernel import blanking_sync
+
+    return blanking_sync(frames, y_min_frac, x_min_frac, method, subpixel=True)
 
 
 def _take_rows(frames: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -229,10 +231,18 @@ def _take_cols(frames: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return torch.gather(frames, 2, idx[:, None, :].expand(f, h, w))
 
 
+def _align_frame_plain(frames: torch.Tensor, s_y: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
+    return _take_cols(_take_rows(frames, s_y.to(torch.int64)), s_x.to(torch.int64))
+
+
 def align_frame(frames: torch.Tensor, s_y: torch.Tensor, s_x: torch.Tensor) -> torch.Tensor:
     """Roll each frame's blanking position to the image border
     (``circshift(image, (-s_y, -s_x))``) for integer [F] offsets."""
-    return _take_cols(_take_rows(frames, s_y.to(torch.int64)), s_x.to(torch.int64))
+    if frames.device.type == "cpu":
+        return _align_frame_plain(frames, s_y, s_x)
+    from .align_kernel import align_fold
+
+    return align_fold(frames, s_y, s_x, align="integer")[0]
 
 
 def _interp_weights(f: torch.Tensor, interp: str):
@@ -265,6 +275,11 @@ def _roll_frac(frames: torch.Tensor, s: torch.Tensor, axis: int, interp: str) ->
     return out
 
 
+def _align_frame_subpixel_plain(frames: torch.Tensor, s_y: torch.Tensor, s_x: torch.Tensor,
+                                interp: str) -> torch.Tensor:
+    return _roll_frac(_roll_frac(frames, s_y, 1, interp), s_x, 2, interp)
+
+
 def align_frame_subpixel(
     frames: torch.Tensor,
     s_y: torch.Tensor,
@@ -273,4 +288,10 @@ def align_frame_subpixel(
 ) -> torch.Tensor:
     """:func:`align_frame` for fractional [F] offsets: separable circular
     shift with linear or cubic interpolation, rows first."""
-    return _roll_frac(_roll_frac(frames, s_y, 1, interp), s_x, 2, interp)
+    if interp not in ("linear", "cubic"):
+        raise ValueError(f"align interp must be 'linear' or 'cubic', got {interp!r}")
+    if frames.device.type == "cpu":
+        return _align_frame_subpixel_plain(frames, s_y, s_x, interp)
+    from .align_kernel import align_fold
+
+    return align_fold(frames, s_y, s_x, align=interp)[0]

@@ -16,16 +16,18 @@ the first shard's device of this process.
 non-overlapping spans of S samples.  Each shard reconstructs the frames that
 start in its span from its span plus a *halo*, the head of the next span
 (``from_next``; the JAX package's ``ppermute``), with the port's
-single-device chain: AM demod inside K1's load, K1, sub-pixel sync and
-alignment (or exact cuts with the residuals in K1).  So K1 runs once on every
-shard.  The exponential average is a linear recurrence ``e' = α e + (1-α)
-f``: a span of F frames acts on the carried image as ``e' = A e + B`` with
-``A = α^F`` and ``B`` the span's EMA from zero.  Each shard computes its
-``B``, one ``all_gather`` brings them together, and the fold ``e_d = A·e_{d-1}
-+ B_d`` runs in time order.  ``A`` is the float32 tensor power that
-``pipeline.offline.ema_fold`` takes and ``B`` what it returns from a zero
-image, so a mesh step is the same float32 arithmetic as the single-device
-step on blocks of S samples, span by span: equal to the bit.
+single-device chain: AM demod inside K1's load, K1, sub-pixel sync (K2) and
+alignment fused with the fold (K3), or exact cuts with the residuals in K1
+and K3's fold alone.  So each kernel runs once on every shard.  The
+exponential average is a linear recurrence ``e' = α e + (1-α) f``: a span of
+F frames acts on the carried image as ``e' = A e + B`` with ``A = α^F`` and
+``B`` the span's EMA from zero.  Each shard computes its ``B``, one
+``all_gather`` brings them together, and the fold ``e_d = A·e_{d-1} + B_d``
+runs in time order.  ``A`` is the float32 tensor power that K3's fold takes
+(``ops.align_kernel.fold_weights``) and ``B`` what K3's fold returns from a
+zero image: its sum over the span's frames, which the single-device step
+adds to ``A·e``.  So a mesh step is the same float32 arithmetic as the
+single-device step on blocks of S samples, span by span: equal to the bit.
 
 **Candidate shards.**  Each shard scores its slice of the candidate modes on
 the same envelope: one K1 launch per candidate with that candidate's line
@@ -67,12 +69,11 @@ from ..ops.scan import (
 from ..pipeline.offline import (
     ReconstructionConfig,
     _check_supported,
+    _process_and_fold,
     demodulate,
-    ema_fold,
     fuses_demod,
     make_batched_reconstruct_fn,
     make_reconstruct_fn,
-    process_frames,
 )
 from ..utils.device import as_tensor
 from ..video.modes import VideoMode
@@ -175,14 +176,15 @@ def _words_per_sample(config: ReconstructionConfig) -> int:
     return 2 if config.input_format == "iq_interleaved" else 1
 
 
-def _span_frames(config, ext, starts):
+def _span_frames(config, ext, starts, alpha):
     """The single-device chain on one shard's window at int32 frame
-    ``starts``: (frames, sync, score)."""
+    ``starts``, folded from a zero image: (B, frames, sync, score)."""
     frame_len = int(np.floor(config.samples_per_frame))
     fstarts = torch.from_numpy(starts).to(ext.device)
     from_words = fuses_demod(config, ext)
-    return process_frames(ext if from_words else demodulate(ext, config), fstarts, config,
-                          frame_len, from_words=from_words)
+    zero = torch.zeros(config.render_size, dtype=torch.float32, device=ext.device)
+    return _process_and_fold(ext if from_words else demodulate(ext, config), fstarts, config,
+                             frame_len, zero, alpha, from_words=from_words)
 
 
 def _grid_span(config, ext, d: int, S: int, alpha):
@@ -195,14 +197,13 @@ def _grid_span(config, ext, d: int, S: int, alpha):
     phase = (-(d * S)) % spf
     starts = np.floor(phase + spf * np.arange(config.n_frames, dtype=np.float64)
                       + 0.5).astype(np.int32)
-    frames, sync, score = _span_frames(config, ext, starts)
-    return ema_fold(torch.zeros_like(frames[0]), frames, alpha), frames, sync, score
+    return _span_frames(config, ext, starts, alpha)
 
 
 def _ema_combine(mesh: Mesh, axis: str, b_parts, ema, alpha, n_frames: int) -> torch.Tensor:
     """The associative EMA combine: gather every span's ``B`` and fold
     ``e_d = A·e_{d-1} + B_d`` in time order on ``mesh.device``, with ``A``
-    the float32 tensor power of ``ema_fold``."""
+    the float32 tensor power of K3's fold."""
     b_all = mesh.comm.all_gather(b_parts, axis)[0]
     a = torch.as_tensor(alpha, dtype=torch.float32, device=mesh.device)
     big_a = a ** n_frames

@@ -33,16 +33,19 @@ Stage 2, one step on a block of I/Q:
    names go through K1 with the line fractions quantised to ``num_phases``
    levels and, where the JAX formulation rounds the envelope to bfloat16,
    with that rounding as one elementwise pass first;
-4. finds each frame's sub-pixel blanking position and
-5. aligns the frame by a fractional circular shift (``ops.framesync``);
-6. folds the frames into the carried EMA image (``ema_fold``).
+4. finds each frame's sub-pixel blanking position: on the card with K2
+   (``ops.sync_kernel``), two launches for all frames of the block;
+5. aligns the frame by a fractional circular shift and
+6. folds the frames into the carried EMA image: 5 and 6 in ONE launch of K3
+   (``ops.align_kernel.align_fold``), which writes the aligned frames and the
+   new EMA; ``ema_fold`` is its fold alone, the fidelity chain's route.
 
 ``step(iq, ema, alpha[, phase]) -> (ema, frames, sync, score)`` runs
 eagerly on the device it was built for (the CUDA card unless the caller
 names another); there is no jit and no vmap.
 ``make_batched_reconstruct_fn`` serves B streams in one step: their blocks
 are one contiguous buffer, and all B·F frames go through ONE K1 launch, one
-sync and one alignment.
+K2 call and one K3 launch, which folds each stream into its own EMA.
 
 Frame positions.  The K1 routes compute exact-cut starts and residuals in
 float64 on the host and hand K1 int32 starts and float32 residuals: at 36
@@ -92,12 +95,8 @@ from ..ops.demod import (
 )
 from ..ops.combine import CombineResult, _combine_on_device
 from ..ops.enhance import restore_image
-from ..ops.framesync import (
-    align_frame,
-    align_frame_subpixel,
-    frame_sync,
-    frame_sync_subpixel,
-)
+from ..ops.align_kernel import align_fold
+from ..ops.framesync import frame_sync, frame_sync_subpixel
 from ..ops.resample import (
     RENDER_SIZE,
     frames_to_screens_fft,
@@ -466,6 +465,64 @@ def fuses_demod(config: ReconstructionConfig, iq: torch.Tensor) -> bool:
             and iq.dtype in (torch.int16, torch.float32))
 
 
+def _screens(
+    env: torch.Tensor,
+    frame_starts: torch.Tensor,
+    config: ReconstructionConfig,
+    frame_len: int,
+    from_words: bool,
+    frac_offsets: torch.Tensor | None,
+) -> torch.Tensor:
+    """Stage 3: the [F, h, w] screens of one block's frames."""
+    mode = config.mode
+    raster = (frame_len, mode.height, mode.width, config.render_size)
+    how = RESAMPLERS[config.resampler]
+    if how.route == "gather":
+        return frames_to_screens_gather(env, frame_starts, *raster, frac_offsets)
+    if how.route == "fft":
+        return frames_to_screens_fft(env, frame_starts, *raster)
+    if how.bf16_envelope:
+        env = round_to_bfloat16(env)
+    # A residual moves every position of its frame, so the quantised
+    # line table does not apply to an exact cut: K1 takes it unquantised.
+    quantise = ({"num_phases": config.num_phases}
+                if how.quantised and frac_offsets is None else {})
+    resample = frames_to_screens_from_words if from_words else frames_to_screens
+    return resample(env, frame_starts, *raster, frac_offsets,
+                    config.interp_taps if how.takes_taps else 2, **quantise)
+
+
+def _sync_align_fold(
+    screens: torch.Tensor,
+    config: ReconstructionConfig,
+    ema: torch.Tensor | None,
+    alpha,
+    n_streams: int,
+):
+    """Stages 4-6 on [B·F, h, w] screens: (ema' or None, frames, sync [B·F,
+    2], score [B·F]).  The sync is K2 on the card; alignment and the fold are
+    ONE call of K3's entry (``align_fold``), alignment alone without ``ema``;
+    without ``do_align`` the same entry only folds.  So every route (single
+    step, batched step, a mesh's spans; default and fidelity chains) folds
+    through the same arithmetic."""
+    screens = screens.contiguous()
+    n = screens.shape[0]
+    if not config.do_align:
+        frames, ema_out = ((screens, None) if ema is None
+                           else align_fold(screens, ema=ema, alpha=alpha, align=None,
+                                           n_streams=n_streams))
+        return (ema_out, frames, torch.zeros((n, 2), dtype=torch.int32, device=screens.device),
+                torch.zeros(n, dtype=torch.float32, device=screens.device))
+    if config.align_subpixel:
+        s_y, s_x, score = frame_sync_subpixel(screens)
+        align = config.align_interp
+    else:
+        s_y, s_x, score = frame_sync(screens)
+        align = "integer"
+    frames, ema_out = align_fold(screens, s_y, s_x, ema, alpha, align, n_streams)
+    return ema_out, frames, torch.stack([s_y, s_x], dim=1), score
+
+
 def process_frames(
     env: torch.Tensor,
     frame_starts: torch.Tensor,
@@ -479,43 +536,35 @@ def process_frames(
     ``env`` is the block's interleaved I/Q words instead and K1 takes their
     AM envelope itself.  ``frac_offsets`` (per frame, in [0, 1)) are the
     residuals of sub-sample-exact cuts (``config.subsample_align``)."""
-    mode = config.mode
-    raster = (frame_len, mode.height, mode.width, config.render_size)
-    how = RESAMPLERS[config.resampler]
-    if how.route == "gather":
-        screens = frames_to_screens_gather(env, frame_starts, *raster, frac_offsets)
-    elif how.route == "fft":
-        screens = frames_to_screens_fft(env, frame_starts, *raster)
-    else:
-        if how.bf16_envelope:
-            env = round_to_bfloat16(env)
-        # A residual moves every position of its frame, so the quantised
-        # line table does not apply to an exact cut: K1 takes it unquantised.
-        quantise = ({"num_phases": config.num_phases}
-                    if how.quantised and frac_offsets is None else {})
-        resample = frames_to_screens_from_words if from_words else frames_to_screens
-        screens = resample(env, frame_starts, *raster, frac_offsets,
-                           config.interp_taps if how.takes_taps else 2, **quantise)
-    if config.do_align and config.align_subpixel:
-        s_y, s_x, score = frame_sync_subpixel(screens)
-        aligned = align_frame_subpixel(screens, s_y, s_x, config.align_interp)
-        return aligned, torch.stack([s_y, s_x], dim=1), score
-    if config.do_align:
-        s_y, s_x, score = frame_sync(screens)
-        return align_frame(screens, s_y, s_x), torch.stack([s_y, s_x], dim=1), score
-    n = screens.shape[0]
-    return (screens, torch.zeros((n, 2), dtype=torch.int32, device=env.device),
-            torch.zeros(n, dtype=torch.float32, device=env.device))
+    screens = _screens(env, frame_starts, config, frame_len, from_words, frac_offsets)
+    return _sync_align_fold(screens, config, None, None, 1)[1:]
+
+
+def _process_and_fold(
+    env: torch.Tensor,
+    frame_starts: torch.Tensor,
+    config: ReconstructionConfig,
+    frame_len: int,
+    ema: torch.Tensor,
+    alpha,
+    n_streams: int = 1,
+    from_words: bool = False,
+    frac_offsets: torch.Tensor | None = None,
+):
+    """:func:`process_frames` with the fold: (ema', frames, sync, score) of
+    ``n_streams`` streams' frames laid out stream-major, ``ema`` [B, h, w]
+    (or [h, w] for one stream).  Equals ``ema_fold`` of each stream's
+    frames, to the bit."""
+    screens = _screens(env, frame_starts, config, frame_len, from_words, frac_offsets)
+    return _sync_align_fold(screens, config, ema.contiguous(), alpha, n_streams)
 
 
 def ema_fold(ema: torch.Tensor, frames: torch.Tensor, alpha) -> torch.Tensor:
     """EMA over the frame axis (``image = α·image + (1-α)·frame`` per frame)
-    in closed form: ``α^F · ema + (1-α) · Σ_n α^(F-1-n) · frame_n``."""
-    n = frames.shape[0]
-    a = torch.as_tensor(alpha, dtype=torch.float32, device=frames.device)
-    k = torch.arange(n - 1, -1, -1, dtype=torch.float32, device=frames.device)
-    w = (1.0 - a) * a ** k
-    return a ** n * ema + torch.tensordot(w, frames, dims=1)
+    in closed form: ``α^F · ema + (1-α) · Σ_n α^(F-1-n) · frame_n``, the sum
+    taken in frame order (``ops.align_kernel``): K3's fold on the card, its
+    plain version on the CPU."""
+    return align_fold(frames, ema=ema, alpha=alpha, align=None)[1]
 
 
 def carry_phase_starts(phase: float, spf: float, n_frames: int) -> np.ndarray:
@@ -596,10 +645,9 @@ def make_reconstruct_fn(config: ReconstructionConfig, device: torch.device | str
         fstarts = torch.from_numpy(starts).to(device)
         frac_offsets = None if fracs is None else torch.from_numpy(fracs).to(device)
         from_words = fuses_demod(config, iq)
-        frames, sync, score = process_frames(
-            iq if from_words else demodulate(iq, config), fstarts, config, frame_len,
+        return _process_and_fold(
+            iq if from_words else demodulate(iq, config), fstarts, config, frame_len, ema, alpha,
             from_words=from_words, frac_offsets=frac_offsets)
-        return ema_fold(ema, frames, alpha), frames, sync, score
 
     if config.carry_phase:
 
@@ -646,8 +694,10 @@ def make_batched_reconstruct_fn(config: ReconstructionConfig, fuse: bool | None 
     The B blocks are ONE contiguous buffer and stream b's frame starts are
     offset by b·(samples per block), so all B·F frames go through one K1
     launch (the fused words entry where ``fuses_demod`` says so, else one
-    demodulation per stream and the envelope entry), one sync and one
-    alignment over the B·F screens; the EMA folds per stream.  Each stream's
+    demodulation per stream and the envelope entry), one sync over the B·F
+    screens and one K3 launch that aligns them and folds each stream's frames
+    into its EMA, in the single step's order: each stream's EMA is the
+    single-stream step's to the bit.  Each stream's
     frames equal the single-stream step's: where a stream's last frame, or
     the tap before its first, would read past its own block (a read the
     single-stream kernel clamps), the buffer is first laid out with each
@@ -710,16 +760,11 @@ def make_batched_reconstruct_fn(config: ReconstructionConfig, fuse: bool | None 
         offsets = np.arange(n_streams, dtype=np.int64)[:, None] * n_block + front
         fstarts = torch.from_numpy((starts + offsets).reshape(-1).astype(np.int32)).to(device)
         frac_offsets = None if fracs is None else torch.from_numpy(fracs).to(device)
-        frames, sync, score = process_frames(
-            buf.reshape(-1), fstarts, config, frame_len, from_words=from_words,
-            frac_offsets=frac_offsets)
-        frames = frames.reshape(n_streams, n_frames, h, w)
-        a = torch.as_tensor(alpha, dtype=torch.float32, device=device)
-        k = torch.arange(n_frames - 1, -1, -1, dtype=torch.float32, device=device)
-        wgt = (1.0 - a) * a ** k
-        ema_out = a ** n_frames * ema_b + torch.einsum("f,bfhw->bhw", wgt, frames)
-        return (ema_out, frames, sync.reshape(n_streams, n_frames, 2),
-                score.reshape(n_streams, n_frames))
+        ema_out, frames, sync, score = _process_and_fold(
+            buf.reshape(-1), fstarts, config, frame_len, ema_b, alpha, n_streams,
+            from_words=from_words, frac_offsets=frac_offsets)
+        return (ema_out, frames.reshape(n_streams, n_frames, h, w),
+                sync.reshape(n_streams, n_frames, 2), score.reshape(n_streams, n_frames))
 
     if config.carry_phase:
 

@@ -18,8 +18,12 @@ per output element.  Trust measured times for rankings.
 
 The hand-written kernels are no ATen operations (they are launched through
 ``ctypes``), so the dispatch mode cannot see them: each wrapper reports its
-launch's cost itself (``report_launch``), from the same function that gives
-its bound (``ops.resample_kernel.launch_cost``).
+launches' cost itself (``report_launch``, once a kernel launch), from the
+same function that gives its bound: K1's ``ops.resample_kernel.launch_cost``,
+K2's ``ops.sync_kernel.launch_cost`` (reported as its two launches, K2a
+reading the screens and K2b the rest) and K3's
+``ops.align_kernel.launch_cost``.  The small torch operations around them
+(K3's shift and fold weights) are ATen operations and counted as such.
 """
 
 from __future__ import annotations

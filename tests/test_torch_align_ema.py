@@ -1,0 +1,234 @@
+"""K3, alignment fused with the EMA fold (``tempest_tpu_torch.ops.align_kernel``):
+its wrapper, its cost count, its plain version against the JAX package's
+``align_frame*`` and ``ema_fold``, the fold's algebra, and — on a card — the
+kernel against its plain version.
+
+Tolerances.  Against the JAX package on the CPU: aligned frames within 1e-6
+(the same taps and weights in the same order; XLA may contract a product
+and a sum), integer shifts equal; the EMA within ``FOLD_REL`` = 1e-6 of its
+largest value, because the JAX ``einsum`` adds the F products in its own
+order where the fold adds them in frame order (F roundings of 2⁻²⁴ at most,
+F = 5 here).  The plain batched fold equals B single folds, and the fold
+from a zero image composed as ``A·e + B`` equals the fold of ``e``, to the
+bit: the same operations on the same values.  On the card the kernel equals
+its plain version to the bit (every product and sum one rounding, in the
+plain version's order, no FMA), aligned frames and EMA; against
+``torch.tensordot`` (the fold before K3, cuBLAS's order) the EMA is held to
+``FOLD_REL``.  The JAX package is imported inside the parity tests, so that
+the ``cuda`` cases run where JAX is not installed:
+``python -m pytest --noconftest tests/test_torch_align_ema.py -m cuda``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tempest_tpu_torch.ops import align_kernel
+from tempest_tpu_torch.ops.align_kernel import align_fold, align_fold_plain, fold_weights
+from tempest_tpu_torch.pipeline import offline as poff
+
+SHAPES = ((30, 40), (60, 80))
+N_FRAMES = 5
+ALPHA = 0.7
+FOLD_REL = 1e-6
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs in several worker processes on one host: keep torch's
+    CPU thread pool small so these tests do not starve the others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: K3 has no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _inputs(shape, n_streams=1, seed=3, integer=False):
+    """Frames, shifts (fractional, negative, past the edge and exact
+    integers among them) and an EMA image, from a seeded numpy generator."""
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    n = n_streams * N_FRAMES
+    frames = rng.random((n, h, w), dtype=np.float32)
+    s_y = rng.uniform(-h, 2 * h, n).astype(np.float32)
+    s_x = rng.uniform(-w, 2 * w, n).astype(np.float32)
+    s_y[0], s_x[0] = 3.0, -1.0
+    if integer:
+        s_y, s_x = np.floor(s_y).astype(np.int32), np.floor(s_x).astype(np.int32)
+    ema = rng.random((n_streams, h, w), dtype=np.float32)
+    return frames, s_y, s_x, ema
+
+
+def _torch(*arrays, device="cpu"):
+    return [torch.from_numpy(a).to(device) for a in arrays]
+
+
+def _jax():
+    return (pytest.importorskip("tempest_tpu.ops.framesync"),
+            pytest.importorskip("tempest_tpu.pipeline.offline"),
+            pytest.importorskip("jax.numpy"))
+
+
+# ------------------------------------------------------------- on the CPU
+@pytest.mark.parametrize("bad", ["align", "shifts", "ema_shape", "streams", "fold_needs_ema"])
+def test_wrapper_checks_its_arguments(bad):
+    frames, s_y, s_x, ema = _torch(*_inputs(SHAPES[0], n_streams=2))
+    with pytest.raises(ValueError):
+        if bad == "align":
+            align_fold(frames, s_y, s_x, align="nearest")
+        elif bad == "shifts":
+            align_fold(frames, s_y[:3], s_x)
+        elif bad == "ema_shape":
+            align_fold(frames, s_y, s_x, ema[0], ALPHA, n_streams=2)
+        elif bad == "streams":
+            align_fold(frames, s_y, s_x, ema, ALPHA, n_streams=3)
+        else:
+            align_fold(frames, align=None)
+
+
+@pytest.mark.parametrize("align", [None, "integer", "linear", "cubic"])
+def test_launch_cost_counts_each_byte_once(align):
+    n_streams, h, w = 2, 30, 40
+    n = n_streams * N_FRAMES
+    nbytes, flops = align_kernel.launch_cost(n, h, w, n_streams, align, align is not None, True)
+    taps = align_kernel.ALIGN_MODES[align]
+    tables = 0 if not taps else 16 * n + (8 * taps * n if taps > 1 else 0)
+    ema = 2 * 4 * n_streams * h * w + 4 * N_FRAMES + 4
+    assert nbytes == 4 * n * h * w * (2 if align else 1) + tables + ema
+    interp = 2 * n * h * w * (2 * taps - 1) if taps > 1 else 0
+    assert flops == interp + 2 * n * h * w + 2 * n_streams * h * w
+    alone, _ = align_kernel.launch_cost(n, h, w, n_streams, "linear", True, False)
+    assert alone == 8 * n * h * w + 16 * n + 16 * n
+
+
+@pytest.mark.parametrize("interp", ["linear", "cubic"])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_plain_version_matches_jax(shape, interp):
+    jfs, joff, jnp = _jax()
+    frames, s_y, s_x, ema = _inputs(shape)
+    aligned, ema_out = align_fold(*_torch(frames, s_y, s_x, ema[0]), ALPHA, interp)
+    ref = np.stack([np.asarray(jfs.align_frame_subpixel(jnp.asarray(f), jnp.float32(a),
+                                                        jnp.float32(b), interp))
+                    for f, a, b in zip(frames, s_y, s_x)])
+    assert np.abs(aligned.numpy() - ref).max() < 1e-6
+    ref_ema = np.asarray(joff.ema_fold(jnp.asarray(ema[0]), jnp.asarray(ref), ALPHA))
+    assert np.abs(ema_out.numpy() - ref_ema).max() < FOLD_REL * np.abs(ref_ema).max()
+
+
+def test_integer_plain_version_matches_jax():
+    jfs, _, jnp = _jax()
+    frames, s_y, s_x, _ = _inputs(SHAPES[0], integer=True)
+    aligned, none = align_fold(*_torch(frames, s_y, s_x), align="integer")
+    ref = np.stack([np.asarray(jfs.align_frame(jnp.asarray(f), int(a), int(b)))
+                    for f, a, b in zip(frames, s_y, s_x)])
+    assert none is None
+    np.testing.assert_array_equal(aligned.numpy(), ref)
+
+
+@pytest.mark.parametrize("align", ["integer", "linear", "cubic"])
+def test_shift_taps_are_what_roll_frac_takes(align):
+    """The kernel's shift tables, both axes in one pass, hold the integer
+    parts and tap weights that the plain alignment computes axis by axis,
+    to the bit (the kernel reduces the integer parts mod h and mod w)."""
+    from tempest_tpu_torch.ops.framesync import _interp_weights
+
+    _, s_y, s_x, _ = _torch(*_inputs(SHAPES[1], n_streams=2, integer=align == "integer"))
+    k, weights = align_kernel.shift_taps(s_y, s_x, align)
+    assert k.dtype == torch.int64 and k.shape == (2, s_y.shape[0])
+    for axis, s in enumerate((s_y, s_x)):
+        if align == "integer":
+            assert weights is None and torch.equal(k[axis], s.to(torch.int64))
+            continue
+        ki = torch.floor(s).to(torch.int64)
+        _, ws = _interp_weights((s - ki.to(s.dtype)).to(torch.float32), align)
+        assert torch.equal(k[axis], ki)
+        assert torch.equal(weights[axis], torch.stack(ws, dim=-1))
+
+
+@pytest.mark.parametrize("align", [None, "integer", "linear", "cubic"])
+def test_plain_batched_fold_equals_single_folds(align):
+    frames, s_y, s_x, ema = _inputs(SHAPES[1], n_streams=3, integer=align == "integer")
+    frames, s_y, s_x, ema = _torch(frames, s_y, s_x, ema)
+    aligned, ema_out = align_fold(frames, s_y, s_x, ema, ALPHA, align, n_streams=3)
+    for b in range(3):
+        part = slice(b * N_FRAMES, (b + 1) * N_FRAMES)
+        a1, e1 = align_fold(frames[part], s_y[part], s_x[part], ema[b], ALPHA, align)
+        assert torch.equal(aligned[part], a1) and torch.equal(ema_out[b], e1), f"stream {b}"
+
+
+def test_fold_from_zero_composes_to_the_fold():
+    """``A·e + B`` with ``B`` the fold from a zero image and ``A = α^F``
+    (the mesh's combine) equals the fold of ``e``, and ``ema_fold`` is the
+    fold alone."""
+    frames, _, _, ema = _torch(*_inputs(SHAPES[0]))
+    e = ema[0]
+    _, b = align_fold(frames, ema=torch.zeros_like(e), alpha=ALPHA, align=None)
+    _, big_a = fold_weights(ALPHA, N_FRAMES, "cpu")
+    whole = poff.ema_fold(e, frames, ALPHA)
+    assert torch.equal(big_a * e + b, whole)
+    assert torch.equal(whole, align_fold_plain(frames, ema=e, alpha=ALPHA, align=None)[1])
+
+
+def test_fold_agrees_with_one_weighted_sum():
+    """The frame-order fold against ``torch.tensordot`` (the fold before
+    K3): within ``FOLD_REL`` of the largest value."""
+    frames, _, _, ema = _torch(*_inputs(SHAPES[1]))
+    w, big_a = fold_weights(ALPHA, N_FRAMES, "cpu")
+    ref = big_a * ema[0] + torch.tensordot(w, frames, dims=1)
+    got = poff.ema_fold(ema[0], frames, ALPHA)
+    assert float((got - ref).abs().max()) < FOLD_REL * float(ref.abs().max())
+
+
+# ------------------------------------------------------------- on the card
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_streams", [1, 4])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("align", [None, "integer", "linear", "cubic"])
+def test_k3_equals_plain_to_the_bit(cuda_device, align, shape, n_streams):
+    frames, s_y, s_x, ema = _torch(*_inputs(shape, n_streams, integer=align == "integer"),
+                                   device=cuda_device)
+    before = align_fold.launches
+    aligned, ema_out = align_fold(frames, s_y, s_x, ema, ALPHA, align, n_streams)
+    ref_aligned, ref_ema = align_fold_plain(frames, s_y, s_x, ema, ALPHA, align, n_streams)
+    torch.cuda.synchronize()
+    assert align_fold.launches == before + 1
+    assert torch.equal(aligned, ref_aligned), "aligned frames"
+    assert torch.equal(ema_out, ref_ema), "EMA"
+    # Against the weighted sum of the fold before K3, stream by stream.
+    w, big_a = fold_weights(ALPHA, N_FRAMES, cuda_device)
+    for b in range(n_streams):
+        part = ref_aligned[b * N_FRAMES: (b + 1) * N_FRAMES]
+        ref = big_a * ema[b] + torch.tensordot(w, part, dims=1)
+        assert float((ema_out[b] - ref).abs().max()) < FOLD_REL * float(ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("align", ["integer", "linear", "cubic"])
+def test_k3_aligns_alone(cuda_device, align):
+    """Without an EMA (``align_frame*`` on a CUDA tensor) K3 writes the
+    aligned frames only; equal to the plain alignment to the bit."""
+    from tempest_tpu_torch.ops import framesync as pfs
+
+    frames, s_y, s_x, _ = _torch(*_inputs(SHAPES[1], integer=align == "integer"),
+                                 device=cuda_device)
+    got = (pfs.align_frame(frames, s_y, s_x) if align == "integer"
+           else pfs.align_frame_subpixel(frames, s_y, s_x, align))
+    ref = align_fold_plain(frames, s_y, s_x, align=align)[0]
+    assert align_fold.launches_by_mode[align, False] >= 1
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_k3_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
+    frames, s_y, s_x, ema = _torch(*_inputs(SHAPES[0]), device=cuda_device)
+    with pytest.raises(TypeError):
+        align_fold(frames.double(), s_y, s_x)
+    with pytest.raises(TypeError):
+        align_fold(frames, s_y, s_x, ema.transpose(1, 2).contiguous().transpose(1, 2), ALPHA)
