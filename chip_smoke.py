@@ -373,6 +373,33 @@ def device_ms(prof) -> float:
                if evt.device_type == DeviceType.CUDA) / 1e3
 
 
+def device_by_kernel(prof, steps: int) -> dict:
+    """{kernel or copy name: (device ms a launch, launches a step)} of a
+    torch.profiler run over ``steps`` steps, the longest first.  A launch's
+    time is its events' mean, and a step's launches their count over the
+    steps rounded, at least 1: the profiler drops a step's device events now
+    and then, which would bias a sum over the window."""
+    from torch.autograd import DeviceType
+
+    rows = {evt.key: (evt.self_device_time_total / 1e3 / evt.count,
+                      max(1, round(evt.count / steps)))
+            for evt in prof.key_averages() if evt.device_type == DeviceType.CUDA and evt.count}
+    return dict(sorted(rows.items(), key=lambda kv: -kv[1][0] * kv[1][1]))
+
+
+def short_name(key: str) -> str:
+    """A kernel's profiler name without its namespace, return type and
+    arguments: ``align_fold_kernel<2, true>``."""
+    key = key.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return key.split("(")[0] or key
+
+
+def step_device_ms(by_kernel: dict) -> tuple[float, int]:
+    """(device ms, launches) of one step from :func:`device_by_kernel`."""
+    return (sum(ms * n for ms, n in by_kernel.values()),
+            sum(n for _, n in by_kernel.values()))
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
@@ -947,12 +974,13 @@ def phase_batched(tp, torch, dev, card: str, words: np.ndarray, reset_counts,
         # order of the sync's profiles plays no part.
         pinned = (torch.cat([s[2][:, 0] for s in singles]), torch.cat([s[2][:, 1] for s in singles]),
                   torch.cat([s[3] for s in singles]))
-        real_sync = poff.frame_sync_subpixel
-        poff.frame_sync_subpixel = lambda screens: pinned
+        pinned = (*pinned, torch.stack(pinned[:2], dim=1))
+        real_sync = poff.blanking_sync
+        poff.blanking_sync = lambda screens, subpixel, pairs: pinned
         try:
             ema_p, frames_p, sync_p, _ = step(iq_b, ema_b, ALPHA, *phases)
         finally:
-            poff.frame_sync_subpixel = real_sync
+            poff.blanking_sync = real_sync
         pinned_equal = True
         for b, (e1, f1, s1, _) in enumerate(singles):
             check(bool(torch.equal(sync_p[b], s1)), "the pinned sync values reached the step")
@@ -1016,13 +1044,16 @@ def phase_batched(tp, torch, dev, card: str, words: np.ndarray, reset_counts,
                 single(iq_b[b], ema_b[b], ALPHA, *ph)
 
         singles_ms = time_call(torch, four_singles, calls=10)
-        prof = profiled(torch, lambda: step(iq_b, ema_b, ALPHA, *phases), profile_activities)
-        prof1 = profiled(torch, four_singles, profile_activities)
+        prof = profiled(torch, lambda: [step(iq_b, ema_b, ALPHA, *phases) for _ in range(3)],
+                        profile_activities)
+        prof1 = profiled(torch, lambda: [four_singles() for _ in range(3)], profile_activities)
+        dev_b, launches_b = step_device_ms(device_by_kernel(prof, 3))
+        dev_1, launches_1 = step_device_ms(device_by_kernel(prof1, 3))
         print(f"[batched, {label}] {batched_ms:.3f} ms a batched step beside {singles_ms:.3f} ms "
               f"for four single-stream steps (CUDA events, median of 10) = "
               f"{N_STREAMS * n / batched_ms / 1e3:.1f} Msamples/s; device time "
-              f"{device_ms(prof):.3f} ms in {kernel_count(prof)} kernels beside "
-              f"{device_ms(prof1):.3f} ms in {kernel_count(prof1)} (profiler), on {card}")
+              f"{dev_b:.3f} ms in {launches_b} kernels beside {dev_1:.3f} ms in {launches_1} "
+              f"(profiler), on {card}")
         out[label] = dict(launches=launches, err=err, ms=ms, b2b_ms=b2b_ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by=bound_by)
         del iq_b, flat, got, frames
@@ -1031,8 +1062,6 @@ def phase_batched(tp, torch, dev, card: str, words: np.ndarray, reset_counts,
 
 def phase_search(tp, torch, dev, card: str, words_f32, reset_counts) -> dict:
     """Phase 13: the static mode search on the slice's capture."""
-    from torch.profiler import ProfilerActivity, profile
-
     from tempest_tpu_torch.ops.resample import round_to_bfloat16
     from tempest_tpu_torch.ops.resample_kernel import (
         ROWS_PER_TILE, frames_to_screens, frames_to_screens_from_words,
@@ -1092,12 +1121,9 @@ def phase_search(tp, torch, dev, card: str, words_f32, reset_counts) -> dict:
             env, starts, *raster, None, 2, SEARCH_PHASES))
         plain_ms = time_call(torch, lambda: frames_to_screens_plain(env, starts, geom, None, 2),
                              calls=10)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                frames_to_screens(env, starts, *raster, None, 2, SEARCH_PHASES)
-            torch.cuda.synchronize()
-        dev_ms = sum(evt.self_device_time_total for evt in prof.key_averages()
-                     if "resample_tiles_kernel" in evt.key) / 1e4
+        dev_ms = kernels_device_ms(
+            torch, lambda: frames_to_screens(env, starts, *raster, None, 2, SEARCH_PHASES),
+            ("resample_tiles_kernel",))["resample_tiles_kernel"]
         check(dev_ms > 0, "the profiler traced K1's kernel")
         dev_ms = dev_ms or float("nan")
         print(f"[K1 envelope, {SEARCH_SCORE_SIZE[0]}x{SEARCH_SCORE_SIZE[1]}, {name}] "
@@ -1408,20 +1434,31 @@ def phase_roofline(tp, torch, dev, card: str, words_i16) -> None:
     check(rep.bound() == "memory" and rep.bytes_accessed > nbytes, "the step is memory-bound")
 
 
-def kernels_device_ms(torch, fn, names, calls: int = 10) -> dict:
-    """Device milliseconds a call of each named kernel takes, from
-    torch.profiler over ``calls`` calls of ``fn``: the kernels alone, without
-    the host's time between launches."""
+def kernels_device_ms(torch, fn, names, calls: int = 10, tries: int = 3) -> dict:
+    """Device milliseconds a launch of each named kernel takes (``fn``
+    launches each once), from torch.profiler over ``calls`` calls of ``fn``:
+    the kernels alone, without the host's time between launches.  The mean
+    over the launches the profiler recorded: it drops a run's device events
+    now and then, and a window that recorded none of a kernel is run again,
+    up to ``tries`` times; a kernel never seen reads 0."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {name: sum(evt.self_device_time_total for evt in prof.key_averages()
-                      if name in evt.key) / 1e3 / calls for name in names}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        evts = prof.key_averages()
+        out = {}
+        for name in names:
+            seen = [evt for evt in evts if name in evt.key and evt.count]
+            count = sum(evt.count for evt in seen)
+            out[name] = sum(evt.self_device_time_total for evt in seen) / 1e3 / max(count, 1)
+        if min(out.values()) > 0:
+            break
+    return out
 
 
 def _circular_err(torch, a, b, n) -> float:
@@ -1486,16 +1523,27 @@ def phase_sync_align(tp, torch, dev, card: str, words_i16, starts, raster) -> di
                                    ("profiles_kernel", "search_kernel"))
         device = sum(dev_ms.values())
         check(min(dev_ms.values()) > 0, f"the profiler saw K2a and K2b on the card ({dev_ms})")
+        k2a_bound, _ = bound(*sync_kernel.profiles_cost(n, h, w))
+        search_bytes, search_instr = sync_kernel.search_cost(n, h, w)
+        by_bytes = 1e3 * search_bytes / H100_PEAKS["bytes_per_s"]
+        by_issue = 1e3 * search_instr / sync_kernel.H100_ISSUE_PER_S
+        k2b_bound, k2b_by = max(by_bytes, by_issue), ("bytes" if by_bytes >= by_issue
+                                                      else "instructions")
+        k2a_ms, k2b_ms = dev_ms["profiles_kernel"], dev_ms["search_kernel"]
         print(f"[K2 {label}] {ms:.4f} ms single call, {b2b_ms:.4f} ms back to back per "
               f"{n}-frame block; device time of the kernels alone {device:.4f} ms (K2a "
-              f"{dev_ms['profiles_kernel']:.4f}, K2b {dev_ms['search_kernel']:.4f}; profiler, 10 "
-              f"calls); bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, {flops / 1e6:.1f} M "
-              f"operations, by {bound_by}), share reached {bound_ms / b2b_ms:.3f} back to back, "
-              f"{bound_ms / device:.3f} of device time; plain {plain_ms:.4f} ms, on {card}")
+              f"{k2a_ms:.4f}, K2b {k2b_ms:.4f}; profiler, 10 calls); bound {bound_ms:.4f} ms "
+              f"({nbytes / 1e6:.1f} MB, {flops / 1e6:.1f} M operations, by {bound_by}), share "
+              f"reached {bound_ms / b2b_ms:.3f} back to back, {bound_ms / device:.3f} of device "
+              f"time; K2a bound {k2a_bound:.4f} ms (bytes), share {k2a_bound / k2a_ms:.3f}; K2b "
+              f"bound {k2b_bound:.4f} ms ({search_bytes / 1e6:.2f} MB, {search_instr / 1e6:.1f} M "
+              f"instructions at {sync_kernel.H100_ISSUE_PER_S / 1e12:.2f} T a second, by "
+              f"{k2b_by}), share {k2b_bound / k2b_ms:.3f}; plain {plain_ms:.4f} ms; on {card}")
         out["K2", subpixel] = dict(err=err, score_rel=score_rel, ms=ms, b2b_ms=b2b_ms,
                                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                                   device_ms=device, k2a_device_ms=dev_ms["profiles_kernel"],
-                                   k2b_device_ms=dev_ms["search_kernel"])
+                                   device_ms=device, k2a_device_ms=k2a_ms, k2b_device_ms=k2b_ms,
+                                   k2a_bound_ms=k2a_bound, k2b_bound_ms=k2b_bound,
+                                   k2b_bound_by=k2b_by)
 
     ema_in = screens.mean(dim=0).contiguous()
     fold_w, big_a = fold_weights(ALPHA, n, dev)
@@ -1528,12 +1576,11 @@ def phase_sync_align(tp, torch, dev, card: str, words_i16, starts, raster) -> di
                 ("align_fold_kernel",))["align_fold_kernel"]
             check(device > 0, "the profiler saw K3 on the card")
             print(f"[K3 {align or 'fold only'}] {ms:.4f} ms single call, {b2b_ms:.4f} ms back to "
-                  f"back per {n}-frame block, the weights' torch operations included; device "
-                  f"time of the kernel alone {device:.4f} ms (profiler, 10 calls); bound "
-                  f"{bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, by {bound_by}), share reached "
-                  f"{bound_ms / b2b_ms:.3f} back to back, {bound_ms / device:.3f} of device time; "
-                  f"plain {plain_ms:.4f} ms; one torch.tensordot of the EMA's sum alone "
-                  f"{tensordot_ms:.4f} ms, on {card}")
+                  f"back per {n}-frame block; device time of the kernel alone {device:.4f} ms "
+                  f"(profiler, 10 calls); bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, by "
+                  f"{bound_by}), share reached {bound_ms / b2b_ms:.3f} back to back, "
+                  f"{bound_ms / device:.3f} of device time; plain {plain_ms:.4f} ms; one "
+                  f"torch.tensordot of the EMA's sum alone {tensordot_ms:.4f} ms; on {card}")
             out["K3", align] = dict(err=err, lib_rel=lib_rel, ms=ms, b2b_ms=b2b_ms,
                                     plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                                     tensordot_ms=tensordot_ms, device_ms=device)
@@ -1581,13 +1628,20 @@ def phase_step_split(tp, torch, dev, card: str, words_i16, activities) -> None:
     step = tp.make_reconstruct_fn(cfg, dev)
 
     def with_route(route, fn):
+        if route == "kernels":
+            return fn()  # the step as it is: K2 writes its [F, 2] sync itself
         sync_fn, fold_fn = routes[route]
-        real = poff.frame_sync_subpixel, poff.align_fold
-        poff.frame_sync_subpixel, poff.align_fold = sync_fn, fold_fn
+        real = poff.blanking_sync, poff.align_fold
+
+        def blank(screens, subpixel, pairs):
+            out = sync_fn(screens)
+            return (*out, torch.stack(out[:2], dim=1))
+
+        poff.blanking_sync, poff.align_fold = blank, fold_fn
         try:
             return fn()
         finally:
-            poff.frame_sync_subpixel, poff.align_fold = real
+            poff.blanking_sync, poff.align_fold = real
 
     results = {route: {"split": [], "ms": [], "device": [], "kernels": []} for route in routes}
     for route in ("kernels", "plain", "plain", "kernels"):
@@ -1599,8 +1653,12 @@ def phase_step_split(tp, torch, dev, card: str, words_i16, activities) -> None:
         with profile(activities=activities) as prof:
             with_route(route, lambda: [step(block, ema0, ALPHA, 0.0) for _ in range(3)])
             torch.cuda.synchronize()
-        r["device"].append(device_ms(prof) / 3)
-        r["kernels"].append(kernel_count(prof) / 3)
+        by_kernel = device_by_kernel(prof, 3)
+        ms_step, launches = step_device_ms(by_kernel)
+        r["device"].append(ms_step)
+        r["kernels"].append(launches)
+        if route == "kernels":
+            r["by_kernel"] = by_kernel
     kernels_ema = step(block, ema0, ALPHA, 0.0)[0]
     plain_ema = with_route("plain", lambda: step(block, ema0, ALPHA, 0.0)[0])
     torch.cuda.synchronize()
@@ -1612,6 +1670,13 @@ def phase_step_split(tp, torch, dev, card: str, words_i16, activities) -> None:
               f"(median of 10); device time {r['device'][0]:.4f} {r['device'][1]:.4f} ms in "
               f"{r['kernels'][0]:.0f} {r['kernels'][1]:.0f} kernels a step (profiler, 3 steps), "
               f"on {card}")
+    by_kernel = results["kernels"]["by_kernel"]
+    parts = "; ".join(f"{short_name(name)} {ms:.4f} ms x{n}" for name, (ms, n) in by_kernel.items())
+    print(f"[step split, kernels] device time a step by kernel (profiler, 3 steps, last turn; "
+          f"ms a launch x launches a step): {parts}; sum {step_device_ms(by_kernel)[0]:.4f} ms, "
+          f"on {card}")
+    check(max(results["kernels"]["kernels"]) <= 6,
+          "the default step launches 6 kernels or fewer (K1, K2a, K2b, K3 and the uploads)")
     print(f"[step split] the step's EMA through the kernels vs through their plain versions: "
           f"{ema_rel:.3e} of its range (the sub-pixel fractions' summation order)")
     check(ema_rel < EMA_REL_TOL, "the step's EMA through the kernels matches the plain route")
@@ -2268,12 +2333,10 @@ def main(argv: list[str] | None = None) -> int:
         torch, lambda: frames_to_screens_plain(one, one_starts, geom), calls=10)
     # Back to back, one frame is bound by the host's enqueue rate, so the
     # kernel's own time comes from the profiler.
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            frame_to_screen(one, mode.height, mode.width, (h, w))
-        torch.cuda.synchronize()
-    one_device_ms = sum(evt.self_device_time_total for evt in prof.key_averages()
-                        if "resample_tiles_kernel" in evt.key) / 1e4
+    one_device_ms = kernels_device_ms(
+        torch, lambda: frame_to_screen(one, mode.height, mode.width, (h, w)),
+        ("resample_tiles_kernel",))["resample_tiles_kernel"]
+    check(one_device_ms > 0, "the profiler traced frame_to_screen's kernel")
     print(f"[K1 frame_to_screen] {one_ms:.4f} ms single call, {one_b2b_ms:.4f} ms back to back, "
           f"{one_device_ms:.4f} ms of device time for one frame; bound {one_bound_ms:.5f} ms "
           f"({one_bytes / 1e6:.2f} MB, by {one_by}), share reached "
@@ -2661,7 +2724,9 @@ def main(argv: list[str] | None = None) -> int:
             for _ in range(3):
                 fn()
             torch.cuda.synchronize()
-        print(f"[profile] {name}, int16 words: device time {device_ms(prof) / 3:.4f} ms per step")
+        dev_step, launches = step_device_ms(device_by_kernel(prof, 3))
+        print(f"[profile] {name}, int16 words: device time {dev_step:.4f} ms per step in "
+              f"{launches} kernels")
         print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
 
     # ---- 21. the default step stage by stage, with the kernels and with their
@@ -2763,9 +2828,11 @@ def main(argv: list[str] | None = None) -> int:
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": None, "back_to_back_ms": m["b2b_ms"], "device_ms": m["device_ms"],
         }
+        entry["redesigned"] = True
         if key[0] == "K2":
             entry.update(score_max_rel_err=m["score_rel"], k2a_device_ms=m["k2a_device_ms"],
-                         k2b_device_ms=m["k2b_device_ms"])
+                         k2b_device_ms=m["k2b_device_ms"], k2a_bound_ms=m["k2a_bound_ms"],
+                         k2b_bound_ms=m["k2b_bound_ms"], k2b_bound_by=m["k2b_bound_by"])
         else:
             entry.update(tensordot_ema_ms=m["tensordot_ms"], tensordot_ema_rel_err=m["lib_rel"])
         entry.update(extra)

@@ -38,12 +38,19 @@ SIGNATURES = {
     },
     "sync": {
         "tt_blanking_sync": (
-            [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _I, _P, _P, _P, _P],
+            [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _I, _I, _P, _P, _P,
+             _P, _P],
             ctypes.c_int),
+        "tt_blanking_sync_timed": (
+            [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _I, _I, _P, _P, _P,
+             _P, _P, _P],
+            ctypes.c_int),
+        "tt_sync_clock_labels": ([], ctypes.c_char_p),
+        "tt_sync_max_clusters": ([_I, _I, _P], ctypes.c_int),
     },
     "align_ema": {
         "tt_align_fold": (
-            [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+            [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
             ctypes.c_int),
     },
 }

@@ -17,9 +17,10 @@ ema')``:
 
 The plain version (:func:`align_fold_plain`) is the port's alignment
 (``ops.framesync``, the JAX package's roll form) followed by that fold, with
-the integer shifts, tap weights (``_interp_weights``) and fold weights
-computed by the torch code that computes them for the kernel
-(:func:`shift_taps`, :func:`fold_weights`).  Every product and sum of the
+the fold weights computed by :func:`fold_weights`.  The kernel decodes each
+frame's shifts itself, as :func:`shift_taps` states in torch: the integer
+parts and the tap weights (``_interp_weights``) of the fractions, one
+rounding per torch operation in torch's order.  Every product and sum of the
 kernel is one of the plain version's, in its order, with no FMA, so on the
 card the two agree to the bit, aligned frames and EMA.  The fold's order
 makes a batched step's EMA the single steps' to the bit, and the fold from a
@@ -32,9 +33,14 @@ states the tolerance).
 The kernel (``csrc/align_ema.cu``) is bound by memory: each screen is read
 once and written once aligned, each stream's EMA read and written once.  A
 block owns one output row of one stream and walks over the stream's frames in
-order: the row pass reads the taps' source rows into shared memory, the
-column pass writes the aligned row and adds it into the fold's per-column sum,
-and the EMA row is written once at the end.
+order, its threads owning fixed columns (four at a time when w % 4 == 0) and
+the fold's sums in registers; warp 0 decodes 32 frames' shifts at a time,
+loaded a chunk ahead, and the taps' source rows go through a ring of 3-4
+stages of ``cp.async`` copies, so that the rows of the next frames are in
+flight while a frame is computed.  For float32 and int32 shifts (what the
+sync returns; also int64, float64 and the 16-bit floats) the wrapper launches
+the kernel and no torch operation: the fold's weights are kept per (alpha, F,
+device), the outputs are allocated empty.
 
 For tensors on the CPU the wrapper runs the plain version; for CUDA tensors
 it launches the kernel or raises.
@@ -91,7 +97,8 @@ def shift_taps(s_y: torch.Tensor, s_x: torch.Tensor,
     integer parts (int64 [2, N], rows then columns; the kernel reduces them
     mod h and mod w) and, for ``"linear"`` and ``"cubic"``, the float32 tap
     weights [2, N, taps] of the fractions — the integer parts and weights
-    that ``_roll_frac`` takes, element by element."""
+    that ``_roll_frac`` takes, element by element.  K3 computes the same in
+    the kernel, operation for operation; this is its statement in torch."""
     s = torch.stack([s_y, s_x])
     if align == "integer":
         return s.to(torch.int64), None
@@ -182,6 +189,43 @@ def _check(frames, s_y, s_x, ema, align, n_streams):
             f"{frames.device}, got {tuple(ema.shape)} on {ema.device}")
 
 
+# Shift dtypes K3 decodes itself (csrc/align_ema.cu's ShiftType); other
+# integer dtypes go in as int64, which is what the plain version makes of them.
+_SHIFT_TYPES = {torch.int32: 0, torch.int64: 1, torch.float32: 2, torch.float64: 3,
+                torch.float16: 4, torch.bfloat16: 5}
+_MAX_THREADS = 1024
+_MAX_UNITS = 2
+_FRAME_SLOTS_BYTES = 64 * 44   # the kernel's static ring of decoded frames
+
+
+def launch_shape(w: int, taps: int, vec: bool) -> tuple[int, int, int]:
+    """(threads, units, dynamic shared bytes) of a K3 block for rows of
+    ``w``: each thread owns ``units`` (at most 2) columns, or quads of
+    columns when ``vec``; the ring holds 4 stages of the taps' source rows (3
+    for cubic) and, with a row pass, one shared row.  Raises for rows wider
+    than a block covers or than its shared memory holds."""
+    cover = w // 4 if vec else w
+    units = 1 if cover <= _MAX_THREADS else _MAX_UNITS
+    per_unit = -(-cover // units)
+    threads = 32 * -(-per_unit // 32)
+    rows = (3 if taps == 4 else 4) * max(taps, 1) + (1 if taps > 1 else 0)
+    smem = 4 * w * rows
+    if threads > _MAX_THREADS or smem + _FRAME_SLOTS_BYTES > _BLOCK_SHARED:
+        raise ValueError(f"screens {w} wide need more than a block of K3 holds "
+                         f"({cover} {'quads' if vec else 'columns'}, {smem} bytes of rows)")
+    return threads, units, smem
+
+
+def _kernel_shifts(s: torch.Tensor) -> torch.Tensor:
+    """The shifts as the kernel reads them: as they are for the dtypes it
+    decodes (no torch operation when contiguous), other integers as int64."""
+    if s.dtype not in _SHIFT_TYPES:
+        if s.dtype.is_floating_point or s.dtype.is_complex or s.dtype == torch.bool:
+            raise TypeError(f"K3 takes integer or real floating shifts, got {s.dtype}")
+        s = s.to(torch.int64)
+    return s.contiguous()
+
+
 def _launch(frames, s_y, s_x, ema, alpha, align, n_streams):
     for name, t in (("frames", frames), ("ema", ema)):
         if t is not None and (t.dtype != torch.float32 or not t.is_contiguous()):
@@ -191,17 +235,19 @@ def _launch(frames, s_y, s_x, ema, alpha, align, n_streams):
     n, h, w = (int(d) for d in frames.shape)
     taps = ALIGN_MODES[align]
     fold = ema is not None
-    if 4 * w * ((1 if fold else 0) + (2 if taps > 1 else 0)) > _BLOCK_SHARED:
-        raise ValueError(f"screens {w} wide need more shared memory than a block of K3 has")
     dev = frames.device
-    shift = weights = None
+    types = (0, 0)
     if taps:
-        shift, weights = shift_taps(s_y, s_x, align)
+        s_y, s_x = (_kernel_shifts(s) for s in (s_y, s_x))
+        types = (_SHIFT_TYPES[s_y.dtype], _SHIFT_TYPES[s_x.dtype])
     aligned = torch.empty_like(frames) if taps else None
     fold_w = big_a = ema_out = None
     if fold:
         fold_w, big_a = fold_weights(alpha, n // n_streams, dev)
         ema_out = torch.empty_like(ema)
+    rows = [t for t in (frames, aligned, ema, ema_out) if t is not None]
+    vec = w % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in rows)
+    threads, units, _ = launch_shape(w, taps, vec)
     from .. import _build
 
     lib = _build.load_library("align_ema")
@@ -212,8 +258,10 @@ def _launch(frames, s_y, s_x, ema, alpha, align, n_streams):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.tt_align_fold(
-            frames.data_ptr(), ptr(aligned), ptr(ema), ptr(ema_out), ptr(shift), ptr(weights),
-            ptr(fold_w), ptr(big_a), h, w, n // n_streams, n_streams, taps, stream)
+            frames.data_ptr(), ptr(aligned), ptr(ema), ptr(ema_out),
+            ptr(s_y) if taps else None, ptr(s_x) if taps else None, *types,
+            ptr(fold_w), ptr(big_a), h, w, n // n_streams, n_streams, taps, int(vec), threads,
+            units, stream)
     if rc != 0:
         raise RuntimeError(f"K3 launch failed with cudaError_t {rc}")
     report_launch(*launch_cost(n, h, w, n_streams, align, taps > 0, fold))

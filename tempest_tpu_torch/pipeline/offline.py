@@ -96,7 +96,7 @@ from ..ops.demod import (
 from ..ops.combine import CombineResult, _combine_on_device
 from ..ops.enhance import restore_image
 from ..ops.align_kernel import align_fold
-from ..ops.framesync import frame_sync, frame_sync_subpixel
+from ..ops.sync_kernel import blanking_sync
 from ..ops.resample import (
     RENDER_SIZE,
     frames_to_screens_fft,
@@ -513,14 +513,11 @@ def _sync_align_fold(
                                            n_streams=n_streams))
         return (ema_out, frames, torch.zeros((n, 2), dtype=torch.int32, device=screens.device),
                 torch.zeros(n, dtype=torch.float32, device=screens.device))
-    if config.align_subpixel:
-        s_y, s_x, score = frame_sync_subpixel(screens)
-        align = config.align_interp
-    else:
-        s_y, s_x, score = frame_sync(screens)
-        align = "integer"
+    # K2 writes the [B·F, 2] sync beside s_y and s_x: no stacking launch.
+    s_y, s_x, score, sync = blanking_sync(screens, subpixel=config.align_subpixel, pairs=True)
+    align = config.align_interp if config.align_subpixel else "integer"
     frames, ema_out = align_fold(screens, s_y, s_x, ema, alpha, align, n_streams)
-    return ema_out, frames, torch.stack([s_y, s_x], dim=1), score
+    return ema_out, frames, sync, score
 
 
 def process_frames(

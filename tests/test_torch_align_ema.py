@@ -186,6 +186,43 @@ def test_fold_agrees_with_one_weighted_sum():
     assert float((got - ref).abs().max()) < FOLD_REL * float(ref.abs().max())
 
 
+@pytest.mark.parametrize("w", [3, 40, 80, 83, 800, 2048, 4100])
+@pytest.mark.parametrize("align", [None, "integer", "linear", "cubic"])
+def test_launch_shape_covers_the_row_within_a_block(align, w):
+    """Threads (a multiple of 32, at most 1024) times units (at most 2)
+    cover the row's quads (w % 4 == 0) or columns; the ring of source rows
+    and the shared row fit 227 KB with the frames' slots."""
+    taps = align_kernel.ALIGN_MODES[align]
+    for vec in [v for v in (True, False) if (w % 4 == 0 or not v) and (v or w <= 2048)]:
+        threads, units, smem = align_kernel.launch_shape(w, taps, vec)
+        cover = w // 4 if vec else w
+        assert threads % 32 == 0 and 32 <= threads <= 1024 and units in (1, 2)
+        assert threads * units >= cover and threads * units - cover < 32 * units
+        assert smem + 64 * 44 <= 227 * 1024
+    if w == 800:   # the slice: 224 threads of one quad each; 4 stages (3 cubic)
+        rows = {0: 4, 1: 4, 2: 9, 4: 13}[taps]
+        assert align_kernel.launch_shape(800, taps, True) == (224, 1, 4 * 800 * rows)
+
+
+def test_launch_shape_refuses_rows_a_block_cannot_hold():
+    with pytest.raises(ValueError, match="wide"):
+        align_kernel.launch_shape(8192, 2, True)
+    with pytest.raises(ValueError, match="wide"):
+        align_kernel.launch_shape(2049, 0, False)
+
+
+@pytest.mark.parametrize("dtype,kept", [
+    (torch.int32, True), (torch.int64, True), (torch.float32, True), (torch.float64, True),
+    (torch.float16, True), (torch.bfloat16, True), (torch.int16, False), (torch.uint8, False)])
+def test_kernel_shifts_take_the_sync_dtypes_as_they_are(dtype, kept):
+    s = torch.arange(6).to(dtype)
+    got = align_kernel._kernel_shifts(s)
+    assert (got is s) == kept
+    assert got.dtype == (dtype if kept else torch.int64)
+    with pytest.raises(TypeError):
+        align_kernel._kernel_shifts(torch.ones(3, dtype=torch.bool))
+
+
 # ------------------------------------------------------------- on the card
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_streams", [1, 4])
@@ -232,3 +269,100 @@ def test_k3_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
         align_fold(frames.double(), s_y, s_x)
     with pytest.raises(TypeError):
         align_fold(frames, s_y, s_x, ema.transpose(1, 2).contiguous().transpose(1, 2), ALPHA)
+
+
+def _edge_shifts(n, h, w, dtype):
+    """Shifts the kernel decodes itself: negative, at and past h and w, exact
+    integers, zero, and a tiny negative one whose fraction rounds to 1.0 in
+    float32 (-1e-9 in float32, -1e-12 in float64: floor -1, s + 1 = 1.0f)."""
+    tiny = -1e-12 if dtype == torch.float64 else -1e-9
+    base_y = [tiny, -0.25, h + 0.5, 2.0 * h + 3.0, -3.0 * h - 0.75, 5.0, 0.0, h - 0.125]
+    base_x = [-1.5, tiny, w + 0.75, 3.0 * w, -w - 0.5, -7.0, 0.5, w - 1e-3]
+    s_y = torch.tensor([base_y[k % len(base_y)] for k in range(n)], dtype=torch.float64)
+    s_x = torch.tensor([base_x[k % len(base_x)] for k in range(n)], dtype=torch.float64)
+    if dtype.is_floating_point:
+        return s_y.to(dtype), s_x.to(dtype)
+    return torch.floor(s_y).to(dtype), torch.floor(s_x).to(dtype)
+
+
+_FLOATS = (torch.float32, torch.float64, torch.float16, torch.bfloat16)
+# (align, shift dtype): sub-pixel alignment of real shifts of every width the
+# kernel decodes; the integer alignment of the sync's int32, of int64 and of
+# float32 shifts (truncated, as .to(int64) does); the fold alone (no shift).
+_DECODED = ([(a, d) for a in ("linear", "cubic") for d in _FLOATS]
+            + [("integer", d) for d in (torch.int32, torch.int64, torch.float32)]
+            + [(None, torch.float32)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_streams", [1, 4])
+@pytest.mark.parametrize("align,dtype", _DECODED,
+                         ids=[f"{a}-{str(d).split('.')[1]}" for a, d in _DECODED])
+def test_k3_decodes_the_shifts_to_the_plain_bits(cuda_device, align, dtype, n_streams):
+    """The integer parts and weights computed in the kernel, from shifts of
+    every dtype it takes and of every edge, give the plain version's aligned
+    frames and EMA to the bit (a fold only: no shift read)."""
+    h, w = SHAPES[1]
+    frames, _, _, ema = _inputs((h, w), n_streams)
+    frames, ema = _torch(frames, ema, device=cuda_device)
+    s_y, s_x = (s.to(cuda_device) for s in _edge_shifts(frames.shape[0], h, w, dtype))
+    got = align_fold(frames, s_y, s_x, ema, ALPHA, align, n_streams)
+    ref = align_fold_plain(frames, s_y, s_x, ema, ALPHA, align, n_streams)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]), "aligned frames"
+    assert torch.equal(got[1], ref[1]), "EMA"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,offset", [((61, 83), 0), ((30, 40), 1), ((3, 4100), 0),
+                                          ((5, 1030), 0)],
+                         ids=["odd-width", "unaligned", "wide-quads", "wide-columns"])
+@pytest.mark.parametrize("align", [None, "integer", "linear", "cubic"])
+def test_k3_rows_of_any_width_and_alignment(cuda_device, align, shape, offset):
+    """The per-column route (w % 4 != 0, or rows not 16-byte aligned) and
+    rows of two units a thread, to the bit."""
+    h, w = shape
+    frames, s_y, s_x, ema = _inputs(shape, 2, integer=align == "integer")
+    buf = torch.zeros(frames.size + offset, dtype=torch.float32, device=cuda_device)
+    buf[offset:] = torch.from_numpy(frames.ravel()).to(cuda_device)
+    frames = buf[offset:].view(frames.shape)
+    s_y, s_x, ema = _torch(s_y, s_x, ema, device=cuda_device)
+    got = align_fold(frames, s_y, s_x, ema, ALPHA, align, 2)
+    ref = align_fold_plain(frames, s_y, s_x, ema, ALPHA, align, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("align", [None, "integer", "linear", "cubic"])
+def test_k3_is_one_launch_and_no_torch_operation(cuda_device, align):
+    """For the sync's float32 and int32 shifts the wrapper runs no torch
+    operation but allocating its outputs, and the card sees one kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(str(func.overloadpacket))
+            return func(*args, **(kwargs or {}))
+
+    frames, s_y, s_x, ema = _torch(*_inputs(SHAPES[1], integer=align == "integer"),
+                                   device=cuda_device)
+    ema = ema[0]
+    align_fold(frames, s_y, s_x, ema, ALPHA, align)   # the build, the fold's weights
+    torch.cuda.synchronize()
+    with Ops() as ops:
+        align_fold(frames, s_y, s_x, ema, ALPHA, align)
+    assert set(ops.names) <= {"aten.empty_like", "aten.empty"}, ops.names
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        align_fold(frames, s_y, s_x, ema, ALPHA, align)
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+
+    kernels = {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    assert len(kernels) == 1 and sum(kernels.values()) == 1, kernels
+    assert "align_fold_kernel" in next(iter(kernels))

@@ -17,8 +17,9 @@ prefix; about 1e-7 relative each), so
   a tenth of the prefix it is the difference of carries 1e-6 of relative
   error, a contrast of 10% of the mean 1e-5, its square twice that.
 
-The kernel's own sums do not depend on the batch: a frame's results are the
-same bits in a batch of 1, 36 and 144.  The JAX package is imported inside
+The kernel's own sums do not depend on the batch or on how K2b's search is
+split over a frame's cluster of blocks: a frame's results are the same bits
+in a batch of 1, 36 and 144, and under every split.  The JAX package is imported inside
 the parity tests, so that the ``cuda`` cases also run where JAX is not
 installed: ``python -m pytest --noconftest tests/test_torch_sync_kernel.py -m cuda``.
 """
@@ -131,6 +132,105 @@ def test_plain_version_matches_jax(method, subpixel):
     np.testing.assert_allclose(score.numpy(), rs, rtol=1e-4)
 
 
+def _windows(n, frac):
+    spec = pfs.sync_spec_for_axis(n, frac)
+    return (spec.w_max - spec.w_min + 1) * n
+
+
+# Clusters of K2b blocks an NVIDIA H100 80GB HBM3 holds at once, by size, as
+# its cudaOccupancyMaxActiveClusters gave them at 600x800 and at 150x200
+# (exp/k2_clocks.py): two blocks of 512 threads an SM, a cluster within a GPC.
+H100_CLUSTERS = {2: 132, 3: 79, 4: 62, 5: 47, 6: 39, 7: 32, 8: 30}
+
+
+@pytest.mark.parametrize("shape,n_frames,size", [
+    ((600, 800), 36, 6),      # the slice's block: 36 clusters of 6 in one wave
+    ((600, 800), 39, 6),      # as many clusters of 6 as the card holds
+    ((600, 800), 40, 3),      # one more would take a second wave
+    ((600, 800), 144, 3),     # the batched step: no over-split
+    ((150, 200), 52, 3),      # the mode search's screens
+    ((600, 800), 1, 6),       # one frame
+])
+def test_search_split_fills_the_card_without_over_splitting(shape, n_frames, size):
+    asked = []
+
+    def occupancy(blocks):
+        asked.append(blocks)
+        return H100_CLUSTERS[blocks]
+
+    assert sync_kernel.search_split(n_frames, occupancy) == size
+    assert asked == [6], "the rule asks the card for clusters of 6 alone"
+
+
+@pytest.mark.parametrize("n_frames,resident,size", [(6, 0, 3), (1, 1, 6), (6, 5, 3)])
+def test_search_split_takes_three_when_the_clusters_of_six_do_not_fit(n_frames, resident,
+                                                                     size):
+    """A card (or a shared-memory size) that holds fewer clusters of 6 than
+    there are frames gets clusters of 3, whatever it holds of them."""
+    assert sync_kernel.search_split(n_frames, lambda blocks: resident) == size
+
+
+@pytest.mark.parametrize("n_frames", [1, 2, 5, 36, 52, 144, 1000])
+@pytest.mark.parametrize("shape", [(600, 800), (150, 200), (61, 83), (4, 4), (2434, 2048)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_search_split_is_a_cluster_the_kernel_takes(shape, n_frames):
+    """2 to 8 blocks (the portable cluster size), and every flat index of
+    the frame's windows, both axes, falls in exactly one block's slice,
+    slices that do not divide evenly included."""
+    h, w = shape
+    windows = _windows(h, 0.01) + _windows(w, 0.05)
+    size = sync_kernel.search_split(n_frames, H100_CLUSTERS.get)
+    assert 2 <= size <= 8
+    bounds = sync_kernel.slice_bounds(windows, size)
+    covered = [i for k in range(size) for i in range(bounds[k], bounds[k + 1])]
+    assert covered == list(range(windows))
+
+
+@pytest.mark.parametrize("count", [1, 7, 5400, 87000, 128800, 128801])
+def test_slices_cover_every_index_once_for_any_block_count(count):
+    for parts in range(1, 9):
+        bounds = sync_kernel.slice_bounds(count, parts)
+        assert bounds[0] == 0 and bounds[-1] == count
+        assert all(b - a in (count // parts, count // parts + 1)
+                   for a, b in zip(bounds, bounds[1:]))
+
+
+def test_shared_memory_fits_a_block_at_the_pipeline_screen_and_the_largest_mode():
+    """K2a's and K2b's dynamic shared memory at 600x800 (every mode is
+    downgraded to it by the pipeline) and at the largest mode of
+    ``ALL_VIDEO_MODES`` undowngraded, within 227 KB."""
+    mode = max(ALL_VIDEO_MODES.values(), key=lambda m: m.width * m.height)
+    for h, w in ((600, 800), (mode.height, mode.width)):
+        a, b = sync_kernel.shared_bytes(h, w)
+        assert a <= 227 * 1024 and b <= 227 * 1024 - 1024, (h, w, a, b)
+    # 600x800: 8 warps' column partials; the rows' prefix (3 of padding +
+    # 600 + 2 x 150 + 1, to 904) and the columns' (3 + 1201); the padded
+    # profile (1200) and two profiles of 800.
+    assert sync_kernel.shared_bytes(600, 800) == (4 * 8 * 800, 4 * (904 + 1204 + 1200 + 1600))
+
+
+@pytest.mark.parametrize("subpixel", [False, True], ids=["integer", "subpixel"])
+def test_pairs_are_the_centres_a_row(subpixel):
+    screens = _screens(SHAPES[0])
+    s_y, s_x, score, pairs = sync_kernel.blanking_sync(screens, subpixel=subpixel, pairs=True)
+    ref = sync_kernel.blanking_sync(screens, subpixel=subpixel)
+    assert torch.equal(s_y, ref[0]) and torch.equal(s_x, ref[1]) and torch.equal(score, ref[2])
+    assert pairs.dtype == s_y.dtype and pairs.is_contiguous()
+    assert torch.equal(pairs, torch.stack([s_y, s_x], dim=1))
+
+
+def test_search_cost_counts_the_profiles_and_the_windows():
+    n_frames, h, w = 36, 600, 800
+    nbytes, instructions = sync_kernel.search_cost(n_frames, h, w)
+    assert nbytes == 4 * n_frames * (h + 19 * w) + 12 * n_frames   # 2.2 MB at the slice
+    windows = _windows(h, 0.01) + _windows(w, 0.05)
+    assert windows == 87000 + 128800
+    # Two loads, two differences, two quotients of three from hoisted
+    # reciprocals, the difference of the means, its square, one comparison.
+    assert sync_kernel.SCORE_INSTRUCTIONS == 13
+    assert instructions == n_frames * 13 * windows
+
+
 # ------------------------------------------------------------- on the card
 def _circular_diff(a, b, n):
     d = (a - b).abs() % n
@@ -223,3 +323,65 @@ def test_k2_wrapper_refuses_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(ValueError, match="4x4"):
         sync_kernel.blanking_sync(screens[:, :3, :3].contiguous(), y_min_frac=0.0,
                                   x_min_frac=0.0)
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _same_bits(a, b):
+    return all(torch.equal(_bits(x), _bits(y)) for x, y in zip(a, b))
+
+
+def _special_screens(shape, n_frames, seed=7):
+    """``n_frames`` screens of the capture, scaled per frame, with a NaN
+    frame and a constant zero frame (every window ties, exactly: no sum
+    rounds) among them."""
+    base = _screens(shape).numpy()
+    rng = np.random.default_rng(seed)
+    frames = base[np.arange(n_frames) % len(base)] * rng.uniform(0.9, 1.1, (n_frames, 1, 1))
+    frames = frames.astype(np.float32)
+    if n_frames >= 3:
+        frames[1, 3, 5] = np.nan
+        frames[2] = 0.0
+    return torch.from_numpy(frames)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_frames", [1, 2, 36, 52, 144])
+@pytest.mark.parametrize("shape", [(60, 80), (61, 83)], ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("subpixel", [False, True], ids=["integer", "subpixel"])
+def test_k2_split_over_blocks_of_a_cluster_matches_plain(cuda_device, subpixel, shape, n_frames):
+    """The frame counts of a single frame, the slice's block, the mode
+    search and the batched step; 60x80 has w_max = n / 4 on both axes, 61x83
+    slices that do not divide evenly.  Against the plain version (the NaN and
+    the constant frame: the same centres, a NaN score), and each frame's bits
+    the same as alone."""
+    frames = _special_screens(shape, n_frames).to(cuda_device)
+    got = sync_kernel.blanking_sync(frames, subpixel=subpixel)
+    ref = sync_kernel.blanking_sync_plain(frames, subpixel=subpixel)
+    torch.cuda.synchronize()
+    special = [1, 2] if n_frames >= 3 else []
+    normal = [k for k in range(n_frames) if k not in special]
+    _hold([t[normal] for t in got], [t[normal] for t in ref], subpixel, f"{n_frames}", shape)
+    for k in special:
+        assert torch.equal(got[0][k], ref[0][k]) and torch.equal(got[1][k], ref[1][k])
+    if special:
+        assert torch.isnan(got[2][1]) and float(got[2][2]) == 0.0
+    for k in sorted({0, n_frames - 1, *special}):
+        alone = sync_kernel.blanking_sync(frames[k:k + 1].contiguous(), subpixel=subpixel)
+        assert _same_bits([a[0:1] for a in alone], [b[k:k + 1] for b in got]), f"frame {k}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(60, 80), (61, 83)], ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("subpixel", [False, True], ids=["integer", "subpixel"])
+def test_k2_bits_do_not_depend_on_the_split(cuda_device, subpixel, shape):
+    """Every cluster of 2 to 8 blocks gives the same bits, the [F, 2] pairs
+    included: no sum crosses a block, and the argmax's order is total."""
+    frames = _special_screens(shape, 6).to(cuda_device)
+    ref = sync_kernel._launch(frames, 0.01, 0.05, 0, subpixel, True, split=2)
+    for size in range(3, 9):
+        got = sync_kernel._launch(frames, 0.01, 0.05, 0, subpixel, True, split=size)
+        assert _same_bits(got, ref), size
+    assert torch.equal(_bits(ref[3]), _bits(torch.stack(ref[:2], dim=1)))
