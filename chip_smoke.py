@@ -29,11 +29,14 @@ Phases, each of which fails the run if it fails:
    bar; time the step;
 4. run two blocks through the runtime with ``invert=True``, the route that
    demodulates first and hands K1 the envelope, on the card and on the CPU;
-5. hold K1 with per-frame residuals, with 4 taps and with both against its
-   plain version, on the envelope entry and on both word entries, also with
-   the first frame at sample 0, on a block cut short and from an unaligned
+5. hold K1 with per-frame residuals, with 4 taps (its own kernel, the
+   Catmull-Rom read redesigned) and with both against its plain version to
+   the bit, on the envelope entry and on both word entries, also with the
+   first frame at sample 0, on a block cut short and from an unaligned
    source, and at the shapes of 640x480 @ 60 Hz at 32 Msps; time each beside
-   the 2-tap rounded-cut times;
+   the 2-tap rounded-cut times and beside both its bounds, bytes and
+   instructions; time the 4-tap envelope and int16 entries also at the
+   640x480 shapes that phase 8 launches (11 frames), with their device time;
 6. run three blocks through ``StreamingRuntime(fidelity=True)`` (exact cuts
    through K1's residuals, sync skipped, K3's fold alone once a block), and
    one with 4 taps: PSNR against its bar, card against CPU;
@@ -66,16 +69,20 @@ Phases, each of which fails the run if it fails:
     giving each frame the same bits among 144 and among its stream's 36;
     the step's time beside four single-stream steps;
 13. the mode search: ``mode_search_static`` over the video modes near 60 Hz,
-    one K1 launch per candidate at a 150x200 score grid, the winner the
-    capture's mode, K1 also at coarser grids where the plan halves a tile's
-    rows, then ``auto_reconstruct(refine_with_search=True)``;
+    one K1 launch over the candidate set at a 150x200 score grid
+    (``frames_to_screens_candidates``), held to the bit against its plain
+    version and against one launch per candidate, and timed beside that
+    route; the winner the capture's mode; K1 also at coarser grids where the
+    plan halves a tile's rows; then ``auto_reconstruct(refine_with_search=
+    True)``, one K1 launch for its search;
 14. every ``resampler=`` name through ``reconstruct_frames`` on the 36-frame
     capture: PSNR beside K1's, the difference from K1 beside the bound the
     quantisation gives, K1 with the quantised table against its plain version;
 15. the command line in process (``synth``, ``analyze``, ``reconstruct``,
     ``scan``, ``survey``, ``stream``, ``search``, ``warmup``, and ``stream
     --mesh 4`` and ``search --dynamic --devices 4`` on four shards of the
-    card) and the web view on an ephemeral port;
+    card; one K1 launch a search, one a shard) and the web view on an
+    ephemeral port;
 16. ``roofline()`` of one default step: the kernels' bytes equal K1's, K2's
     and K3's ``launch_cost``;
 17. (m) the mesh on one card: ``MeshStreamingRuntime`` over four shards of
@@ -86,7 +93,8 @@ Phases, each of which fails the run if it fails:
     shard a dispatch (K2 not with fidelity); the same stream through a
     process group of one NCCL rank;
 18. (n) ``sharded_mode_search`` over the 26 candidates of phase 13 on four
-    shards of the card (its winner the static search's), and
+    shards of the card (one K1 launch a shard; its winner the static
+    search's), and
     ``sharded_scan_band``, ``sharded_combine_harmonics`` and
     ``sharded_combined_reconstruct_fn`` on the capture of phase 9, held
     against the single-device functions;
@@ -344,24 +352,39 @@ def time_back_to_back(torch, fn, launches: int = BACK_TO_BACK) -> float:
     return float(np.median(times))
 
 
-def k1_bound(n_samples: int, sample_bytes: int, n_frames: int, raster: tuple,
-             demod: bool, taps: int = 2, exact: bool = False) -> tuple[float, str, int]:
-    """The least milliseconds the card could take for one K1 call on
-    ``raster`` (frame length, raster lines, raster width, screen shape): the
-    larger of its bytes over the memory rate and its float32 operations over
-    the peak rate, both counted by the package
-    (``resample_kernel.launch_cost``: the samples the line tables address,
-    not what the kernel stages; a roofline count of the step takes the same)
+def k1_bound_parts(n_samples: int, sample_bytes: int, n_frames: int, raster: tuple,
+                   demod: bool, taps: int = 2, exact: bool = False) -> dict:
+    """The three least times of one K1 call on ``raster`` (frame length,
+    raster lines, raster width, screen shape), in ms: its bytes over the
+    memory rate, its float32 operations over the peak rate (both
+    ``resample_kernel.launch_cost``: the samples the line tables address,
+    not what the kernel stages; a roofline count of the step takes the
+    same), and the least instructions it issues over the card's issue rate
+    (``resample_kernel.launch_instructions``; ``sync_kernel.H100_ISSUE_PER_S``),
     against the published peaks of one H100 SXM at its full 700 W
-    (``utils.roofline.H100_PEAKS``).
-    Returns (ms, "bytes" or "operations", bytes)."""
-    from tempest_tpu_torch.ops.resample_kernel import launch_cost
+    (``utils.roofline.H100_PEAKS``); and the bytes."""
+    from tempest_tpu_torch.ops.resample_kernel import launch_cost, launch_instructions
+    from tempest_tpu_torch.ops.sync_kernel import H100_ISSUE_PER_S
     from tempest_tpu_torch.utils.roofline import H100_PEAKS
 
-    nbytes, flops, _ = launch_cost(n_samples, sample_bytes, n_frames, *raster, demod, taps, exact)
-    by_bytes = 1e3 * nbytes / H100_PEAKS["bytes_per_s"]
-    by_ops = 1e3 * flops / H100_PEAKS["flops_per_s"]
-    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops else "operations"), nbytes
+    args = (n_samples, sample_bytes, n_frames, *raster, demod, taps, exact)
+    nbytes, flops, _ = launch_cost(*args)
+    return {"bytes": 1e3 * nbytes / H100_PEAKS["bytes_per_s"],
+            "flops": 1e3 * flops / H100_PEAKS["flops_per_s"],
+            "instructions": 1e3 * launch_instructions(*args) / H100_ISSUE_PER_S,
+            "nbytes": nbytes}
+
+
+def k1_bound(n_samples: int, sample_bytes: int, n_frames: int, raster: tuple,
+             demod: bool, taps: int = 2, exact: bool = False) -> tuple[float, str, int]:
+    """The least milliseconds the card could take for one K1 call: the
+    largest of :func:`k1_bound_parts`.  Returns (ms, "bytes" or
+    "operations", bytes); operations are float32 operations or
+    instructions, whichever bound is larger."""
+    parts = k1_bound_parts(n_samples, sample_bytes, n_frames, raster, demod, taps, exact)
+    ops = max(parts["flops"], parts["instructions"])
+    return max(parts["bytes"], ops), ("bytes" if parts["bytes"] >= ops else "operations"), \
+        parts["nbytes"]
 
 
 def device_ms(prof) -> float:
@@ -1061,11 +1084,14 @@ def phase_batched(tp, torch, dev, card: str, words: np.ndarray, reset_counts,
 
 
 def phase_search(tp, torch, dev, card: str, words_f32, reset_counts) -> dict:
-    """Phase 13: the static mode search on the slice's capture."""
+    """Phase 13: the static mode search on the slice's capture.  Returns the
+    candidate launch's numbers."""
     from tempest_tpu_torch.ops.resample import round_to_bfloat16
     from tempest_tpu_torch.ops.resample_kernel import (
-        ROWS_PER_TILE, frames_to_screens, frames_to_screens_from_words,
-        frames_to_screens_plain, screen_geometry, tile_plan)
+        ROWS_PER_TILE, candidate_table, candidates_launch_cost, frames_to_screens,
+        frames_to_screens_candidates, frames_to_screens_candidates_plain,
+        frames_to_screens_from_words, frames_to_screens_plain, screen_geometry, tile_plan)
+    from tempest_tpu_torch.utils.roofline import H100_PEAKS
 
     cands = tp.candidate_modes(60.0, tol_hz=SEARCH_TOL_HZ)
     spf = SAMPLE_RATE / 60.0
@@ -1075,10 +1101,11 @@ def phase_search(tp, torch, dev, card: str, words_f32, reset_counts) -> dict:
     tp.mode_search_static(z, SAMPLE_RATE, 60.0, cands)          # warm
     reset_counts()
     res = tp.mode_search_static(z, SAMPLE_RATE, 60.0, cands)
-    launches = frames_to_screens.launches_by_variant[2, False]
-    check(launches == len(cands) == frames_to_screens.launches
+    launches = frames_to_screens_candidates.launches
+    check(launches == 1 and frames_to_screens.launches == 0
           and frames_to_screens_from_words.launches == 0,
-          f"the search launched K1 once per candidate ({launches} for {len(cands)})")
+          f"the search launched K1 once over its {len(cands)} candidates ({launches} candidate "
+          f"launches, {frames_to_screens.launches} single)")
     order = np.argsort(res.scores)[::-1]
     print(f"[search] {len(cands)} candidate modes within {SEARCH_TOL_HZ} Hz of 60 Hz, "
           f"{SEARCH_FRAMES} frames at {SEARCH_SCORE_SIZE[0]}x{SEARCH_SCORE_SIZE[1]}, "
@@ -1095,10 +1122,62 @@ def phase_search(tp, torch, dev, card: str, words_f32, reset_counts) -> dict:
     check(cpu.best_index == res.best_index and score_rel < EMA_REL_TOL,
           "card and CPU searches agree")
 
-    # K1 at the score grid against its plain version, on the search's envelope.
+    # K1 over the candidate set against its plain version, on the search's
+    # envelope, and beside the route it replaced: one launch per candidate
+    # and a torch.cat of their screens.
     env = round_to_bfloat16(z.abs().to(torch.float32)).contiguous()
     starts = torch.from_numpy(
         np.round(np.arange(SEARCH_FRAMES) * spf).astype(np.int32)).to(dev)
+    rasters = [(m.height, m.width) for _, m in cands]
+    table = candidate_table(frame_len, tuple(rasters), SEARCH_SCORE_SIZE, dev, SEARCH_PHASES)
+
+    def one_launch():
+        return frames_to_screens_candidates(env, starts, frame_len, rasters, SEARCH_SCORE_SIZE,
+                                            SEARCH_PHASES)
+
+    def per_candidate():
+        return torch.cat([frames_to_screens(env, starts, frame_len, y, x, SEARCH_SCORE_SIZE,
+                                            None, 2, SEARCH_PHASES) for y, x in rasters])
+
+    got = one_launch()
+    ref = frames_to_screens_candidates_plain(env, starts, table)
+    old = per_candidate()
+    torch.cuda.synchronize()
+    cand_err = float((got - ref).abs().max())
+    check(bool(torch.equal(got, ref)) and bool(torch.equal(got.reshape(old.shape), old)),
+          f"K1 over the {len(cands)} candidates equals its plain version and the launches per "
+          f"candidate to the bit ({cand_err:.3e})")
+    caps = [tile_plan(frame_len, y, x, SEARCH_SCORE_SIZE, 4)[1] for y, x in rasters]
+    nbytes, flops = candidates_launch_cost(need, SEARCH_FRAMES, table)
+    by_bytes = 1e3 * nbytes / H100_PEAKS["bytes_per_s"]
+    by_ops = 1e3 * flops / H100_PEAKS["flops_per_s"]
+    cand = dict(err=cand_err, ms=time_call(torch, one_launch),
+                b2b_ms=time_back_to_back(torch, one_launch),
+                plain_ms=time_call(torch, lambda: frames_to_screens_candidates_plain(
+                    env, starts, table), calls=10),
+                bound_ms=max(by_bytes, by_ops), bound_by="bytes" if by_bytes >= by_ops
+                else "operations", launches=launches)
+    cand["device_ms"] = kernels_device_ms(torch, one_launch,
+                                          ("resample_tiles_kernel",))["resample_tiles_kernel"]
+    old_ms = time_call(torch, per_candidate)
+    old_b2b = time_back_to_back(torch, per_candidate, launches=10)
+    old_dev = kernels_device_ms(torch, per_candidate, ("resample_tiles_kernel",))[
+        "resample_tiles_kernel"] * len(rasters)
+    check(cand["device_ms"] > 0 and old_dev > 0, "the profiler traced K1's kernel")
+    print(f"[K1 candidates, {SEARCH_SCORE_SIZE[0]}x{SEARCH_SCORE_SIZE[1]}] {len(rasters)} "
+          f"candidates x {SEARCH_FRAMES} frames in one launch ({table.tiles_per_frame} tiles a "
+          f"frame, stage buffers of {min(caps)}-{max(caps)} samples, {table.run_cap} staged): "
+          f"equal to plain and to one launch per candidate to the bit; {cand['ms']:.4f} ms "
+          f"single call, {cand['b2b_ms']:.4f} ms back to back, {cand['device_ms']:.4f} ms of "
+          f"device time; bound {cand['bound_ms']:.5f} ms ({nbytes / 1e6:.2f} MB, by "
+          f"{cand['bound_by']}), share reached {cand['bound_ms'] / cand['device_ms']:.3f} of "
+          f"device time; plain {cand['plain_ms']:.4f} ms; one launch per candidate and a "
+          f"torch.cat: {old_ms:.4f} ms single call, {old_b2b:.4f} ms back to back, "
+          f"{old_dev:.4f} ms of device time in {len(rasters)} launches, on {card}")
+    cand.update(per_candidate_ms=old_ms, per_candidate_back_to_back_ms=old_b2b,
+                per_candidate_device_ms=old_dev)
+
+    # K1 at the score grid, one candidate a launch, against its plain version.
     timed = {}
     by_name = dict(cands)
     held = [MODE_NAME] + [n for n in (res.names[order[1]], res.names[order[-1]])
@@ -1160,6 +1239,7 @@ def phase_search(tp, torch, dev, card: str, words_f32, reset_counts) -> dict:
     whole_ms = wall_ms(torch, lambda: tp.mode_search_static(z, SAMPLE_RATE, 60.0, cands))
     print(f"[search] {whole_ms:.2f} ms whole, {whole_ms / len(cands):.3f} ms per candidate "
           f"(wall clock, median of 3, envelope and scoring included), on {card}")
+    cand["search_ms"] = whole_ms
 
     reset_counts()
     auto_words = words_f32[: 2 * slice_config(tp).block_samples]
@@ -1169,18 +1249,20 @@ def phase_search(tp, torch, dev, card: str, words_f32, reset_counts) -> dict:
           and bool(np.isfinite(recon.image).all()),
           "auto_reconstruct(refine_with_search=True) names the mode")
     n_cands = len(tp.candidate_modes(timing.refresh_hz, tol_hz=SEARCH_TOL_HZ))
-    check(frames_to_screens.launches == n_cands
+    check(frames_to_screens_candidates.launches == 1 and frames_to_screens.launches == 0
           and frames_to_screens_from_words.launches == 1,
-          f"refine_with_search: one K1 launch per candidate ({frames_to_screens.launches} for "
-          f"{n_cands}), one for the reconstruction")
+          f"refine_with_search: one K1 launch over the {n_cands} candidates "
+          f"({frames_to_screens_candidates.launches}, {frames_to_screens.launches} single), one "
+          f"for the reconstruction")
     refine_ms = wall_ms(torch, lambda: tp.auto_reconstruct(
         auto_words, SAMPLE_RATE, alpha=ALPHA, refine_with_search=True,
         search_tol_hz=SEARCH_TOL_HZ))
     print(f"[search] auto_reconstruct(refine_with_search=True): {timing.mode_name}, "
           f"{refine_ms:.2f} ms from float32 words on the card (wall clock, median of 3), on {card}")
-    out = dict(timed[MODE_NAME])
-    out["launches"] = launches
-    return out
+    cand["refine_ms"] = refine_ms
+    cand["single_candidate_ms"] = timed[MODE_NAME]["ms"]
+    cand["single_candidate_device_ms"] = timed[MODE_NAME]["device_ms"]
+    return cand
 
 
 def phase_resamplers(tp, torch, dev, card: str, words_i16, truth, reset_counts) -> dict:
@@ -1281,7 +1363,7 @@ def phase_cli_and_web(tp, torch, dev, card: str, reset_counts) -> None:
 
     from tempest_tpu_torch.app.cli import main as cli_main
     from tempest_tpu_torch.ops.resample_kernel import frames_to_screens, \
-        frames_to_screens_from_words
+        frames_to_screens_candidates, frames_to_screens_from_words
 
     fs = f"{SAMPLE_RATE:g}"
     with tempfile.TemporaryDirectory() as tmp:
@@ -1337,9 +1419,15 @@ def phase_cli_and_web(tp, torch, dev, card: str, reset_counts) -> None:
                 check(img.size > 0 and (png.name == "band.png" or int(img.max()) > int(img.min())),
                       f"{png.name} shows an image")
             k1 = frames_to_screens.launches + frames_to_screens_from_words.launches
+            k1_cands = frames_to_screens_candidates.launches
+            if name.startswith("search"):
+                shards = MESH_SHARDS if name == "search --dynamic" else 1
+                check(k1_cands == shards and k1 == 0,
+                      f"cli {name}: one K1 launch over the candidates a shard ({k1_cands} for "
+                      f"{shards}, {k1} single)")
             shown = next(l for l in text.splitlines() if expect[name].strip() in l).strip()
-            print(f"[cli] {name}: rc 0 in {ms:.1f} ms wall clock, K1 launches {k1}, "
-                  f"{len(pngs)} PNGs opened; \"{shown}\", on {card}")
+            print(f"[cli] {name}: rc 0 in {ms:.1f} ms wall clock, K1 launches {k1} (over a "
+                  f"candidate set {k1_cands}), {len(pngs)} PNGs opened; \"{shown}\", on {card}")
         if torch.cuda.device_count() < MESH_SHARDS:
             # Without --device the mesh takes one card a shard: with fewer
             # cards it refuses, it does not put two shards on one card.
@@ -1878,7 +1966,7 @@ def phase_mesh_candidates_and_carriers(tp, torch, dev, card: str, reset_counts, 
     against the single-device functions.  Returns K1's launch counts."""
     from tempest_tpu_torch.ops.combine import combine_core
     from tempest_tpu_torch.ops.resample_kernel import frames_to_screens, \
-        frames_to_screens_from_words
+        frames_to_screens_candidates, frames_to_screens_from_words
     from tempest_tpu_torch.ops.scan import _channel_geometry, scan_centers
 
     mesh = tp.make_mesh(devices=[dev] * MESH_SHARDS)
@@ -1890,11 +1978,11 @@ def phase_mesh_candidates_and_carriers(tp, torch, dev, card: str, reset_counts, 
     tp.sharded_mode_search(z, SAMPLE_RATE, 60.0, cands, mesh)            # warm
     reset_counts()
     res = tp.sharded_mode_search(z, SAMPLE_RATE, 60.0, cands, mesh)
-    launches = {"search": frames_to_screens.launches_by_variant[2, False]}
-    padded = -(-len(cands) // MESH_SHARDS) * MESH_SHARDS
-    check(launches["search"] == padded == frames_to_screens.launches
+    launches = {"search": frames_to_screens_candidates.launches}
+    check(launches["search"] == MESH_SHARDS and frames_to_screens.launches == 0
           and frames_to_screens_from_words.launches == 0,
-          f"one K1 launch per candidate and pad ({launches['search']} for {padded})")
+          f"one K1 launch a shard over its candidates ({launches['search']} for {MESH_SHARDS} "
+          f"shards, {frames_to_screens.launches} single)")
     cpu = tp.sharded_mode_search(z.cpu(), SAMPLE_RATE, 60.0, cands,
                                  tp.make_mesh(devices=["cpu"] * MESH_SHARDS))
     score_rel = float(np.abs(res.scores - cpu.scores).max() / np.abs(cpu.scores).max())
@@ -2197,6 +2285,7 @@ def main(argv: list[str] | None = None) -> int:
         for wrapper in (frames_to_screens, frames_to_screens_from_words):
             wrapper.launches = 0
             wrapper.launches_by_variant.clear()
+        resample_kernel.frames_to_screens_candidates.launches = 0
         blanking_sync.launches = 0
         align_fold.launches = 0
         align_fold.launches_by_mode.clear()
@@ -2465,10 +2554,10 @@ def main(argv: list[str] | None = None) -> int:
             check(got.shape == (N_FRAMES, h, w) and bool(torch.isfinite(got).all()),
                   f"K1 on {name}, {label}: output finite, of the slice's shape")
             err = float((got - ref).abs().max())
-            rel = err / float(ref.abs().max())
-            print(f"[K1 {name}, {label}] max abs diff vs plain {err:.3e}, relative {rel:.3e} "
-                  f"(tolerance {K1_REL_TOL:g})")
-            check(rel < K1_REL_TOL, f"K1 on {name}, {label}, agrees with its plain version")
+            print(f"[K1 {name}, {label}] max abs diff vs plain {err:.3e} (equal to the bit: "
+                  f"{bool(torch.equal(got, ref))})")
+            check(bool(torch.equal(got, ref)),
+                  f"K1 on {name}, {label}, equals its plain version to the bit")
             del got, ref
             # First frame at sample 0 (tap -1 clamps onto it), last frame cut
             # by the block end; then the same from an unaligned source.
@@ -2479,13 +2568,14 @@ def main(argv: list[str] | None = None) -> int:
                 ref = frames_to_screens_plain(e[lo // per_sample: short], edge_starts, geom,
                                               edge_res, taps)
                 torch.cuda.synchronize()
-                edge_rel = float((got - ref).abs().max()) / float(ref.abs().max())
-                print(f"[K1 {name}, {label}] {what}: relative diff {edge_rel:.3e}")
-                check(edge_rel < K1_REL_TOL,
-                      f"K1 on {name}, {label}, {what}, agrees with its plain version")
+                edge_err = float((got - ref).abs().max())
+                print(f"[K1 {name}, {label}] {what}: max abs diff {edge_err:.3e}")
+                check(bool(torch.equal(got, ref)),
+                      f"K1 on {name}, {label}, {what}, equals its plain version to the bit")
                 del got, ref
             bound_ms, bound_by, nbytes = k1_bound(block, sample_bytes, N_FRAMES, raster, demod,
                                                   taps, exact)
+            parts = k1_bound_parts(block, sample_bytes, N_FRAMES, raster, demod, taps, exact)
             ms = time_call(torch, lambda: kernel(data, v_starts, *raster, residuals, taps))
             b2b_ms = time_back_to_back(
                 torch, lambda: kernel(data, v_starts, *raster, residuals, taps))
@@ -2495,12 +2585,15 @@ def main(argv: list[str] | None = None) -> int:
                     v_starts, geom, residuals, taps), calls=5)
             again_ms = time_back_to_back(torch, lambda: kernel(data, starts, *raster))
             measured[name, taps, exact] = dict(err=err, ms=ms, b2b_ms=b2b_ms, plain_ms=plain_ms,
-                                               bound_ms=bound_ms, bound_by=bound_by)
+                                               bound_ms=bound_ms, bound_by=bound_by,
+                                               bytes_bound_ms=parts["bytes"],
+                                               instruction_bound_ms=parts["instructions"])
             print(f"[K1 {name}, {label}] {ms:.4f} ms single call, {b2b_ms:.4f} ms back to back "
                   f"per {N_FRAMES}-frame block (2 taps, rounded cuts, timed right after: "
-                  f"{again_ms:.4f}); bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} MB, by "
-                  f"{bound_by}), share reached {bound_ms / b2b_ms:.3f} back to back; plain "
-                  f"{plain_ms:.4f} ms, on {card}")
+                  f"{again_ms:.4f}); bound {bound_ms:.4f} ms, by {bound_by} (bytes "
+                  f"{parts['bytes']:.4f} ms for {nbytes / 1e6:.1f} MB, instructions "
+                  f"{parts['instructions']:.4f} ms), share reached {bound_ms / b2b_ms:.3f} back "
+                  f"to back; plain {plain_ms:.4f} ms, on {card}")
         for shape in OTHER_SHAPES[:2] + OTHER_SHAPES[3:]:
             other = (frame_len, mode.height, mode.width, shape)
             got = frames_to_screens(env[: short], edge_starts, *other,
@@ -2509,9 +2602,10 @@ def main(argv: list[str] | None = None) -> int:
                 env[: short], edge_starts, screen_geometry(*other, dev),
                 None if residuals is None else residuals[:3].contiguous(), taps)
             torch.cuda.synchronize()
-            rel = float((got - ref).abs().max()) / float(ref.abs().max())
-            print(f"[K1 envelope, {label}] {shape[0]}x{shape[1]} screens: relative diff {rel:.3e}")
-            check(rel < K1_REL_TOL, f"K1, {label}, at {shape} agrees with its plain version")
+            print(f"[K1 envelope, {label}] {shape[0]}x{shape[1]} screens: max abs diff "
+                  f"{float((got - ref).abs().max()):.3e}")
+            check(bool(torch.equal(got, ref)),
+                  f"K1, {label}, at {shape} equals its plain version to the bit")
 
     # The shapes auto_reconstruct gives K1 on 640x480 @ 60 Hz at 32 Msps.
     small_mode = tp.ALL_VIDEO_MODES[SMALL_MODE_NAME]
@@ -2527,18 +2621,44 @@ def main(argv: list[str] | None = None) -> int:
         np.round(np.arange(small_frames) * small_spf).astype(np.int32)).to(dev)
     small_i16 = torch.from_numpy(small_words["am"]).to(dev)
     small_env = tp.am_envelope_from_iq(small_i16)
-    ref = frames_to_screens_plain(small_env, small_starts, screen_geometry(*small_raster, dev),
-                                  None, 4)
-    for name, fn, data in (("envelope", frames_to_screens, small_env),
-                           ("int16 words", frames_to_screens_from_words, small_i16)):
+    small_geom = screen_geometry(*small_raster, dev)
+    ref = frames_to_screens_plain(small_env, small_starts, small_geom, None, 4)
+    # The 4-tap envelope and int16 rows as auto_reconstruct launches them
+    # there (phase 8): their kernels-line numbers, the slice's as secondary.
+    measured_small = {}
+    for name, fn, data, demod in (("envelope", frames_to_screens, small_env, False),
+                                  ("int16 words", frames_to_screens_from_words, small_i16, True)):
         got = fn(data, small_starts, *small_raster, None, 4)
         torch.cuda.synchronize()
-        rel = float((got - ref).abs().max()) / float(ref.abs().max())
+        err = float((got - ref).abs().max())
         print(f"[K1 {name}, 4 taps] {small_frames} frames of {SMALL_MODE_NAME} at "
-              f"{SMALL_SAMPLE_RATE / 1e6:g} Msps: relative diff {rel:.3e}")
-        check(got.shape == (small_frames, h, w) and rel < K1_REL_TOL,
-              f"K1 on {name}, 4 taps, at the 640x480 shapes agrees with its plain version")
-    del ref, got, small_env, small_i16
+              f"{SMALL_SAMPLE_RATE / 1e6:g} Msps: max abs diff {err:.3e}")
+        check(got.shape == (small_frames, h, w) and bool(torch.equal(got, ref)),
+              f"K1 on {name}, 4 taps, at the 640x480 shapes equals its plain version to the bit")
+        del got
+        call = functools.partial(fn, data, small_starts, *small_raster, None, 4)
+        n_small = small_env.shape[0]
+        bound_ms, bound_by, nbytes = k1_bound(n_small, 4, small_frames, small_raster, demod, 4)
+        parts = k1_bound_parts(n_small, 4, small_frames, small_raster, demod, 4)
+        m = dict(err=err, ms=time_call(torch, call), b2b_ms=time_back_to_back(torch, call),
+                 device_ms=kernels_device_ms(torch, call, ("catmull_rom_tiles_kernel",))[
+                     "catmull_rom_tiles_kernel"],
+                 plain_ms=time_call(torch, lambda: frames_to_screens_plain(
+                     tp.am_envelope_from_iq(data) if demod else data, small_starts, small_geom,
+                     None, 4), calls=5),
+                 bound_ms=bound_ms, bound_by=bound_by, bytes_bound_ms=parts["bytes"],
+                 instruction_bound_ms=parts["instructions"])
+        check(m["device_ms"] > 0, f"the profiler traced K1's 4-tap kernel on {name}")
+        measured_small[name] = m
+        print(f"[K1 {name}, 4 taps] {small_frames} frames of {SMALL_MODE_NAME} at "
+              f"{SMALL_SAMPLE_RATE / 1e6:g} Msps: {m['ms']:.4f} ms single call, "
+              f"{m['b2b_ms']:.4f} ms back to back, {m['device_ms']:.4f} ms of device time; "
+              f"bound {bound_ms:.4f} ms, by {bound_by} (bytes {parts['bytes']:.4f} ms for "
+              f"{nbytes / 1e6:.1f} MB, instructions {parts['instructions']:.4f} ms), share "
+              f"reached {bound_ms / m['b2b_ms']:.3f} back to back, "
+              f"{bound_ms / m['device_ms']:.3f} of device time; plain {m['plain_ms']:.4f} ms, "
+              f"on {card}")
+    del ref, small_env, small_i16
 
     # ---- 6. the fidelity runtime: exact cuts through K1's residuals, sync skipped
     reset_counts()
@@ -2661,6 +2781,8 @@ def main(argv: list[str] | None = None) -> int:
         check(small_launches[kind] == 1
               and frames_to_screens.launches + frames_to_screens_from_words.launches == 1,
               f"auto_reconstruct ({kind}) went through K1's 4-tap entry once")
+        check(r.frames.shape[0] == small_frames,
+              f"auto_reconstruct ({kind}) rendered the {small_frames} frames phase 5 timed")
         check(r.image.shape == (h, w) and bool(np.isfinite(r.image).all()),
               f"auto_reconstruct ({kind}) image finite, of the screen's shape")
 
@@ -2750,6 +2872,29 @@ def main(argv: list[str] | None = None) -> int:
             "back_to_back_ms": m["b2b_ms"],
         }
 
+    def taps4_entry(name, key, launches, small=None):
+        """A 4-tap row: its own kernel since the redesign, its bound the larger
+        of bytes and instructions, both given.  With ``small``, the numbers
+        at the 640x480 shapes its path launches (phase 5's last part), and
+        the slice's as ``slice_*``."""
+        m = measured[key]
+        if small is None:
+            return dict(kernel_entry(name, key, launches), redesigned=True,
+                        source_kernel="catmull_rom_tiles_kernel",
+                        bytes_bound_ms=m["bytes_bound_ms"],
+                        instruction_bound_ms=m["instruction_bound_ms"])
+        s = measured_small[small]
+        return dict(kernel_entry(name, s, launches), redesigned=True,
+                    source_kernel="catmull_rom_tiles_kernel",
+                    shapes=f"{small_frames} frames of {SMALL_MODE_NAME} at "
+                           f"{SMALL_SAMPLE_RATE / 1e6:g} Msps onto {h}x{w}",
+                    device_ms=s["device_ms"], bytes_bound_ms=s["bytes_bound_ms"],
+                    instruction_bound_ms=s["instruction_bound_ms"],
+                    slice_ms=m["ms"], slice_back_to_back_ms=m["b2b_ms"],
+                    slice_plain_ms=m["plain_ms"], slice_bound_ms=m["bound_ms"],
+                    slice_bound_by=m["bound_by"], slice_bytes_bound_ms=m["bytes_bound_ms"],
+                    slice_instruction_bound_ms=m["instruction_bound_ms"])
+
     words_entry = kernel_entry("K1 frames_to_screens_from_words", "float32 words", fused_launches)
     # The runtime uploads float32 words, so the main path launches that
     # instantiation and the keys above are its numbers; the int16 one's:
@@ -2767,7 +2912,6 @@ def main(argv: list[str] | None = None) -> int:
     envelope_entry.update(
         combine_offline_launches=combine_launches["offline"],
         combine_live_launches=combine_launches["default"],
-        mesh_search_launches=mesh_launches["search"],
         mesh_combined_reconstruct_launches=mesh_launches["combined"])
     residual_envelope = measured["envelope", 2, True]
     envelope_entry.update(
@@ -2780,22 +2924,29 @@ def main(argv: list[str] | None = None) -> int:
         dict(kernel_entry("K1 frames_to_screens_from_words, residuals (float32 words)",
                           ("float32 words", 2, True), fidelity_launches),
              mesh_launches=mesh_out["fidelity"]),
-        kernel_entry("K1 frames_to_screens_from_words, 4 taps (int16 words)",
-                     ("int16 words", 4, False), small_launches["am"]),
-        kernel_entry("K1 frames_to_screens_from_words, 4 taps, residuals (float32 words)",
-                     ("float32 words", 4, True), fidelity4_launches),
-        kernel_entry("K1 frames_to_screens, 4 taps (envelope)",
-                     ("envelope", 4, False), small_launches["fm"]),
+        taps4_entry("K1 frames_to_screens_from_words, 4 taps (int16 words)",
+                    ("int16 words", 4, False), small_launches["am"], "int16 words"),
+        taps4_entry("K1 frames_to_screens_from_words, 4 taps, residuals (float32 words)",
+                    ("float32 words", 4, True), fidelity4_launches),
+        taps4_entry("K1 frames_to_screens, 4 taps (envelope)",
+                    ("envelope", 4, False), small_launches["fm"], "envelope"),
         # The operator surface's paths: 144 frames of 4 streams in one launch
-        # a batched step; one launch per candidate of the mode search, at a
-        # 150x200 grid; one launch a block under the mxu names.
+        # a batched step; one launch over the candidates of the mode search,
+        # at a 150x200 grid (one a shard of the sharded search); one launch a
+        # block under the mxu names.
         kernel_entry("K1 frames_to_screens_from_words, batched step (int16 words, 144 frames)",
                      batched["static cuts"], batched["static cuts"]["launches"]),
         kernel_entry("K1 frames_to_screens_from_words, batched step, residuals "
                      "(int16 words, 144 frames)", batched["carry_phase, exact cuts"],
                      batched["carry_phase, exact cuts"]["launches"]),
-        kernel_entry("K1 frames_to_screens, mode search (envelope, 2 frames at 150x200, "
-                     "quantised table)", search, search["launches"]),
+        dict(kernel_entry("K1 frames_to_screens_candidates, mode search (envelope, 26 "
+                          "candidates x 2 frames at 150x200, quantised tables, one launch)",
+                          search, search["launches"]),
+             device_ms=search["device_ms"], mesh_search_launches=mesh_launches["search"],
+             per_candidate_ms=search["per_candidate_ms"],
+             per_candidate_back_to_back_ms=search["per_candidate_back_to_back_ms"],
+             per_candidate_device_ms=search["per_candidate_device_ms"],
+             search_ms=search["search_ms"], refine_ms=search["refine_ms"]),
         kernel_entry("K1 frames_to_screens, quantised table (envelope, the mxu names)",
                      named["quantised"], named["quantised"]["launches"]),
     ]

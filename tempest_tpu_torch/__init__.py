@@ -76,6 +76,7 @@ from .ops.resample import frame_to_screen as frame_to_screen_gather
 from .ops.enhance import interp_kernel_ft, restore_image, wiener_gain
 from .ops.resample_kernel import (
     frames_to_screens,
+    frames_to_screens_candidates,
     frames_to_screens_from_words,
     frame_to_screen,
 )

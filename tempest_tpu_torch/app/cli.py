@@ -449,7 +449,7 @@ def cmd_search(args: argparse.Namespace) -> int:
         res = sharded_mode_search(iq, args.fs, timing.refresh_hz, cands, mesh,
                                   n_frames=args.frames or 2)
     else:
-        # Static scoring: one K1 launch per candidate geometry on a small
+        # Static scoring: one K1 launch over the candidate geometries on a small
         # score grid; also what auto_reconstruct(refine_with_search=True) uses.
         print(f"fv = {timing.refresh_hz:.4f} Hz; static-table scoring "
               f"{len(cands)} candidate modes")

@@ -13,8 +13,9 @@ Every function takes a leading frame axis written out ([F, n] profiles,
 [F, h, w] frames) instead of vmap.  Prefix sums stay float32: bf16 rounding
 of the large-magnitude prefix corrupted the argmax in the JAX package.  The
 registration is the roll form of the JAX package (``align_frame_subpixel``);
-its circulant-matmul form is the same math up to f32 reassociation and has
-no counterpart here.
+its circulant-matmul form (``shift_matrix``, ``align_frame_subpixel_matmul``)
+is here too, in plain torch with the same taps: the same math up to f32
+reassociation, two matrix products a frame, which no step of the port calls.
 
 On the CPU every function here is plain torch.  On a CUDA tensor
 ``frame_sync`` and ``frame_sync_subpixel`` launch K2 (``ops.sync_kernel``),
@@ -43,6 +44,8 @@ __all__ = [
     "frame_sync_subpixel",
     "align_frame",
     "align_frame_subpixel",
+    "align_frame_subpixel_matmul",
+    "shift_matrix",
 ]
 
 
@@ -295,3 +298,43 @@ def align_frame_subpixel(
     from .align_kernel import align_fold
 
     return align_fold(frames, s_y, s_x, align=interp)[0]
+
+
+def shift_matrix(n: int, s: torch.Tensor | float, interp: str = "linear",
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The (n, n) circulant fractional-shift operator of shift ``s``, built on
+    ``s``'s device: ``S @ v`` equals the roll form's shift of ``v`` by ``-s``
+    along a length-``n`` axis.  A [F] tensor of shifts gives [F, n, n].  Each
+    tap adds its weight where ``col == (row + floor(s) + off) % n``, in tap
+    order from a zero matrix, as the JAX package builds it."""
+    s = torch.as_tensor(s)
+    if not s.is_floating_point():
+        s = s.to(torch.float32)
+    k = torch.floor(s).to(torch.int64)
+    f = (s - k.to(s.dtype)).to(dtype)
+    rows = torch.arange(n, device=s.device)[:, None]
+    cols = torch.arange(n, device=s.device)[None, :]
+    k, f = k[..., None, None], f[..., None, None]
+    offs, ws = _interp_weights(f, interp)
+    out = torch.zeros((*s.shape, n, n), dtype=dtype, device=s.device)
+    for off, w in zip(offs, ws):
+        out = out + w * (cols == (rows + k + off) % n).to(dtype)
+    return out
+
+
+def align_frame_subpixel_matmul(
+    image: torch.Tensor,
+    s_y: torch.Tensor | float,
+    s_x: torch.Tensor | float,
+    interp: str = "linear",
+) -> torch.Tensor:
+    """:func:`align_frame_subpixel` as two shift-operator products,
+    ``S_y @ image @ S_x^T``: the same separable interpolation, equal up to
+    f32 reassociation.  ``image`` is (h, w) with scalar shifts, or [F, h, w]
+    with [F] shifts."""
+    h, w = image.shape[-2:]
+    s_y = torch.as_tensor(s_y, device=image.device)
+    s_x = torch.as_tensor(s_x, device=image.device)
+    sy = shift_matrix(h, s_y, interp, image.dtype)
+    sx = shift_matrix(w, s_x, interp, image.dtype)
+    return torch.matmul(torch.matmul(sy, image), sx.transpose(-1, -2))

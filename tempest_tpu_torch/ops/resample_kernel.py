@@ -34,12 +34,23 @@ go to the card (``quantise_line_frac``): the read of the JAX package's
 ``mxu`` resamplers, through the same kernel and the same plain version.  The
 line starts, and so the staging plan, do not change.
 
+``frames_to_screens_candidates`` renders the same frames under each raster of
+a candidate set (the mode search) in ONE launch: every candidate's line
+tables and tile plan are stacked into one int32 table on the card
+(``candidate_table``, cached per set as ``screen_geometry`` is per raster),
+the kernel's tiles run over (candidate, frame, tile), and each pixel is the
+same expression as in ``frames_to_screens`` of that candidate alone: the
+[C, F, h, w] screens equal C launches to the bit.
+
 ``launch_cost`` counts a launch's bytes and operations; the bound that
 ``chip_smoke.py`` prints and what a roofline count of a step
 (``utils.roofline``) is told of each launch are that one computation.
+``launch_instructions`` counts the least instructions the launch issues: with
+4 taps that bound is about as long as the bytes' (longer on int16 words at
+1080p60, 20 Msps).
 
-The kernel (``csrc/resample.cu``) is bound by memory: a block's input is
-read once and its screens are written once, with nothing to reuse but the
+The 2-tap kernel (``csrc/resample.cu``) is bound by memory: a block's input
+is read once and its screens are written once, with nothing to reuse but the
 scan line two neighbouring rows share.  Its design moves those bytes once
 and wide: a tile of a few output rows (``ROWS_PER_TILE``) reads one contiguous run
 of the block, staged with 16-byte asynchronous copies into one of two
@@ -47,7 +58,12 @@ shared-memory buffers while the previous tile is computed (``tile_plan``
 sizes them); I/Q pairs become
 envelope samples in shared memory; every thread writes four adjacent pixels
 as one 16-byte store.  Tiles that touch the block end are staged sample by
-sample through the index clamp.
+sample through the index clamp.  The 4-tap read needs about as many issue
+slots as it needs bytes (``launch_instructions``), and has a kernel of its
+own: the same tiles and buffers with one barrier a tile (the next tile's
+run started right after it, as one bulk copy), the columns' positions from
+a table where it costs no block, and fewer instructions a pixel for the
+same roundings.
 
 For a tensor on the CPU each wrapper runs the plain PyTorch version below.
 For a CUDA tensor it launches the hand-written kernel or raises; it never
@@ -73,10 +89,17 @@ __all__ = [
     "frames_to_screens",
     "frames_to_screens_from_words",
     "frames_to_screens_plain",
+    "frames_to_screens_candidates",
+    "frames_to_screens_candidates_plain",
+    "CandidateTable",
+    "candidate_table",
+    "candidates_launch_cost",
     "frame_to_screen",
     "catmull_rom_weights",
     "line_reach",
     "launch_cost",
+    "launch_instructions",
+    "line_loads",
     "frame_samples_read",
     "quantise_line_frac",
 ]
@@ -87,8 +110,10 @@ __all__ = [
 # share an SM.
 ROWS_PER_TILE = {4: 8, 8: 4}
 # Dynamic shared memory one block may ask for: the card's 227 KB less the
-# 768 bytes of the kernel's static row table.
+# kernel's static row table, 768 bytes (4 taps: two of them and two 8-byte
+# mbarriers).
 MAX_SHARED_BYTES = 227 * 1024 - 768
+MAX_SHARED_BYTES_4 = 227 * 1024 - 2 * 768 - 2 * 8
 # What the kernel stages: code and bytes per sample, by the tensor's dtype.
 _ENVELOPE = (0, 4)
 _WORDS = {torch.int16: (1, 4), torch.float32: (2, 8)}
@@ -249,24 +274,27 @@ def tile_run_cap(
 
 def tile_plan(
     frame_len: int, y_t: int, x_t: int, out_shape: tuple[int, int], sample_bytes: int,
-    reach: int = 0,
+    reach: int = 0, taps: int = 2,
 ) -> tuple[int, int]:
     """(rows of a tile, samples of a stage buffer) for staged samples of
     ``sample_bytes``: ``ROWS_PER_TILE`` rows where a block's shared memory
     holds them.  A block has two stage buffers of the run and, for 8-byte
-    pairs, a buffer for the envelope they become.  A screen of far fewer
-    rows than the raster has scan lines spreads a tile's rows over a long
-    run, so the rows are halved, down to one, until the buffers fit."""
+    pairs, a buffer for the envelope they become (the 4-tap kernel adds a
+    table of the columns' positions where the SM holds as many blocks with
+    it as without).  A screen of far fewer rows than the raster
+    has scan lines spreads a tile's rows over a long run, so the rows are
+    halved, down to one, until the buffers fit."""
     per_sample = 2 * sample_bytes + (4 if sample_bytes == 8 else 0)
+    budget = MAX_SHARED_BYTES_4 if _check_taps(taps) == 4 else MAX_SHARED_BYTES
     rows = ROWS_PER_TILE[sample_bytes]
     while (rows > 1 and tile_run_cap(frame_len, y_t, x_t, out_shape, rows, reach) * per_sample
-           > MAX_SHARED_BYTES):
+           > budget):
         rows //= 2
     run_cap = tile_run_cap(frame_len, y_t, x_t, out_shape, rows, reach)
-    if run_cap * per_sample > MAX_SHARED_BYTES:
+    if run_cap * per_sample > budget:
         raise ValueError(
             f"a tile of {rows} rows stages {run_cap * per_sample} bytes, more than the "
-            f"{MAX_SHARED_BYTES} bytes of shared memory of one block")
+            f"{budget} bytes of shared memory of one block")
     return rows, run_cap
 
 
@@ -313,6 +341,75 @@ def launch_cost(n_samples: int, sample_bytes: int, n_frames: int, frame_len: int
     return nbytes, flops, (samples if demod else 0)
 
 
+def _check_launch(src: torch.Tensor, n_samples: int, frame_starts: torch.Tensor) -> int:
+    """The checks every K1 launch makes of its source and frame starts;
+    returns the frame count."""
+    if src.device.type != "cuda":
+        raise ValueError(f"K1 runs on CUDA or CPU tensors, not {src.device.type}")
+    if frame_starts.dtype != torch.int32:
+        raise TypeError(f"K1 takes int32 frame starts, got {frame_starts.dtype}")
+    if not (src.is_contiguous() and frame_starts.is_contiguous()):
+        raise ValueError("K1 takes contiguous tensors")
+    n_frames = frame_starts.shape[0]
+    if n_frames == 0 or n_samples == 0:
+        raise ValueError(f"K1 takes at least one frame and one sample, got {n_frames}, {n_samples}")
+    # Frame starts index the block as int32: a block whose sample count does
+    # not fit would wrap them.
+    if n_samples > np.iinfo(np.int32).max:
+        raise ValueError(
+            f"K1 takes int32 frame starts: a block of {n_samples} samples does not fit")
+    return n_frames
+
+
+# The least SASS instructions K1's function needs, whatever its loops issue
+# (``launch_instructions``).  A scan line read: its position (add, max),
+# floor and fraction (a round-down add of 2^23, two differences), the tap
+# address, and the taps' weighted sum: 2 taps ``1 - t``, two products and an
+# add; 4 taps the Catmull-Rom weights (15 operations with the exact products
+# fused), four products and three adds.  Its loads are counted apart
+# (``line_loads``).
+LINE_INSTRUCTIONS = {2: 2 + 3 + 1 + 4, 4: 2 + 3 + 1 + 15 + 7}
+# A pixel besides its two lines: its column's ``c·delta``, the blend (two
+# products and an add), a quarter of a 16-byte store.
+PIXEL_INSTRUCTIONS = 1 + 3 + 0.25
+# A sample's demod: two products, an add and a correctly rounded square root
+# (an approximation and three fix-ups); int16 words two conversions more.
+DEMOD_INSTRUCTIONS = {4: 2 + 2 + 1 + 4, 8: 2 + 1 + 4}
+
+
+def line_loads(taps: int, delta: float, group: int) -> float:
+    """Shared-memory loads one pixel's read of one scan line needs: the
+    distinct samples that the taps of a work item of ``group`` adjacent
+    columns cover, ``(group - 1)·delta + taps`` on average over the
+    positions' fractions, shared by its ``group`` columns, and no more than
+    ``taps``."""
+    return min(float(taps), ((group - 1) * float(delta) + taps) / group)
+
+
+def launch_instructions(n_samples: int, sample_bytes: int, n_frames: int, frame_len: int,
+                        y_t: int, x_t: int, out_shape: tuple[int, int], demod: bool,
+                        taps: int = 2, exact: bool = False) -> float:
+    """The least instructions one K1 launch issues, over all lanes: what its
+    instruction bound is computed from, beside :func:`launch_cost`'s bytes.
+    Each pixel's two line reads and the rest of the pixel
+    (``LINE_INSTRUCTIONS``, ``PIXEL_INSTRUCTIONS``), the reads' loads as
+    :func:`line_loads` counts them for the kernel's work item (four columns
+    when the width is a multiple of 4, else one); each sample the line
+    tables address copied in 16-byte requests, and demodulated when the
+    words are I/Q (``DEMOD_INSTRUCTIONS``).  The card issues one instruction
+    a cycle on each of its schedulers (``ops.sync_kernel.H100_ISSUE_PER_S``
+    lanes a second)."""
+    h, w = int(out_shape[0]), int(out_shape[1])
+    taps = _check_taps(taps)
+    delta = _line_tables(int(frame_len), int(y_t), int(x_t), (h, w))[3]
+    per_frame = frame_samples_read(int(frame_len), int(y_t), int(x_t), (h, w),
+                                   sum(line_reach(taps, exact)))
+    samples = min(int(n_samples), n_frames * per_frame)
+    per_sample = sample_bytes / 16 + (DEMOD_INSTRUCTIONS[sample_bytes] if demod else 0)
+    per_line = LINE_INSTRUCTIONS[taps] + line_loads(taps, delta, 4 if w % 4 == 0 else 1)
+    return n_frames * h * w * (2 * per_line + PIXEL_INSTRUCTIONS) + samples * per_sample
+
+
 def _launch(
     src: torch.Tensor,
     n_samples: int,
@@ -328,15 +425,7 @@ def _launch(
 ) -> torch.Tensor:
     """Check the arguments and launch the kernel on ``src``'s device, on the
     current stream.  ``staged`` is (what ``src`` holds, bytes per sample)."""
-    if src.device.type != "cuda":
-        raise ValueError(f"K1 runs on CUDA or CPU tensors, not {src.device.type}")
-    if frame_starts.dtype != torch.int32:
-        raise TypeError(f"K1 takes int32 frame starts, got {frame_starts.dtype}")
-    if not (src.is_contiguous() and frame_starts.is_contiguous()):
-        raise ValueError("K1 takes contiguous tensors")
-    n_frames = frame_starts.shape[0]
-    if n_frames == 0 or n_samples == 0:
-        raise ValueError(f"K1 takes at least one frame and one sample, got {n_frames}, {n_samples}")
+    n_frames = _check_launch(src, n_samples, frame_starts)
     if frac_offsets is not None:
         if frac_offsets.dtype != torch.float32 or not frac_offsets.is_contiguous():
             raise TypeError("K1 takes contiguous float32 frac_offsets")
@@ -345,12 +434,7 @@ def _launch(
     out_shape = (int(out_shape[0]), int(out_shape[1]))
     raster = (int(frame_len), int(y_t), int(x_t), out_shape)
     geom = screen_geometry(*raster, src.device, num_phases)
-    rows, run_cap = tile_plan(*raster, sample_bytes, lead + extra)
-    # Frame starts index the block as int32: a block whose sample count does
-    # not fit would wrap them.
-    if n_samples > np.iinfo(np.int32).max:
-        raise ValueError(
-            f"K1 takes int32 frame starts: a block of {n_samples} samples does not fit")
+    rows, run_cap = tile_plan(*raster, sample_bytes, lead + extra, interp_taps)
     from .. import _build
 
     lib = _build.load_library("resample")
@@ -488,3 +572,160 @@ def frame_to_screen(
     if offset is not None:
         frac = torch.as_tensor(offset, dtype=torch.float32, device=sig.device).reshape(1)
     return frames_to_screens(sig, starts, sig.shape[0], y_t, x_t, out_shape, frac, interp_taps)[0]
+
+
+# Int32 words of a candidate's header in the stacked table, and their order
+# (``csrc/resample.cu`` CandField): delta's float bits, the span, rows a
+# tile, tiles a frame, the tiles a frame of the candidates before it take.
+_CAND_WORDS = 5
+
+
+@dataclasses.dataclass(frozen=True)
+class CandidateTable:
+    """The line tables and tile plans of a candidate set, stacked into one
+    int32 tensor on one device: a header of ``_CAND_WORDS`` words a
+    candidate, then line_start [C, h, 2], line_frac [C, h, 2] and wr [C, h]
+    (the floats as their bits).  ``geometries`` are each candidate's
+    :class:`ScreenGeometry` as views of that tensor."""
+
+    table: torch.Tensor
+    geometries: tuple[ScreenGeometry, ...]
+    tiles_per_frame: int                   # every candidate's tiles of one frame
+    run_cap: int                           # the largest stage buffer, in samples
+    samples_per_frame: int                 # samples of a frame any candidate addresses
+
+
+def _union_length(starts: np.ndarray, lengths: np.ndarray) -> int:
+    """Length of the union of the intervals ``[starts, starts + lengths)``."""
+    order = np.argsort(starts, kind="stable")
+    total, reach = 0, None
+    for s, e in zip(starts[order].tolist(), (starts + lengths)[order].tolist()):
+        if reach is None or s >= reach:
+            total += e - s
+            reach = e
+        elif e > reach:
+            total += e - reach
+            reach = e
+    return int(total)
+
+
+@functools.lru_cache(maxsize=64)
+def candidate_table(
+    frame_len: int,
+    rasters: tuple[tuple[int, int], ...],
+    out_shape: tuple[int, int],
+    device: torch.device,
+    num_phases: int | None = None,
+) -> CandidateTable:
+    """Build the stacked table of the candidate rasters once per (set,
+    device) and keep it on ``device``: each candidate's line tables as
+    :func:`screen_geometry` builds them, its span, and the tile plan
+    :func:`tile_plan` gives it for a float32 envelope (2 taps, no
+    residuals).  One upload; a search over the same set rebuilds nothing."""
+    if not rasters:
+        raise ValueError("empty candidate set")
+    h = int(out_shape[0])
+    out_shape = (h, int(out_shape[1]))
+    heads, starts, fracs, wrs, spans = [], [], [], [], []
+    before, run_cap = 0, 4
+    for y_t, x_t in rasters:
+        line_start, line_frac, wr, delta, span = _line_tables(frame_len, y_t, x_t, out_shape)
+        if num_phases is not None:
+            line_frac = quantise_line_frac(line_frac, num_phases)
+        rows, cap = tile_plan(frame_len, y_t, x_t, out_shape, 4)
+        tiles = -(-h // rows)
+        heads.append([int(np.float32(delta).view(np.int32)), span, rows, tiles, before])
+        before += tiles
+        run_cap = max(run_cap, cap)
+        starts.append(line_start.astype(np.int32))
+        fracs.append(line_frac.astype(np.float32))
+        wrs.append(np.asarray(wr, np.float32))
+        spans.append((delta, span))
+    n = len(rasters)
+    words = np.concatenate([
+        np.asarray(heads, np.int32).reshape(-1), np.stack(starts).reshape(-1),
+        np.stack(fracs).view(np.int32).reshape(-1), np.stack(wrs).view(np.int32).reshape(-1)])
+    table = torch.from_numpy(words).to(torch.device(device))
+    base = _CAND_WORDS * n
+    geoms = tuple(
+        ScreenGeometry(
+            line_start=table[base + 2 * h * c: base + 2 * h * (c + 1)].view(h, 2),
+            line_frac=table[base + 2 * h * (n + c): base + 2 * h * (n + c + 1)]
+            .view(torch.float32).view(h, 2),
+            wr=table[base + 4 * h * n + h * c: base + 4 * h * n + h * (c + 1)].view(torch.float32),
+            delta=delta, span=span, out_shape=out_shape)
+        for c, (delta, span) in enumerate(spans))
+    reads = np.stack(starts).reshape(-1).astype(np.int64)
+    lengths = np.repeat(np.array([span for _, span in spans], np.int64), 2 * h)
+    return CandidateTable(table=table, geometries=geoms, tiles_per_frame=before, run_cap=run_cap,
+                          samples_per_frame=_union_length(reads, lengths))
+
+
+def candidates_launch_cost(n_samples: int, n_frames: int, table: CandidateTable) -> tuple[int, int]:
+    """(bytes, float32 operations) of one launch over a candidate set: the
+    samples of the block that any candidate's line tables address, read
+    once; the frame starts and the stacked table read once; every
+    candidate's screens written once.  Operations: each pixel's 2-tap read,
+    as :func:`launch_cost` counts it."""
+    h, w = table.geometries[0].out_shape
+    pixels = len(table.geometries) * n_frames * h * w
+    samples = min(int(n_samples), n_frames * table.samples_per_frame)
+    nbytes = samples * 4 + 4 * n_frames + 4 * table.table.numel() + 4 * pixels
+    return nbytes, pixels * (1 + 2 * 8 + 3)
+
+
+def frames_to_screens_candidates_plain(
+    env: torch.Tensor, frame_starts: torch.Tensor, table: CandidateTable,
+) -> torch.Tensor:
+    """The plain PyTorch version of the candidate launch, on any device:
+    :func:`frames_to_screens_plain` of each candidate's geometry (views of
+    the stacked table), stacked to [C, F, h, w]."""
+    return torch.stack([frames_to_screens_plain(env, frame_starts, geom)
+                        for geom in table.geometries])
+
+
+def frames_to_screens_candidates(
+    env: torch.Tensor,
+    frame_starts: torch.Tensor,
+    frame_len: int,
+    rasters,
+    out_shape: tuple[int, int] = RENDER_SIZE,
+    num_phases: int | None = None,
+) -> torch.Tensor:
+    """The frames of a block under every candidate raster → (C, F, h, w)
+    float32 screens, ``[c]`` equal to ``frames_to_screens(env, frame_starts,
+    frame_len, *rasters[c], out_shape, None, 2, num_phases)`` to the bit.
+
+    ``rasters`` are the candidates' (y_t, x_t): raster lines and raster
+    width.  On a CUDA tensor this is ONE K1 launch whatever the number of
+    candidates, its tiles over (candidate, frame, tile), the screens written
+    in place; the stacked table is built and uploaded once per set."""
+    rasters = tuple((int(y), int(x)) for y, x in rasters)
+    _check_block(env, frame_starts, None, 2, "env")
+    table = candidate_table(int(frame_len), rasters, tuple(out_shape), env.device, num_phases)
+    if env.device.type == "cpu":
+        return frames_to_screens_candidates_plain(env, frame_starts, table)
+    if env.dtype != torch.float32:
+        raise TypeError(f"K1 takes a float32 envelope, got {env.dtype}")
+    n_frames = _check_launch(env, env.shape[0], frame_starts)
+    from .. import _build
+
+    lib = _build.load_library("resample")
+    h, w = table.geometries[0].out_shape
+    out = torch.empty((len(rasters), n_frames, h, w), dtype=torch.float32, device=env.device)
+    with torch.cuda.device(env.device):
+        stream = torch.cuda.current_stream(env.device).cuda_stream
+        rc = lib.tt_resample_candidates(
+            env.data_ptr(), env.shape[0], frame_starts.data_ptr(), n_frames,
+            table.table.data_ptr(), len(rasters), n_frames * table.tiles_per_frame,
+            out.data_ptr(), h, w, table.run_cap, stream)
+    if rc != 0:
+        raise RuntimeError(f"K1 launch over {len(rasters)} candidates failed with "
+                           f"cudaError_t {rc}")
+    report_launch(*candidates_launch_cost(env.shape[0], n_frames, table))
+    frames_to_screens_candidates.launches += 1
+    return out
+
+
+# K1 launches over a candidate set since the last reset.
+frames_to_screens_candidates.launches = 0

@@ -30,8 +30,9 @@ adds to ``A·e``.  So a mesh step is the same float32 arithmetic as the
 single-device step on blocks of S samples, span by span: equal to the bit.
 
 **Candidate shards.**  Each shard scores its slice of the candidate modes on
-the same envelope: one K1 launch per candidate with that candidate's line
-table, unquantised (the exact-geometry read of the JAX package's
+the same envelope: one K1 launch over its candidates
+(``frames_to_screens_candidates``: every candidate's line table,
+unquantised, the exact-geometry read of the JAX package's
 ``frame_to_screen_dynamic``), one batched ``frame_sync``; the winner is the
 argmax over the gathered scores.
 
@@ -52,7 +53,7 @@ from ..ops.combine import CombineResult, _demod_channels, _gated_weights, _row_s
 from ..ops.demod import am_envelope_from_iq
 from ..ops.framesync import frame_sync
 from ..ops.resample import RENDER_SIZE, round_to_bfloat16
-from ..ops.resample_kernel import frames_to_screens
+from ..ops.resample_kernel import frames_to_screens_candidates
 from ..ops.scan import (
     ScanResult,
     _band_slices,
@@ -124,12 +125,13 @@ def mode_search_static(
     ``iq`` is complex samples, or a real signal taken as an envelope that is
     demodulated already.  The AM envelope is taken once and rounded to
     bfloat16 (as the JAX package's select matmuls round it, so that the
-    scores compare); then each candidate is ONE K1 launch with its own
-    phase-quantised line table (a geometry is a host table, so C candidates
-    are C launches on one stream with no host synchronisation between them),
-    and one batched ``frame_sync`` scores all C·F screens.  Where the JAX
-    program pads each frame with its last sample, K1 reads on into the next
-    frame: the bottom row of a screen may differ, the scores barely."""
+    scores compare); then ONE K1 launch renders every candidate's frames
+    with its own phase-quantised line table (``frames_to_screens_candidates``:
+    the candidates' tables stacked on the card once per set, as the JAX
+    program stacks them over the candidates), and one batched ``frame_sync``
+    scores all C·F screens.  Where the JAX program pads each frame with its
+    last sample, K1 reads on into the next frame: the bottom row of a screen
+    may differ, the scores barely."""
     if not candidates:
         raise ValueError("empty candidate set")
     spf = fs / refresh_hz
@@ -146,11 +148,10 @@ def mode_search_static(
         raise ValueError(f"need {need} samples for the mode search, got {env.shape[0]}")
     env = round_to_bfloat16(env[:need]).contiguous()
     fstarts = torch.from_numpy(starts.astype(np.int32)).to(env.device)
-    screens = torch.cat([
-        frames_to_screens(env, fstarts, frame_len, m.height, m.width, tuple(score_size),
-                          None, 2, num_phases)
-        for _, m in candidates])                                   # [C·F, h, w]
-    _, _, score = frame_sync(screens)
+    screens = frames_to_screens_candidates(
+        env, fstarts, frame_len, [(m.height, m.width) for _, m in candidates],
+        tuple(score_size), num_phases)                             # [C, F, h, w]
+    _, _, score = frame_sync(screens.reshape(-1, *screens.shape[2:]))
     return _search_result(score.reshape(len(candidates), n_frames).mean(dim=1).cpu().numpy(),
                           candidates)
 
@@ -389,13 +390,12 @@ def _padded_candidate_arrays(candidates: list[tuple[str, VideoMode]],
 
 def _candidate_scores(env, starts: np.ndarray, frame_len: int, ys, xs, render_size) -> torch.Tensor:
     """Mean sync contrast over the frames of each candidate (y_t, x_t): one
-    K1 launch per candidate with its unquantised line table, one batched
-    ``frame_sync`` over all the screens."""
+    K1 launch over the candidates with their unquantised line tables, one
+    batched ``frame_sync`` over all the screens."""
     fstarts = torch.from_numpy(starts.astype(np.int32)).to(env.device)
-    screens = torch.cat([frames_to_screens(env, fstarts, frame_len, int(y), int(x),
+    screens = frames_to_screens_candidates(env, fstarts, frame_len, list(zip(ys, xs)),
                                            tuple(render_size))
-                         for y, x in zip(ys, xs)])
-    _, _, score = frame_sync(screens)
+    _, _, score = frame_sync(screens.reshape(-1, *screens.shape[2:]))
     return score.reshape(len(ys), len(starts)).mean(dim=1)
 
 
@@ -420,9 +420,9 @@ def sharded_mode_search(
 
     ``iq``: complex samples (host complex is uploaded as interleaved float32
     words) or a demodulated real envelope.  The envelope is taken once on
-    ``mesh.device`` and copied to the other shards' devices; each candidate
-    is one K1 launch at ``render_size`` with its exact line table, and each
-    shard scores its candidates in one batched ``frame_sync``."""
+    ``mesh.device`` and copied to the other shards' devices; each shard
+    renders its candidates in one K1 launch at ``render_size`` with their
+    exact line tables and scores them in one batched ``frame_sync``."""
     if not candidates:
         raise ValueError("empty candidate set")
     n = mesh.shape[axis]

@@ -122,3 +122,48 @@ def test_align_frame_subpixel_matches_jax(interp):
         for f, a, b in zip(img, sy, sx)])
     assert np.abs(got - roll).max() < 1e-6
     assert np.abs(got - mat).max() < 1e-5
+
+
+# Shifts of both signs, fractional and whole, and beyond the axis (48 rows,
+# 64 columns) in both directions: the operator wraps them modulo n.
+MATMUL_SHIFTS = [(2.6, -1.3), (-0.49, 63.5), (40.25, 0.125), (0.0, 7.0), (-130.75, 200.5)]
+
+
+@pytest.mark.parametrize("interp", ["linear", "cubic"])
+@pytest.mark.parametrize("n, s", [(48, 2.6), (48, -0.49), (64, 63.5), (64, -130.75), (48, 200.5),
+                                  (64, 7.0)])
+def test_shift_matrix_matches_jax(n, s, interp):
+    """The operator's entries are the taps' weights, computed in float32 with
+    the same operations; XLA may contract a product and a sum of the cubic
+    weights into one FMA: a few ulps of a weight of at most 1 (1e-6)."""
+    got = pfs.shift_matrix(n, torch.tensor(s, dtype=torch.float32), interp)
+    ref = np.asarray(jfs.shift_matrix(n, jnp.float32(s), interp))
+    assert got.shape == ref.shape == (n, n) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-6)
+    # Each row holds the taps of one output sample: their weights sum to 1.
+    np.testing.assert_allclose(got.sum(dim=1).numpy(), 1.0, atol=1e-6)
+
+
+@pytest.mark.parametrize("interp", ["linear", "cubic"])
+def test_align_frame_subpixel_matmul_matches_jax_and_the_roll_form(interp):
+    """Against the JAX package's matrix form and against the port's roll form
+    within 1e-5: two matrix products of 48 and 64 terms sum the same two or
+    four non-zero products in another order (f32 reassociation on values
+    below 2).  A [F] batch equals the frames taken one by one."""
+    rng = np.random.default_rng(5)
+    img = rng.random((len(MATMUL_SHIFTS), *SHAPE), dtype=np.float32)
+    sy = np.array([a for a, _ in MATMUL_SHIFTS], np.float32)
+    sx = np.array([b for _, b in MATMUL_SHIFTS], np.float32)
+    got = pfs.align_frame_subpixel_matmul(torch.from_numpy(img), torch.from_numpy(sy),
+                                          torch.from_numpy(sx), interp)
+    assert got.shape == img.shape
+    ref = np.stack([np.asarray(jfs.align_frame_subpixel_matmul(
+        jnp.asarray(f), jnp.float32(a), jnp.float32(b), interp))
+        for f, a, b in zip(img, sy, sx)])
+    assert np.abs(got.numpy() - ref).max() < 1e-5
+    one = [pfs.align_frame_subpixel_matmul(torch.from_numpy(f), float(a), float(b), interp)
+           for f, a, b in zip(img, sy, sx)]
+    assert torch.equal(got, torch.stack(one))
+    roll = pfs.align_frame_subpixel(torch.from_numpy(img), torch.from_numpy(sy),
+                                    torch.from_numpy(sx), interp)
+    assert np.abs(got.numpy() - roll.numpy()).max() < 1e-5

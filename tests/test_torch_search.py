@@ -1,6 +1,6 @@
-"""``mode_search_static`` of the port (one K1 launch per candidate geometry,
-one batched ``frame_sync``) against the JAX package's static-table search,
-and ``auto_reconstruct(refine_with_search=True)``.
+"""``mode_search_static`` of the port (one K1 launch over the candidate
+geometries, one batched ``frame_sync``) against the JAX package's
+static-table search, and ``auto_reconstruct(refine_with_search=True)``.
 
 Shapes: 640x480 @ 60 Hz at 4 Msps, the JAX defaults otherwise (2 frames, a
 150x200 score grid, 16 phases).  Tolerance on the scores: both sides round
@@ -95,17 +95,20 @@ def test_options_and_errors(capture):
 
 
 def test_one_resample_per_candidate_at_the_score_grid(capture, monkeypatch):
+    """One call renders every candidate at the score grid: their rasters in
+    the candidates' order, 16 phases, 2 frames of the float32 envelope."""
     calls = []
-    real = psharded.frames_to_screens
+    real = psharded.frames_to_screens_candidates
 
-    def counted(env, starts, frame_len, y_t, x_t, shape, fracs, taps, num_phases):
-        calls.append((y_t, x_t, shape, taps, num_phases, starts.numel(), env.dtype))
-        return real(env, starts, frame_len, y_t, x_t, shape, fracs, taps, num_phases)
+    def counted(env, starts, frame_len, rasters, shape, num_phases):
+        calls.append((list(rasters), shape, num_phases, starts.numel(), env.dtype))
+        return real(env, starts, frame_len, rasters, shape, num_phases)
 
-    monkeypatch.setattr(psharded, "frames_to_screens", counted)
+    monkeypatch.setattr(psharded, "frames_to_screens_candidates", counted)
     cands = tp.candidate_modes(60.0, tol_hz=0.5)
     psharded.mode_search_static(capture.iq, FS, 60.0, cands, device="cpu")
-    assert calls == [(m.height, m.width, (150, 200), 2, 16, 2, torch.float32) for _, m in cands]
+    assert calls == [([(m.height, m.width) for _, m in cands], (150, 200), 16, 2,
+                      torch.float32)]
 
 
 def test_a_score_grid_of_few_rows_halves_the_tile_rows():
@@ -176,10 +179,14 @@ def test_refine_with_search_corrects_a_wrong_lock(capture, monkeypatch):
 
 @pytest.mark.cuda
 def test_search_on_the_card_launches_k1_once_per_candidate(cuda_device, capture):
+    """Since K1 takes the candidate set in one launch: once a search, and
+    not once per candidate."""
     cands = tp.candidate_modes(60.0, tol_hz=0.5)
     before = resample_kernel.frames_to_screens.launches
+    before_set = resample_kernel.frames_to_screens_candidates.launches
     got = psharded.mode_search_static(capture.iq, FS, 60.0, cands, device=cuda_device)
-    assert resample_kernel.frames_to_screens.launches == before + len(cands)
+    assert resample_kernel.frames_to_screens_candidates.launches == before_set + 1
+    assert resample_kernel.frames_to_screens.launches == before
     ref = psharded.mode_search_static(capture.iq, FS, 60.0, cands, device="cpu")
     assert got.best_index == ref.best_index
     np.testing.assert_allclose(got.scores, ref.scores, rtol=SCORE_REL)

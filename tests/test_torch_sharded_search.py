@@ -125,16 +125,18 @@ def test_search_refusals(capture, cands):
 # ----------------------------------------------------------------- the card
 @pytest.mark.cuda
 def test_sharded_search_on_one_card_equals_the_cpu_mesh(cuda_device, capture, cands):
-    """Four shards on one card: one K1 launch per candidate, the winner and
-    the scores of the CPU mesh (the card's FFT-free profile sums reassociate:
-    1e-4)."""
+    """Four shards on one card: one K1 launch a shard over its 7 candidates
+    (26 and two pads), the winner and the scores of the CPU mesh (the card's
+    FFT-free profile sums reassociate: 1e-4)."""
     from tempest_tpu_torch.ops import resample_kernel
 
     resample_kernel.frames_to_screens.launches = 0
+    resample_kernel.frames_to_screens_candidates.launches = 0
     got = tp.sharded_mode_search(capture.iq, FS, 60.0, cands,
                                  make_mesh(devices=[cuda_device] * 4), render_size=SHAPE)
     torch.cuda.synchronize()
-    assert resample_kernel.frames_to_screens.launches == 28     # 26 and two pads
+    assert resample_kernel.frames_to_screens_candidates.launches == 4
+    assert resample_kernel.frames_to_screens.launches == 0
     ref = tp.sharded_mode_search(capture.iq, FS, 60.0, cands, make_mesh(devices=["cpu"] * 4),
                                  render_size=SHAPE)
     assert got.best_index == ref.best_index

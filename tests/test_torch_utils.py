@@ -12,6 +12,7 @@ against what the operations' shapes give, exactly.
 
 import json
 import os
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -170,6 +171,23 @@ MISSING_FROM_THE_PORT: set[str] = set()
 MESH_MODULES = ("parallel.mesh", "parallel.distributed", "parallel.sharded",
                 "runtime.mesh_stream")
 JAX_ONLY_MESH_NAMES = {"P", "NamedSharding"}   # JAX's own classes, re-exported there
+# A module of the JAX package whose counterpart has another path, and the
+# names that change with it: the Pallas kernel's module is K1's.
+PORT_MODULE_OF = {
+    "ops.pallas_resample": ("ops.resample_kernel", {
+        "frames_to_screens_pallas": "frames_to_screens",
+        "frame_to_screen_pallas": "frame_to_screen"}),
+}
+# Public names of the JAX package's modules that the port leaves out, each
+# with its reason.
+NOT_IN_THE_PORT = {
+    # The TPU's exact-cut formulation (one-hot matmuls rebuilt on the device);
+    # K1 takes the frames' residuals in float64 instead (ops/resample.py).
+    "ops.resample": {"StreamingExactPlan", "frames_to_screens_mxu3_exact"},
+    # A TPU v5e's peak rates: no figure of the port's card.
+    "utils.roofline": {"V5E_PEAKS"},
+    "parallel.mesh": JAX_ONLY_MESH_NAMES,
+}
 
 
 def test_every_public_name_of_the_jax_package_resolves_in_the_port():
@@ -192,6 +210,22 @@ def test_every_public_name_of_the_jax_package_resolves_in_the_port():
         assert names <= set(vars(tp)) | {"ModeSearchResult"}, (module, sorted(names - set(vars(tp))))
     assert set(importlib.import_module("tempest_tpu.ops.spectrum").__all__) <= set(
         importlib.import_module("tempest_tpu_torch.ops.spectrum").__all__)
+    # Every module of the JAX package that states an ``__all__``: each of its
+    # names is in the ``__all__`` of the port's module of the same path, but
+    # the stated exceptions.
+    root = Path(tt.__file__).parent
+    compared = 0
+    for path in sorted(root.rglob("*.py")):
+        module = ".".join(path.relative_to(root).with_suffix("").parts)
+        theirs = importlib.import_module(f"tempest_tpu.{module}")
+        if not hasattr(theirs, "__all__"):
+            continue
+        port_module, renamed = PORT_MODULE_OF.get(module, (module, {}))
+        ours = set(importlib.import_module(f"tempest_tpu_torch.{port_module}").__all__)
+        wanted = {renamed.get(n, n) for n in theirs.__all__} - NOT_IN_THE_PORT.get(module, set())
+        assert wanted <= ours, (module, sorted(wanted - ours))
+        compared += 1
+    assert compared == 28
 
 
 def test_no_not_implemented_error_is_left_in_the_port():
