@@ -18,8 +18,12 @@ Phases, each of which fails the run if it fails:
    short so that the last frame reads past its end, and from a source that
    is not 16-byte aligned; time each, single call and back to back, beside
    its bound; hold them at screen widths that take the kernel's other work
-   splits (one column a work item, more work items a row than threads) and
-   through ``frame_to_screen``; time each entry at 4, 8 and 16 rows a tile;
+   splits (one column a work item, more work items a row than threads);
+   time each entry at 4, 8 and 16 rows a tile; hold K1's single-frame launch
+   (``frame_to_screen``, one launch a call) to the bit at every shape, with
+   and without a residual, 2 and 4 taps, time it at each of its tile plans
+   beside its bound, and profile its wrapper's host time (with ``--parent
+   DIR``, the same against that checkout's ``frame_to_screen``, in turns);
 3. run three blocks of a synthetic capture through
    ``StreamingRuntime.process_blocks`` on the card, check that the fused
    entry carried them with no separate demod pass, K2 twice a block at most
@@ -111,7 +115,14 @@ Phases, each of which fails the run if it fails:
     its plain version;
 21. the default step stage by stage with CUDA events (demod and K1, K2, K3),
     and its wall clock, device time and kernel count with the kernels and
-    with their plain versions in their place, in turns.
+    with their plain versions in their place, in turns;
+22. the repo's entry points in the port (``tempest_tpu_torch/bench/``): the
+    ``bench`` line (``bench.py``'s keys, a positive rate), every
+    ``bench_all`` line in the JAX script's order (the launch counts set to 0
+    before it: scenario 3 is K1's single-frame launch), ``entry()``'s step,
+    ``dryrun_multichip(1)`` and ``dryrun_multichip(4)`` on four shards of the
+    card; ``--phase o`` on four cards also runs ``dryrun_multichip(4)`` over
+    them.
 
 Run ``python3 chip_smoke.py`` from the root of a checkout on a machine with
 a CUDA card; it ends with torch.profiler tables of three steps, with the
@@ -124,6 +135,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -174,6 +186,24 @@ ENVELOPE_BLOCKS = 2   # depth of the envelope-entry run of phase 4
 # tile: the work splits the slice's 600x800 does not take.
 OTHER_SHAPES = ((600, 99), (601, 402), (300, 2048), (48, 99))
 TILE_ROWS = (4, 8, 16)
+# The single-frame launch's tile plans: FILL_TILES_PER_SM 0 takes the rows of
+# a many-frame launch (8), 1, 2 and 4 at least that many tiles an SM.
+FILL_SWEEP = (0, 1, 2, 4)
+VARIANT_OFFSET = 0.6          # a single frame's residual
+HOST_PROFILE_CALLS = 500
+# The repo's bench.py line's keys, and its bench_all.py lines' metrics in
+# order (N: the mesh's shards).
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "ms_per_block", "iters", "n_frames",
+              "block_samples", "device", "power_limit_w")
+BENCH_ALL_METRICS = (
+    "AM envelope demod (int16 ingest)", "autocorrelation timing estimation",
+    "signal->screen resample (1 frame)", "full chain 1080p60",
+    "batched serving x4 streams 1080p60 (aggregate)",
+    "streaming fidelity 1080p60 (quantised exact-cut tables)",
+    "live-combine front (K=3 channelise + MRC fusion)",
+    "sharded mode search (26 candidates, N dev)", "host ring put+take (python)",
+    "host ring put+take (C++ native)", "streaming host loop 1080p60 (source->ring->device->EMA)",
+    "mesh streaming host loop 1080p60 (N shards)")
 # K1's variants beside the 2-tap rounded cut: (taps, per-frame residuals).
 VARIANTS = ((2, True), (4, False), (4, True))
 VARIANT_PHASE = 1234.56   # first frame boundary of the variants' block
@@ -1675,6 +1705,241 @@ def phase_sync_align(tp, torch, dev, card: str, words_i16, starts, raster) -> di
     return out
 
 
+def load_other(root: Path, name: str = "tt_parent"):
+    """Another checkout's ``tempest_tpu_torch`` (``root`` holds it), loaded
+    under ``name``; it builds its kernels in its own directory."""
+    import importlib.util
+
+    pkg = root / "tempest_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+def host_profile(torch, fn, calls: int = HOST_PROFILE_CALLS, top: int = 8) -> tuple[float, list]:
+    """cProfile of ``calls`` calls of ``fn`` back to back: the microseconds a
+    call spends on the host, and the ``top`` functions by their own time, in
+    microseconds a call.  (cProfile adds its own cost to every function call
+    it sees: read the parts against each other, and the whole against the
+    back-to-back time.)"""
+    import cProfile
+    import pstats
+
+    fn()
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    for _ in range(calls):
+        fn()
+    prof.disable()
+    total_us = 1e6 * (time.perf_counter() - t0) / calls
+    torch.cuda.synchronize()
+    stats = pstats.Stats(prof).stats
+    rows = sorted(((tt / calls * 1e6, f"{Path(f).name}:{line}({func})")
+                   for (f, line, func), (_, _, tt, _, _) in stats.items()), reverse=True)
+    return total_us, rows[:top]
+
+
+def phase_frame_to_screen(tp, torch, dev, card: str, one, parent_root) -> dict:
+    """K1's single-frame launch: one 1080p60 frame at 20 Msps (333,333
+    samples of the capture's envelope) onto the screen.  Equal to its plain
+    version to the bit at 600x800 and every ``OTHER_SHAPES``, with and without
+    a residual, 2 and 4 taps; one launch a call, no other kernel; its single,
+    back-to-back and device time beside its bound; the tile plans of
+    ``FILL_TILES_PER_SM`` 0 (the rows of a many-frame launch), 1, 2 and 4 at
+    every shape; the wrapper's host time under cProfile.  With
+    ``parent_root`` the same frame through that checkout's ``frame_to_screen``
+    in turns with this one (parent, this, this, parent)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tempest_tpu_torch.ops import resample_kernel as rk
+
+    mode = tp.ALL_VIDEO_MODES[MODE_NAME]
+    frame_len = one.shape[0]
+    h, w = RENDER
+    raster = (frame_len, mode.height, mode.width, RENDER)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    shapes = (RENDER, *OTHER_SHAPES)
+
+    def call(shape=RENDER, offset=None, taps=2, f2s=rk.frame_to_screen):
+        return f2s(one, mode.height, mode.width, shape, offset, taps)
+
+    rk.frame_to_screen.launches = 0
+    before = rk.frames_to_screens.launches
+    calls, err = 0, 0.0
+    for shape in shapes:
+        for offset in (None, VARIANT_OFFSET):
+            for taps in (2, 4):
+                geom = rk.screen_geometry(frame_len, mode.height, mode.width, shape, dev)
+                fracs = None if offset is None else torch.full((1,), offset, device=dev)
+                ref = rk.frames_to_screens_plain(one, zero, geom, fracs, taps)[0]
+                got = call(shape, offset, taps)
+                calls += 1
+                torch.cuda.synchronize()
+                err = max(err, float((got - ref).abs().max()))
+                check(got.shape == shape and bool(torch.equal(got, ref)),
+                      f"frame_to_screen at {shape}, offset {offset}, {taps} taps equals its "
+                      "plain version to the bit")
+    check(rk.frame_to_screen.launches == calls and rk.frames_to_screens.launches == before,
+          f"frame_to_screen launched its own kernel once a call ({rk.frame_to_screen.launches} "
+          f"over {calls} calls; envelope entry {rk.frames_to_screens.launches - before})")
+    print(f"[K1 frame_to_screen] {len(shapes)} shapes x offset or none x 2 or 4 taps: equal to "
+          f"the plain version to the bit, {calls} launches over {calls} calls")
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            call()
+        torch.cuda.synchronize()
+    on_card = {evt.key: evt.count for evt in prof.key_averages()
+               if evt.device_type == DeviceType.CUDA and evt.count}
+    check(0 < sum(on_card.values()) <= 10 and all("tiles_kernel" in k for k in on_card),
+          f"10 calls put K1 and nothing else on the card ({on_card})")
+    print(f"[K1 frame_to_screen] 10 calls put on the card: {on_card}")
+
+    def timed(fn) -> dict:
+        return {"ms": time_call(torch, fn), "b2b_ms": time_back_to_back(torch, fn),
+                "device_ms": kernels_device_ms(torch, fn, ("tiles_kernel",))["tiles_kernel"]}
+
+    bound_ms, bound_by, nbytes = k1_bound(frame_len, 4, 1, raster, False)
+    plain_ms = time_call(torch, lambda: rk.frames_to_screens_plain(
+        one, zero, rk.screen_geometry(*raster, dev))[0], calls=10)
+    default_fill = rk.FILL_TILES_PER_SM
+    sms = rk.sm_count(dev)
+
+    # Each tile plan at each shape, forwards then backwards.
+    sweep = [(shape, fill) for shape in shapes for fill in FILL_SWEEP]
+    swept = {v: [] for v in sweep}
+    rows_of = {}
+    try:
+        for shape, fill in sweep + sweep[::-1]:
+            rk.FILL_TILES_PER_SM = fill
+            rows_of[shape, fill] = rk.tile_plan(frame_len, mode.height, mode.width, shape, 4,
+                                                0, 2, 1, sms)[0]
+            swept[shape, fill].append(timed(lambda: call(shape)))
+    finally:
+        rk.FILL_TILES_PER_SM = default_fill
+    plans = {}
+    for (shape, fill), runs in swept.items():
+        rows = rows_of[shape, fill]
+        tiles = -(-shape[0] // rows)
+        dev_ms = [r["device_ms"] for r in runs]
+        b2b = [r["b2b_ms"] for r in runs]
+        plans[f"{shape[0]}x{shape[1]}, fill {fill}"] = dict(rows=rows, tiles=tiles,
+                                                            device_ms=dev_ms, b2b_ms=b2b)
+        used = " (the wrapper's)" if fill == default_fill else ""
+        print(f"[K1 frame_to_screen] {shape[0]}x{shape[1]}, FILL_TILES_PER_SM {fill}{used}: "
+              f"{rows} rows a tile, {tiles} tiles; device {dev_ms[0]:.5f} {dev_ms[1]:.5f} ms, "
+              f"back to back {b2b[0]:.5f} {b2b[1]:.5f} ms, forwards backwards, on {card}")
+
+    m = timed(call)
+    host_us, host_top = host_profile(torch, call)
+    print(f"[K1 frame_to_screen] {m['ms']:.5f} ms single call, {m['b2b_ms']:.5f} ms back to "
+          f"back, {m['device_ms']:.5f} ms of device time for one frame onto {h}x{w}; bound "
+          f"{bound_ms:.5f} ms ({nbytes / 1e6:.2f} MB, by {bound_by}), share reached "
+          f"{bound_ms / m['device_ms']:.3f} of device time; plain {plain_ms:.4f} ms; host "
+          f"{host_us:.2f} us a call under cProfile, on {card}")
+    for us, where in host_top:
+        print(f"[K1 frame_to_screen] host, own time: {us:8.2f} us a call  {where}")
+    out = dict(err=err, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               host_us=host_us, plans=plans, **m)
+
+    if parent_root is not None:
+        parent = load_other(Path(parent_root)).ops.resample_kernel
+        check(bool(torch.equal(call(f2s=parent.frame_to_screen), call())),
+              "the parent's frame_to_screen gives the same bits")
+        turns = {"parent": [], "this": []}
+        for who in ("parent", "this", "this", "parent"):
+            f2s = parent.frame_to_screen if who == "parent" else rk.frame_to_screen
+            turns[who].append(timed(lambda: call(f2s=f2s)))
+        p_host_us, p_top = host_profile(torch, lambda: call(f2s=parent.frame_to_screen))
+        for who, runs in turns.items():
+            dev_ms, b2b, single = ([f"{r[k]:.5f}" for r in runs]
+                                   for k in ("device_ms", "b2b_ms", "ms"))
+            print(f"[K1 frame_to_screen, {who}] device {' '.join(dev_ms)} ms, back to back "
+                  f"{' '.join(b2b)} ms, single {' '.join(single)} ms, turns parent this this "
+                  f"parent, on {card}")
+        print(f"[K1 frame_to_screen, parent] host {p_host_us:.2f} us a call under cProfile")
+        for us, where in p_top:
+            print(f"[K1 frame_to_screen, parent] host, own time: {us:8.2f} us a call  {where}")
+        out["parent"] = dict(turns=turns, host_us=p_host_us)
+    return out
+
+
+def phase_entry_points(tp, torch, dev, card: str, reset_counts) -> dict:
+    """Phase 22: the port's counterparts of the repo's ``bench.py``,
+    ``bench_all.py`` and ``__graft_entry__.py`` on the card: the bench line
+    (its keys, a positive rate), every ``bench_all`` line in the JAX script's
+    order, ``entry()``'s step once, ``dryrun_multichip(1)`` and
+    ``dryrun_multichip(4)`` on four shards of this card.  The launch counts
+    are set to 0 just before ``bench_all`` runs and read after: scenario 3
+    is K1's single-frame launch."""
+    import contextlib
+    import io
+
+    from tempest_tpu_torch.bench import bench, bench_all, graft_entry
+    from tempest_tpu_torch.native import native_available
+    from tempest_tpu_torch.ops import resample_kernel as rk
+
+    t0 = time.perf_counter()
+    line, ema = bench.run(bench.bench_config(), bench.ITERS, dev)
+    torch.cuda.synchronize()
+    print(f"[bench] {json.dumps(line)}")
+    check(set(BENCH_KEYS) <= set(line) and line["value"] > 0 and line["device"] and
+          line["power_limit_w"] > 0 and bool(torch.isfinite(ema).all()),
+          "the port's bench line has bench.py's keys, the card's, a positive rate and a "
+          "finite EMA")
+    bench_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    reset_counts()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        results = bench_all.main([])
+    f2s_launches = rk.frame_to_screen.launches
+    bench_all_s = time.perf_counter() - t0
+    lines = [json.loads(text) for text in printed.getvalue().splitlines()]
+    for got in lines:
+        print(f"[bench_all] {json.dumps(got)}")
+    want = [m for m in BENCH_ALL_METRICS if native_available() or "C++" not in m]
+    names = [got["metric"] for got in lines]
+    check(lines == results and [re.sub(r"\d+ (dev|shards)\)", r"N \1)", n) for n in names]
+          == want and all(got["value"] > 0 and got["device"] for got in lines),
+          f"bench_all printed the JAX script's lines in its order ({names})")
+    check(f2s_launches > 0, f"scenario 3 went through K1's single-frame launch ({f2s_launches})")
+    print(f"[bench_all] {len(lines)} lines in {bench_all_s:.1f} s (the bench line {bench_s:.1f} "
+          f"s); the C++ ring {'built' if native_available() else 'NOT built'}; K1's "
+          f"single-frame launches in scenario 3: {f2s_launches}, on {card}")
+
+    t0 = time.perf_counter()
+    step, args = graft_entry.entry(dev)
+    ema, frames, sync, score = step(*args)
+    torch.cuda.synchronize()
+    check(ema.shape == RENDER and frames.shape == (2, *RENDER) and ema.device == dev
+          and bool(torch.isfinite(ema).all() and torch.isfinite(frames).all()),
+          "entry()'s step gave a finite EMA and 2 frames of the screen's shape on the card")
+    ran = {}
+    for n, shards in ((1, None), (MESH_SHARDS, [str(dev)] * MESH_SHARDS)):
+        t1 = time.perf_counter()
+        out = graft_entry.dryrun_multichip(n, shards)
+        torch.cuda.synchronize()
+        ran[n] = (sorted(out), time.perf_counter() - t1)
+        check(out["reconstruct"][1].shape == (n, *RENDER)
+              and bool(torch.isfinite(out["reconstruct"][0]).all()),
+              f"dryrun_multichip({n}) ran its sharded programs")
+    print(f"[graft_entry] entry() step and dryrun_multichip(1): {', '.join(ran[1][0])} in "
+          f"{ran[1][1]:.1f} s; dryrun_multichip({MESH_SHARDS}) on {MESH_SHARDS} shards of this "
+          f"card: {', '.join(ran[MESH_SHARDS][0])} in {ran[MESH_SHARDS][1]:.1f} s; all in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return {"bench": line, "bench_all": lines, "frame_to_screen_launches": f2s_launches}
+
+
 def phase_step_split(tp, torch, dev, card: str, words_i16, activities) -> None:
     """Phase 21: the default step on the card's int16 words, stage by stage
     with CUDA events (demod and K1 in one launch, K2, K3 with its weights),
@@ -2254,6 +2519,9 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--phase", choices=["all", "o"], default="all",
                     help="'o': only phase 19 (several cards), after the build, the capture and "
                          "phase 17, its reference")
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="another checkout (the parent commit's tempest_tpu_torch/ under this "
+                         "directory): its frame_to_screen timed in turns with this one's")
     args = ap.parse_args(argv)
     import torch
 
@@ -2286,6 +2554,7 @@ def main(argv: list[str] | None = None) -> int:
             wrapper.launches = 0
             wrapper.launches_by_variant.clear()
         resample_kernel.frames_to_screens_candidates.launches = 0
+        frame_to_screen.launches = 0
         blanking_sync.launches = 0
         align_fold.launches = 0
         align_fold.launches_by_mode.clear()
@@ -2326,6 +2595,15 @@ def main(argv: list[str] | None = None) -> int:
                                        activities)
         phase_several_cards(tp, torch, card, reset_counts, loop, mesh_out["reference"],
                             activities)
+        if torch.cuda.device_count() >= MESH_SHARDS:
+            from tempest_tpu_torch.bench.graft_entry import dryrun_multichip
+
+            t0 = time.perf_counter()
+            ran = dryrun_multichip(MESH_SHARDS)
+            check(ran["reconstruct"][1].shape == (MESH_SHARDS, h, w),
+                  f"dryrun_multichip({MESH_SHARDS}) over {MESH_SHARDS} cards")
+            print(f"[graft_entry] dryrun_multichip({MESH_SHARDS}) over {MESH_SHARDS} cards: "
+                  f"{', '.join(sorted(ran))} in {time.perf_counter() - t0:.1f} s")
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2401,36 +2679,9 @@ def main(argv: list[str] | None = None) -> int:
             print(f"[K1 {name}] {shape[0]}x{shape[1]} screens: relative diff {rel:.3e}")
             check(got.shape == (2, *shape) and rel < K1_REL_TOL,
                   f"K1 on {name} at {shape} agrees with its plain version")
-    one = env[int(starts[1]): int(starts[1]) + frame_len]
-    for shape in ((h, w), OTHER_SHAPES[0], OTHER_SHAPES[-1]):
-        got = frame_to_screen(one, mode.height, mode.width, shape)
-        ref = frames_to_screens_plain(
-            one, torch.zeros(1, dtype=torch.int32, device=dev),
-            screen_geometry(frame_len, mode.height, mode.width, shape, dev))[0]
-        torch.cuda.synchronize()
-        rel = float((got - ref).abs().max()) / float(ref.abs().max())
-        print(f"[K1 frame_to_screen] one frame onto {shape[0]}x{shape[1]}: relative diff {rel:.3e}")
-        check(got.shape == shape and rel < K1_REL_TOL,
-              f"frame_to_screen at {shape} agrees with the plain version")
-    # One frame alone: 333,333 samples in, one 600x800 screen out.
-    one_starts = torch.zeros(1, dtype=torch.int32, device=dev)
-    one_bound_ms, one_by, one_bytes = k1_bound(frame_len, 4, 1, raster, False)
-    one_ms = time_call(torch, lambda: frame_to_screen(one, mode.height, mode.width, (h, w)))
-    one_b2b_ms = time_back_to_back(
-        torch, lambda: frame_to_screen(one, mode.height, mode.width, (h, w)))
-    one_plain_ms = time_call(
-        torch, lambda: frames_to_screens_plain(one, one_starts, geom), calls=10)
-    # Back to back, one frame is bound by the host's enqueue rate, so the
-    # kernel's own time comes from the profiler.
-    one_device_ms = kernels_device_ms(
-        torch, lambda: frame_to_screen(one, mode.height, mode.width, (h, w)),
-        ("resample_tiles_kernel",))["resample_tiles_kernel"]
-    check(one_device_ms > 0, "the profiler traced frame_to_screen's kernel")
-    print(f"[K1 frame_to_screen] {one_ms:.4f} ms single call, {one_b2b_ms:.4f} ms back to back, "
-          f"{one_device_ms:.4f} ms of device time for one frame; bound {one_bound_ms:.5f} ms "
-          f"({one_bytes / 1e6:.2f} MB, by {one_by}), share reached "
-          f"{one_bound_ms / one_device_ms:.3f} of device time; plain {one_plain_ms:.4f} ms, "
-          f"on {card}")
+    # ---- K1's single-frame launch, on an aligned copy of one frame
+    one = env[int(starts[1]): int(starts[1]) + frame_len].clone()
+    f2s = phase_frame_to_screen(tp, torch, dev, card, one, args.parent)
 
     # Rows a tile: each entry timed at every size, forwards then backwards, so
     # that a drift of the card's clocks shows between the two passes.
@@ -2855,6 +3106,9 @@ def main(argv: list[str] | None = None) -> int:
     # plain versions in their place
     phase_step_split(tp, torch, dev, card, words_i16, activities)
 
+    # ---- 22. the repo's bench and entry-point programs in the port
+    entry_points = phase_entry_points(tp, torch, dev, card, reset_counts)
+
     def kernel_entry(name, key, launches):
         m = key if isinstance(key, dict) else measured[key]
         return {
@@ -2949,6 +3203,12 @@ def main(argv: list[str] | None = None) -> int:
              search_ms=search["search_ms"], refine_ms=search["refine_ms"]),
         kernel_entry("K1 frames_to_screens, quantised table (envelope, the mxu names)",
                      named["quantised"], named["quantised"]["launches"]),
+        # One frame onto 600x800, one launch (bench_all's scenario 3).
+        dict(kernel_entry("K1 frame_to_screen, one frame (envelope, 2 taps)", f2s,
+                          entry_points["frame_to_screen_launches"]),
+             replaces="tempest_tpu/ops/pallas_resample.py:238", redesigned=True,
+             device_ms=f2s["device_ms"], host_us=f2s["host_us"], tile_plans=f2s["plans"],
+             **({"parent": f2s["parent"]} if "parent" in f2s else {})),
     ]
     # K2 and K3, timed at the slice's 36 screens of 600x800 (phase 20); their
     # launches are the runtime's over its 3 blocks (phase 3) and the fidelity

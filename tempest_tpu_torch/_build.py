@@ -35,6 +35,7 @@ SIGNATURES = {
         "tt_resample_frames": (
             [_P, _LL, _I, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
             ctypes.c_int),
+        "tt_resample_frame": ([_P, _P, _LL, _F, _P, _P], ctypes.c_int),
         "tt_resample_candidates": (
             [_P, _LL, _P, _I, _P, _I, _I, _P, _I, _I, _I, _P], ctypes.c_int),
     },

@@ -73,6 +73,8 @@ falls back.
 from __future__ import annotations
 
 import collections
+import contextlib
+import ctypes
 import dataclasses
 import functools
 
@@ -99,6 +101,9 @@ __all__ = [
     "line_reach",
     "launch_cost",
     "launch_instructions",
+    "LaunchPlan",
+    "launch_plan",
+    "sm_count",
     "line_loads",
     "frame_samples_read",
     "quantise_line_frac",
@@ -109,11 +114,21 @@ __all__ = [
 # about as much (36 and 48 KB at 1080p60, 20 Msps), so that several blocks
 # share an SM.
 ROWS_PER_TILE = {4: 8, 8: 4}
+# A launch of fewer tiles than FILL_TILES_PER_SM for each of the card's SMs
+# (one frame of 600 rows is 75 tiles of 8 rows on 132 SMs) takes tiles of
+# fewer rows, halved down to one, until it has that many: every SM takes
+# part.  Such a launch also gives every block one tile, and the kernel then
+# drops the second stage buffer (``csrc/resample.cu`` ``launch``).  Two an SM
+# (2 rows a tile at 600 rows) was the fastest of 0, 1, 2 and 4 at every
+# shape ``chip_smoke.py`` times (PERF.md, section 6).
+FILL_TILES_PER_SM = 2
 # Dynamic shared memory one block may ask for: the card's 227 KB less the
 # kernel's static row table, 768 bytes (4 taps: two of them and two 8-byte
 # mbarriers).
 MAX_SHARED_BYTES = 227 * 1024 - 768
 MAX_SHARED_BYTES_4 = 227 * 1024 - 2 * 768 - 2 * 8
+# Frame starts and sample indices are int32 on the card.
+_INT32_MAX = int(np.iinfo(np.int32).max)
 # What the kernel stages: code and bytes per sample, by the tensor's dtype.
 _ENVELOPE = (0, 4)
 _WORDS = {torch.int16: (1, 4), torch.float32: (2, 8)}
@@ -274,7 +289,7 @@ def tile_run_cap(
 
 def tile_plan(
     frame_len: int, y_t: int, x_t: int, out_shape: tuple[int, int], sample_bytes: int,
-    reach: int = 0, taps: int = 2,
+    reach: int = 0, taps: int = 2, n_frames: int | None = None, sms: int = 0,
 ) -> tuple[int, int]:
     """(rows of a tile, samples of a stage buffer) for staged samples of
     ``sample_bytes``: ``ROWS_PER_TILE`` rows where a block's shared memory
@@ -283,13 +298,19 @@ def tile_plan(
     table of the columns' positions where the SM holds as many blocks with
     it as without).  A screen of far fewer rows than the raster
     has scan lines spreads a tile's rows over a long run, so the rows are
-    halved, down to one, until the buffers fit."""
+    halved, down to one, until the buffers fit.  Given the launch's
+    ``n_frames`` and the card's ``sms``, a launch of fewer tiles than
+    ``FILL_TILES_PER_SM · sms`` halves its rows further, down to one, until
+    it has that many."""
     per_sample = 2 * sample_bytes + (4 if sample_bytes == 8 else 0)
     budget = MAX_SHARED_BYTES_4 if _check_taps(taps) == 4 else MAX_SHARED_BYTES
     rows = ROWS_PER_TILE[sample_bytes]
     while (rows > 1 and tile_run_cap(frame_len, y_t, x_t, out_shape, rows, reach) * per_sample
            > budget):
         rows //= 2
+    if n_frames is not None:
+        while rows > 1 and n_frames * -(-int(out_shape[0]) // rows) < FILL_TILES_PER_SM * sms:
+            rows //= 2
     run_cap = tile_run_cap(frame_len, y_t, x_t, out_shape, rows, reach)
     if run_cap * per_sample > budget:
         raise ValueError(
@@ -355,7 +376,7 @@ def _check_launch(src: torch.Tensor, n_samples: int, frame_starts: torch.Tensor)
         raise ValueError(f"K1 takes at least one frame and one sample, got {n_frames}, {n_samples}")
     # Frame starts index the block as int32: a block whose sample count does
     # not fit would wrap them.
-    if n_samples > np.iinfo(np.int32).max:
+    if n_samples > _INT32_MAX:
         raise ValueError(
             f"K1 takes int32 frame starts: a block of {n_samples} samples does not fit")
     return n_frames
@@ -410,6 +431,66 @@ def launch_instructions(n_samples: int, sample_bytes: int, n_frames: int, frame_
     return n_frames * h * w * (2 * per_line + PIXEL_INSTRUCTIONS) + samples * per_sample
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (132 on an H100 SXM)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """What one K1 launch on a raster needs besides its tensors, made once
+    per (raster, device, launch shape): the line tables on the device, the
+    tile plan, the span a scan line reads, and the launch's cost."""
+
+    geom: ScreenGeometry
+    rows: int
+    run_cap: int
+    span: int
+    cost: tuple[int, int, int]
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(
+    n_samples: int, n_frames: int, frame_len: int, y_t: int, x_t: int,
+    out_shape: tuple[int, int], device: torch.device, num_phases: int | None,
+    sample_bytes: int, demod: bool, taps: int, exact: bool,
+    rows_per_tile: int, fill: int,
+) -> LaunchPlan:
+    """The :class:`LaunchPlan` of a launch; ``rows_per_tile`` and ``fill``
+    are ``ROWS_PER_TILE[sample_bytes]`` and ``FILL_TILES_PER_SM`` as the
+    caller reads them, so that a plan is made again where they change."""
+    del rows_per_tile, fill  # read by tile_plan; part of the cache's key
+    raster = (frame_len, y_t, x_t, out_shape)
+    lead, extra = line_reach(taps, exact)
+    sms = sm_count(device) if device.type == "cuda" else 0
+    rows, run_cap = tile_plan(*raster, sample_bytes, lead + extra, taps, n_frames, sms)
+    geom = screen_geometry(*raster, device, num_phases)
+    return LaunchPlan(geom, rows, run_cap, geom.span + extra,
+                      launch_cost(n_samples, sample_bytes, n_frames, *raster, demod, taps, exact))
+
+
+def _plan(n_samples: int, n_frames: int, sample_bytes: int, frame_len: int, y_t: int, x_t: int,
+          out_shape, device: torch.device, num_phases: int | None, demod: bool, taps: int,
+          exact: bool) -> LaunchPlan:
+    return launch_plan(int(n_samples), int(n_frames), int(frame_len), int(y_t), int(x_t),
+                       (int(out_shape[0]), int(out_shape[1])), device, num_phases, sample_bytes,
+                       demod, taps, exact, ROWS_PER_TILE[sample_bytes], FILL_TILES_PER_SM)
+
+
+def _current(device: torch.device):
+    """A context that makes ``device`` the current CUDA device, or nothing
+    where it already is (the C launchers launch on the current device)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def _stream(device: torch.device) -> int:
+    """The raw current CUDA stream of ``device``."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def _launch(
     src: torch.Tensor,
     n_samples: int,
@@ -429,29 +510,26 @@ def _launch(
     if frac_offsets is not None:
         if frac_offsets.dtype != torch.float32 or not frac_offsets.is_contiguous():
             raise TypeError("K1 takes contiguous float32 frac_offsets")
-    lead, extra = line_reach(interp_taps, frac_offsets is not None)
     word, sample_bytes = staged
-    out_shape = (int(out_shape[0]), int(out_shape[1]))
-    raster = (int(frame_len), int(y_t), int(x_t), out_shape)
-    geom = screen_geometry(*raster, src.device, num_phases)
-    rows, run_cap = tile_plan(*raster, sample_bytes, lead + extra, interp_taps)
+    dev = src.device
+    plan = _plan(n_samples, n_frames, sample_bytes, frame_len, y_t, x_t, out_shape, dev,
+                 num_phases, word != 0, interp_taps, frac_offsets is not None)
     from .. import _build
 
     lib = _build.load_library("resample")
-    h, w = out_shape
-    out = torch.empty((n_frames, h, w), dtype=torch.float32, device=src.device)
-    with torch.cuda.device(src.device):
-        stream = torch.cuda.current_stream(src.device).cuda_stream
+    geom = plan.geom
+    h, w = geom.out_shape
+    out = torch.empty((n_frames, h, w), dtype=torch.float32, device=dev)
+    with _current(dev):
         rc = lib.tt_resample_frames(
             src.data_ptr(), n_samples, word, frame_starts.data_ptr(),
             None if frac_offsets is None else frac_offsets.data_ptr(), n_frames, interp_taps,
             geom.line_start.data_ptr(), geom.line_frac.data_ptr(), geom.wr.data_ptr(),
-            out.data_ptr(), h, w, geom.delta, geom.span + extra, rows, run_cap, stream,
+            out.data_ptr(), h, w, geom.delta, plan.span, plan.rows, plan.run_cap, _stream(dev),
         )
     if rc != 0:
         raise RuntimeError(f"K1 launch failed with cudaError_t {rc}")
-    report_launch(*launch_cost(n_samples, sample_bytes, n_frames, *raster, word != 0,
-                               interp_taps, frac_offsets is not None))
+    report_launch(*plan.cost)
     return out
 
 
@@ -557,6 +635,39 @@ frames_to_screens_from_words.launches = 0
 frames_to_screens_from_words.launches_by_variant = collections.Counter()
 
 
+@functools.lru_cache(maxsize=None)
+def _zero_start(device: torch.device) -> torch.Tensor:
+    """A device int32 0: the start of the one frame of a single-frame launch."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+class _FrameArgs(ctypes.Structure):
+    """``csrc/resample.cu`` ``FramePlan``: what a single-frame launch on one
+    raster passes besides its tensors, packed once per raster."""
+
+    _fields_ = [("zero", ctypes.c_void_p), ("line_start", ctypes.c_void_p),
+                ("line_frac", ctypes.c_void_p), ("wr", ctypes.c_void_p), ("taps", ctypes.c_int),
+                ("h", ctypes.c_int), ("w", ctypes.c_int), ("delta", ctypes.c_float),
+                ("span", ctypes.c_int), ("rows_per_tile", ctypes.c_int), ("run_cap", ctypes.c_int)]
+
+
+@functools.lru_cache(maxsize=64)
+def _frame_plan(n: int, y_t: int, x_t: int, out_shape: tuple[int, int], device: torch.device,
+                taps: int, exact: bool, rows_per_tile: int, fill: int):
+    """(plan, packed arguments, their address, the launcher) of a single-frame
+    launch: made once per raster and launch shape, as :func:`launch_plan`."""
+    from .. import _build
+
+    plan = launch_plan(n, 1, n, y_t, x_t, out_shape, device, None, 4, False, taps, exact,
+                       rows_per_tile, fill)
+    g = plan.geom
+    packed = _FrameArgs(_zero_start(device).data_ptr(), g.line_start.data_ptr(),
+                        g.line_frac.data_ptr(), g.wr.data_ptr(), taps, *g.out_shape, g.delta,
+                        plan.span, plan.rows, plan.run_cap)
+    lib = _build.load_library("resample")
+    return plan, packed, ctypes.addressof(packed), lib.tt_resample_frame
+
+
 def frame_to_screen(
     sig: torch.Tensor,
     y_t: int,
@@ -566,12 +677,47 @@ def frame_to_screen(
     interp_taps: int = 2,
 ) -> torch.Tensor:
     """One frame's envelope → (h, w) screen, through the same resampler.
-    ``offset`` in [0, 1) is the frame's fractional residual."""
-    starts = torch.zeros(1, dtype=torch.int32, device=sig.device)
-    frac = None
-    if offset is not None:
-        frac = torch.as_tensor(offset, dtype=torch.float32, device=sig.device).reshape(1)
-    return frames_to_screens(sig, starts, sig.shape[0], y_t, x_t, out_shape, frac, interp_taps)[0]
+    ``offset`` in [0, 1) is the frame's fractional residual.
+
+    On a CUDA tensor this is ONE launch and one allocation, the screen: the
+    frame's start is a cached device 0, ``offset`` goes to the kernel as a
+    scalar (a tensor on the card is read back for it); the plan (line
+    tables, tile plan, cost) and the launch's arguments are made once per
+    raster and passed as one packed pointer.  A frame is a few tens of tiles
+    of ``ROWS_PER_TILE`` rows, so the plan takes tiles of fewer rows until
+    the card has ``FILL_TILES_PER_SM`` of them for each SM, each block one
+    tile with one stage buffer."""
+    if sig.device.type == "cpu":
+        starts = torch.zeros(1, dtype=torch.int32)
+        frac = None
+        if offset is not None:
+            frac = torch.as_tensor(offset, dtype=torch.float32).reshape(1)
+        return frames_to_screens(sig, starts, sig.shape[0], y_t, x_t, out_shape, frac,
+                                 interp_taps)[0]
+    dev = sig.device
+    n = sig.shape[0]
+    if (sig.dim() != 1 or sig.dtype != torch.float32 or not sig.is_contiguous()
+            or not 0 < n <= _INT32_MAX or dev.type != "cuda"):
+        raise TypeError(f"K1 takes a contiguous 1-D float32 envelope of 1 to {_INT32_MAX} "
+                        f"samples on CUDA, got {sig.dtype} of shape {tuple(sig.shape)} on {dev}")
+    exact = offset is not None
+    plan, _, address, launch = _frame_plan(n, int(y_t), int(x_t),
+                                           (int(out_shape[0]), int(out_shape[1])), dev,
+                                           interp_taps, exact, ROWS_PER_TILE[4], FILL_TILES_PER_SM)
+    # A residual on the card is read back here: the kernel takes it as a scalar.
+    res = 0.0 if offset is None else float(offset)
+    out = torch.empty(plan.geom.out_shape, dtype=torch.float32, device=dev)
+    with _current(dev):
+        rc = launch(address, sig.data_ptr(), n, res, out.data_ptr(), _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"K1 launch of one frame failed with cudaError_t {rc}")
+    report_launch(*plan.cost)
+    frame_to_screen.launches += 1
+    return out
+
+
+# K1 launches of one frame since the last reset.
+frame_to_screen.launches = 0
 
 
 # Int32 words of a candidate's header in the stacked table, and their order

@@ -208,15 +208,55 @@ def test_k1_cuda_matches_plain_at_other_widths(cuda_device, shape):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(600, 800), (48, 99)], ids=lambda s: f"{s[0]}x{s[1]}")
 def test_frame_to_screen_cuda_matches_plain(cuda_device, shape):
-    """The single-frame wrapper on the card: one launch of the envelope
-    entry, equal to the plain version of the same frame."""
+    """The single-frame wrapper on the card: one launch of its own (counted
+    on ``frame_to_screen``, not on the envelope entry), equal to the plain
+    version of the same frame."""
     y_t, x_t = 1125, 2576
     sig = torch.from_numpy(np.random.default_rng(2).random(333333, dtype=np.float32)).to(cuda_device)
-    before = frames_to_screens.launches
+    before, before_frames = frame_to_screen.launches, frames_to_screens.launches
     got = frame_to_screen(sig, y_t, x_t, shape)
-    assert frames_to_screens.launches == before + 1
+    assert frame_to_screen.launches == before + 1
+    assert frames_to_screens.launches == before_frames
     geom = screen_geometry(sig.shape[0], y_t, x_t, shape, sig.device)
     ref = frames_to_screens_plain(sig, torch.zeros(1, dtype=torch.int32, device=sig.device), geom)[0]
     torch.cuda.synchronize()
     assert got.shape == shape
     assert float((got - ref).abs().max() / ref.abs().max()) < 1e-6
+
+
+# The main path's screen and the shapes whose work splits it does not take (one
+# column a work item, fewer and more work items a row than threads, few rows).
+FRAME_SHAPES = [(600, 800), (600, 99), (601, 402), (300, 2048), (48, 99)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("taps", [2, 4])
+@pytest.mark.parametrize("offset", [None, 0.6], ids=["no_offset", "offset"])
+@pytest.mark.parametrize("shape", FRAME_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_frame_to_screen_cuda_is_one_launch_equal_to_plain_to_the_bit(
+        cuda_device, shape, offset, taps):
+    """One 1080p60 frame at 20 Msps (333,333 samples) through the
+    single-frame launch, with its tile plan of fewer rows and one stage
+    buffer: equal to the plain version to the bit, one launch, and one
+    allocation on the card, the screen (the start is a cached device 0, the
+    residual a scalar: no fill kernel, no upload); a residual given as a
+    tensor on the card gives the same bits.  (Allocations, not a profiler:
+    twenty CUDA-only profiler sessions here left a later one in the same
+    process, ``tests/test_torch_align_ema.py``'s, recording no kernel.)"""
+    y_t, x_t = 1125, 2576
+    sig = torch.from_numpy(np.random.default_rng(3).random(333333, dtype=np.float32)).to(cuda_device)
+    geom = screen_geometry(sig.shape[0], y_t, x_t, shape, sig.device)
+    fracs = None if offset is None else torch.full((1,), offset, device=cuda_device)
+    ref = frames_to_screens_plain(sig, torch.zeros(1, dtype=torch.int32, device=cuda_device),
+                                  geom, fracs, taps)[0]
+    frame_to_screen(sig, y_t, x_t, shape, offset, taps)   # plan, build and caches made
+    torch.cuda.synchronize()
+    before = frame_to_screen.launches
+    allocated = torch.cuda.memory_stats(cuda_device)["allocation.all.allocated"]
+    got = frame_to_screen(sig, y_t, x_t, shape, offset, taps)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats(cuda_device)["allocation.all.allocated"] == allocated + 1
+    assert frame_to_screen.launches == before + 1
+    assert got.shape == shape and torch.equal(got, ref)
+    if fracs is not None:
+        assert torch.equal(frame_to_screen(sig, y_t, x_t, shape, fracs, taps), ref)
