@@ -39,8 +39,9 @@ Phases, each of which fails the run if it fails:
    first frame at sample 0, on a block cut short and from an unaligned
    source, and at the shapes of 640x480 @ 60 Hz at 32 Msps; time each beside
    the 2-tap rounded-cut times and beside both its bounds, bytes and
-   instructions; time the 4-tap envelope and int16 entries also at the
-   640x480 shapes that phase 8 launches (11 frames), with their device time;
+   instructions; hold and time the 4-tap envelope entry and the int16 words
+   under the AM and the FM load also at the 640x480 shapes that phase 8
+   launches (11 frames), with their device time;
 6. run three blocks through ``StreamingRuntime(fidelity=True)`` (exact cuts
    through K1's residuals, sync skipped, K3's fold alone once a block), and
    one with 4 taps: PSNR against its bar, card against CPU;
@@ -48,8 +49,8 @@ Phases, each of which fails the run if it fails:
    the mode's name, the refresh, the line count against the port's CPU run,
    PSNR of the restored and of the raw image, the two stages' times;
 8. ``auto_reconstruct`` on 640x480 @ 60 Hz at 32 Msps, where the taps rule
-   picks 4, AM and FM (``demod="fm"``): the mode found, K1's 4-tap entries
-   launched;
+   picks 4, AM and FM (``demod="fm"``): the mode found, K1's 4-tap words
+   entry launched, with the AM or the FM load;
 9. offline, wideband: three carriers of one 640x480 screen in 0.55 s at
    32 Msps (17.6 M samples; 4 MHz channels of 2²¹ samples): ``scan_band``
    finds the three emissions at one refresh, ``combined_reconstruct`` with
@@ -81,7 +82,9 @@ Phases, each of which fails the run if it fails:
     True)``, one K1 launch for its search;
 14. every ``resampler=`` name through ``reconstruct_frames`` on the 36-frame
     capture: PSNR beside K1's, the difference from K1 beside the bound the
-    quantisation gives, K1 with the quantised table against its plain version;
+    quantisation gives, the names that round to bfloat16 through K1's words
+    load with no pass, K1 with the quantised table against its plain version
+    (launched on the envelope by ``mxu3`` with ``invert``);
 15. the command line in process (``synth``, ``analyze``, ``reconstruct``,
     ``scan``, ``survey``, ``stream``, ``search``, ``warmup``, and ``stream
     --mesh 4`` and ``search --dynamic --devices 4`` on four shards of the
@@ -122,7 +125,17 @@ Phases, each of which fails the run if it fails:
     before it: scenario 3 is K1's single-frame launch), ``entry()``'s step,
     ``dryrun_multichip(1)`` and ``dryrun_multichip(4)`` on four shards of the
     card; ``--phase o`` on four cards also runs ``dryrun_multichip(4)`` over
-    them.
+    them;
+23. stage 1 inside K1's words load: every load (AM, AM rounded to bfloat16,
+    FM, FM rounded) on int16 and float32 words, 2 and 4 taps, with and
+    without residuals, equal to its plain version to the bit (also at the
+    block's edges, from an unaligned source, at ``OTHER_SHAPES``), timed
+    beside its bound; ``bench_config()``'s ``mxu3`` step and the slice's FM
+    step against the same steps with the demod and rounding as passes: the
+    same bits, wall clock and device time in turns, 5 device events a step;
+    the launches of each new load on its main path (the bench line, the
+    runtime under ``mxu3``, FM and both, 4 taps with ``invert``); with
+    ``--parent DIR`` that checkout's bench line in turns with this one's.
 
 Run ``python3 chip_smoke.py`` from the root of a checkout on a machine with
 a CUDA card; it ends with torch.profiler tables of three steps, with the
@@ -383,7 +396,7 @@ def time_back_to_back(torch, fn, launches: int = BACK_TO_BACK) -> float:
 
 
 def k1_bound_parts(n_samples: int, sample_bytes: int, n_frames: int, raster: tuple,
-                   demod: bool, taps: int = 2, exact: bool = False) -> dict:
+                   word: int, taps: int = 2, exact: bool = False) -> dict:
     """The three least times of one K1 call on ``raster`` (frame length,
     raster lines, raster width, screen shape), in ms: its bytes over the
     memory rate, its float32 operations over the peak rate (both
@@ -392,12 +405,14 @@ def k1_bound_parts(n_samples: int, sample_bytes: int, n_frames: int, raster: tup
     same), and the least instructions it issues over the card's issue rate
     (``resample_kernel.launch_instructions``; ``sync_kernel.H100_ISSUE_PER_S``),
     against the published peaks of one H100 SXM at its full 700 W
-    (``utils.roofline.H100_PEAKS``); and the bytes."""
+    (``utils.roofline.H100_PEAKS``); and the bytes.  ``word`` is the word
+    code K1 stages (``resample_kernel.word_code``; 0 or False an envelope,
+    True AM words)."""
     from tempest_tpu_torch.ops.resample_kernel import launch_cost, launch_instructions
     from tempest_tpu_torch.ops.sync_kernel import H100_ISSUE_PER_S
     from tempest_tpu_torch.utils.roofline import H100_PEAKS
 
-    args = (n_samples, sample_bytes, n_frames, *raster, demod, taps, exact)
+    args = (n_samples, sample_bytes, n_frames, *raster, word, taps, exact)
     nbytes, flops, _ = launch_cost(*args)
     return {"bytes": 1e3 * nbytes / H100_PEAKS["bytes_per_s"],
             "flops": 1e3 * flops / H100_PEAKS["flops_per_s"],
@@ -406,12 +421,12 @@ def k1_bound_parts(n_samples: int, sample_bytes: int, n_frames: int, raster: tup
 
 
 def k1_bound(n_samples: int, sample_bytes: int, n_frames: int, raster: tuple,
-             demod: bool, taps: int = 2, exact: bool = False) -> tuple[float, str, int]:
+             word: int, taps: int = 2, exact: bool = False) -> tuple[float, str, int]:
     """The least milliseconds the card could take for one K1 call: the
     largest of :func:`k1_bound_parts`.  Returns (ms, "bytes" or
     "operations", bytes); operations are float32 operations or
     instructions, whichever bound is larger."""
-    parts = k1_bound_parts(n_samples, sample_bytes, n_frames, raster, demod, taps, exact)
+    parts = k1_bound_parts(n_samples, sample_bytes, n_frames, raster, word, taps, exact)
     ops = max(parts["flops"], parts["instructions"])
     return max(parts["bytes"], ops), ("bytes" if parts["bytes"] >= ops else "operations"), \
         parts["nbytes"]
@@ -999,7 +1014,7 @@ def phase_batched(tp, torch, dev, card: str, words: np.ndarray, reset_counts,
         reset_counts()
         ema_out, frames, sync, score = step(iq_b, ema_b, ALPHA, *phases)
         torch.cuda.synchronize()
-        variant = (2, cfg.subsample_align)
+        variant = (2, cfg.subsample_align, "am", False)
         launches = frames_to_screens_from_words.launches_by_variant[variant]
         check(launches == 1 and frames_to_screens_from_words.launches == 1
               and frames_to_screens.launches == 0,
@@ -1324,6 +1339,11 @@ def phase_resamplers(tp, torch, dev, card: str, words_i16, truth, reset_counts) 
         how = poff.RESAMPLERS[name]
         check(k1_launches == (1 if how.route == "k1" else 0),
               f"resampler={name}: {'one K1 launch a block' if how.route == 'k1' else 'no K1 launch'}")
+        if how.bf16_envelope:
+            check(load_launches(frames_to_screens_from_words, "am", True) == 1
+                  and frames_to_screens.launches == 0,
+                  f"resampler={name}: K1's words load rounds to bfloat16, no demod or rounding "
+                  f"pass ({dict(frames_to_screens_from_words.launches_by_variant)})")
         rec = tp.reconstruct_frames(block, cfg, alpha=ALPHA)
         db, _ = tp.aligned_psnr(truth, rec.image)
         ms = time_call(torch, lambda: step(block, ema0, ALPHA), calls=5)
@@ -1350,6 +1370,15 @@ def phase_resamplers(tp, torch, dev, card: str, words_i16, truth, reset_counts) 
         # chain's after three; the band-limited read is another interpolation.
         check(name == "fft" or out[name]["psnr"] > PSNR_BAR_DB - 0.5,
               f"resampler={name} reconstructs the screen")
+
+    # The quantised table on the envelope entry: an mxu name with invert, whose
+    # block maximum keeps the demod a pass.
+    reset_counts()
+    tp.make_reconstruct_fn(dataclasses.replace(base, resampler="mxu3", invert=True,
+                                               do_align=False))(block, ema0, ALPHA)
+    envelope_quantised = frames_to_screens.launches
+    check(envelope_quantised == 1 and frames_to_screens_from_words.launches == 0,
+          f"resampler=mxu3 with invert: one envelope-entry launch ({envelope_quantised})")
 
     # K1 with the quantised table, at the slice's shapes, against its plain version.
     spf = base.samples_per_frame
@@ -1378,7 +1407,7 @@ def phase_resamplers(tp, torch, dev, card: str, words_i16, truth, reset_counts) 
                   f"reached {bound_ms / b2b_ms:.3f}; plain {plain_ms:.4f} ms, on {card}")
             out["quantised"] = dict(err=err, ms=ms, b2b_ms=b2b_ms, plain_ms=plain_ms,
                                     bound_ms=bound_ms, bound_by=bound_by,
-                                    launches=out["mxu3"]["launches"])
+                                    launches=envelope_quantised)
         del got, ref
     return out
 
@@ -1707,9 +1736,11 @@ def phase_sync_align(tp, torch, dev, card: str, words_i16, starts, raster) -> di
 
 def load_other(root: Path, name: str = "tt_parent"):
     """Another checkout's ``tempest_tpu_torch`` (``root`` holds it), loaded
-    under ``name``; it builds its kernels in its own directory."""
+    under ``name`` once; it builds its kernels in its own directory."""
     import importlib.util
 
+    if name in sys.modules:
+        return sys.modules[name]
     pkg = root / "tempest_tpu_torch"
     spec = importlib.util.spec_from_file_location(
         name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
@@ -2035,6 +2066,214 @@ def phase_step_split(tp, torch, dev, card: str, words_i16, activities) -> None:
     check(ema_rel < EMA_REL_TOL, "the step's EMA through the kernels matches the plain route")
 
 
+# What K1's words load makes of I/Q words (demod, bfloat16 rounding): plain AM,
+# the rounding of the mxu3, mxu4 and mxu_batched chains, the FM discriminator.
+WORD_LOADS = (("am", False), ("am", True), ("fm", False), ("fm", True))
+# The kernels a step may put on the card: K1, K2a, K2b, K3 and the upload.
+STEP_EVENTS = ("tiles_kernel", "profiles_kernel", "search_kernel", "align_fold_kernel", "Memcpy")
+
+
+def load_label(demod: str, bf16: bool) -> str:
+    return {"am": "AM", "fm": "FM"}[demod] + (" rounded to bfloat16" if bf16 else "")
+
+
+def load_launches(words_entry, demod: str, bf16: bool) -> int:
+    """Launches of K1's words entry under one load, whatever their taps and
+    residuals."""
+    return sum(n for key, n in words_entry.launches_by_variant.items() if key[2:] == (demod, bf16))
+
+
+def phase_stage1(tp, torch, dev, card: str, words_i16, blocks, reset_counts, parent_root,
+                 activities) -> dict:
+    """Phase 23: stage 1 inside K1's words load.  Every load (AM, AM rounded
+    to bfloat16, FM, FM rounded) on int16 and float32 words, 2 and 4 taps,
+    rounded cuts and residuals, at the slice's shapes: equal to its plain
+    version (``words_envelope_plain`` then ``frames_to_screens_plain``) to
+    the bit, also with the first frame at sample 0 and the last cut by the
+    block end, from an unaligned source, and at ``OTHER_SHAPES``; timed
+    single, back to back and on the device beside its bound and its plain
+    version.  Then ``bench_config()``'s ``mxu3`` step and the slice's FM step,
+    each against the same step with the demod and the rounding as passes
+    (the route before): equal to the bit, wall clock and device time in
+    turns, and the profiler's events a step (5: K1, K2a, K2b, K3, the
+    upload; no demod or rounding kernel).  The launch counts are set to 0
+    before each main path that takes a new load (the bench line; the runtime
+    under ``mxu3``, FM, and FM under ``mxu3``; 4 taps with ``invert``) and
+    read after.  With ``parent_root`` the bench line of that checkout in
+    turns with this one's (parent, this, this, parent)."""
+    from tempest_tpu_torch.bench import bench
+    from tempest_tpu_torch.ops import resample_kernel as rk
+    from tempest_tpu_torch.pipeline import offline as poff
+
+    cfg = slice_config(tp)
+    mode = cfg.mode
+    spf = cfg.samples_per_frame
+    frame_len = int(np.floor(spf))
+    block = cfg.block_samples
+    raster = (frame_len, mode.height, mode.width, RENDER)
+    geom = rk.screen_geometry(*raster, dev)
+    data = {"int16 words": words_i16[: 2 * block], "float32 words": words_i16[: 2 * block].float()}
+    starts, fracs = poff.exact_cut_starts(VARIANT_PHASE, spf, N_FRAMES)
+    starts = torch.from_numpy(starts).to(dev)
+    fracs = torch.from_numpy(fracs).to(dev)
+    short = int(starts[-1]) + frame_len - 4000
+    edge = torch.tensor([0, frame_len + 3, int(starts[-1])], dtype=torch.int32, device=dev)
+    words_entry = rk.frames_to_screens_from_words
+    measured = {}
+    for name, wd in data.items():
+        sample_bytes = 4 if wd.dtype == torch.int16 else 8
+        for demod, bf16 in WORD_LOADS:
+            env = rk.words_envelope_plain(wd, demod, bf16)
+            for taps in (2, 4):
+                for exact in (False, True):
+                    res = fracs if exact else None
+                    label = (f"{load_label(demod, bf16)}, {name}, {taps} taps"
+                             + (", residuals" if exact else ""))
+
+                    def call(wd=wd, res=res, taps=taps, demod=demod, bf16=bf16):
+                        return words_entry(wd, starts, *raster, res, taps, demod=demod, bf16=bf16)
+
+                    got, ref = call(), rk.frames_to_screens_plain(env, starts, geom, res, taps)
+                    torch.cuda.synchronize()
+                    err = float((got - ref).abs().max())
+                    check(bool(torch.equal(got, ref)),
+                          f"K1 words load {label} equals its plain version to the bit ({err})")
+                    del got, ref
+                    edge_res = None if res is None else res[:3].contiguous()
+                    for lo in (0, 2):
+                        cut = wd[lo: 2 * short]
+                        cut_env = rk.words_envelope_plain(cut, demod, bf16)
+                        shapes = (RENDER,) + (OTHER_SHAPES if not exact else ())
+                        for shape in shapes:
+                            other = (frame_len, mode.height, mode.width, shape)
+                            got = words_entry(cut, edge, *other, edge_res, taps, demod=demod,
+                                              bf16=bf16)
+                            ref = rk.frames_to_screens_plain(
+                                cut_env, edge, rk.screen_geometry(*other, dev), edge_res, taps)
+                            torch.cuda.synchronize()
+                            check(bool(torch.equal(got, ref)),
+                                  f"K1 words load {label}, block edges{' unaligned' * lo}, "
+                                  f"{shape}, equals its plain version to the bit")
+                            del got, ref
+                    word = rk.word_code(wd.dtype, demod, bf16)[0]
+                    bound_ms, bound_by, nbytes = k1_bound(block, sample_bytes, N_FRAMES, raster,
+                                                          word, taps, exact)
+                    parts = k1_bound_parts(block, sample_bytes, N_FRAMES, raster, word, taps,
+                                           exact)
+                    m = dict(err=err, ms=time_call(torch, call),
+                             b2b_ms=time_back_to_back(torch, call),
+                             device_ms=kernels_device_ms(torch, call, ("tiles_kernel",))[
+                                 "tiles_kernel"],
+                             plain_ms=time_call(torch, lambda: rk.frames_to_screens_plain(
+                                 rk.words_envelope_plain(wd, demod, bf16), starts, geom, res,
+                                 taps), calls=5),
+                             bound_ms=bound_ms, bound_by=bound_by, nbytes=nbytes,
+                             bytes_bound_ms=parts["bytes"],
+                             instruction_bound_ms=parts["instructions"])
+                    measured[name, demod, bf16, taps, exact] = m
+                    print(f"[stage 1 in K1] {label}: equal to plain to the bit (edges, unaligned, "
+                          f"other shapes); {m['ms']:.4f} ms single, {m['b2b_ms']:.4f} back to "
+                          f"back, {m['device_ms']:.4f} device; bound {bound_ms:.4f} ms by "
+                          f"{bound_by} ({nbytes / 1e6:.1f} MB), share {bound_ms / m['b2b_ms']:.3f}"
+                          f" b2b, {bound_ms / m['device_ms']:.3f} device; plain "
+                          f"{m['plain_ms']:.4f} ms, on {card}")
+            del env
+
+    # The two steps, words load against demod and rounding as passes, in turns.
+    ema0 = torch.zeros(RENDER, dtype=torch.float32, device=dev)
+    steps = {}
+    for what, step_cfg, phase in (
+            ("mxu3 step of bench_config()", bench.bench_config(), 1234.5),
+            ("FM step (the slice, demod='fm')", dataclasses.replace(cfg, demod="fm"), 0.0)):
+        check(step_cfg.block_samples == block, f"the {what} takes the slice's block")
+        wd = data["int16 words"]
+        fused = tp.make_reconstruct_fn(step_cfg, dev)
+        env_step = tp.make_reconstruct_fn(dataclasses.replace(step_cfg, input_format="envelope"),
+                                          dev)
+        routes = {"words load": lambda: fused(wd, ema0, ALPHA, phase),
+                  "passes": lambda: env_step(poff.demodulate(wd, step_cfg), ema0, ALPHA, phase)}
+        a, b = routes["words load"](), routes["passes"]()
+        torch.cuda.synchronize()
+        check(all(bool(torch.equal(x, y)) for x, y in zip(a, b)),
+              f"the {what} through the words load equals the passes to the bit")
+        del a, b
+        out = {route: {"ms": [], "device": [], "kernels": []} for route in routes}
+        for route in ("words load", "passes", "passes", "words load"):
+            r = out[route]
+            r["ms"].append(time_call(torch, routes[route], calls=10))
+            fn = routes[route]
+            by_kernel = device_by_kernel(profiled(torch, lambda: [fn() for _ in range(3)],
+                                                  activities), 3)
+            ms_step, launches = step_device_ms(by_kernel)
+            r["device"].append(ms_step)
+            r["kernels"].append(launches)
+            r["by_kernel"] = by_kernel
+        for route, r in out.items():
+            parts = "; ".join(f"{short_name(k)} {ms:.4f} x{n}" for k, (ms, n) in
+                              r["by_kernel"].items())
+            print(f"[stage 1 in K1] {what}, {route}: {r['ms'][0]:.3f} {r['ms'][1]:.3f} ms wall "
+                  f"clock (median of 10), device {r['device'][0]:.4f} {r['device'][1]:.4f} ms in "
+                  f"{r['kernels'][0]} {r['kernels'][1]} kernels a step, turns words passes passes "
+                  f"words; by kernel: {parts}, on {card}")
+        names = out["words load"]["by_kernel"]
+        check(out["words load"]["kernels"] == [5, 5]
+              and all(any(e in k for e in STEP_EVENTS) for k in names),
+              f"the {what} is 5 device events, K1, K2a, K2b, K3 and the upload, with no "
+              f"demod or rounding kernel ({sorted(names)})")
+        steps[what] = out
+
+    # The main paths that take a new load, each from counts at 0.
+    reset_counts()
+    line, ema = bench.run(bench.bench_config(), bench.ITERS, dev)
+    torch.cuda.synchronize()
+    launches = {"bench": load_launches(words_entry, "am", True)}
+    check(launches["bench"] > 0 and words_entry.launches == launches["bench"]
+          and rk.frames_to_screens.launches == 0 and bool(torch.isfinite(ema).all()),
+          f"the bench chain went through the words load with the rounding "
+          f"({dict(words_entry.launches_by_variant)}, envelope {rk.frames_to_screens.launches})")
+    for key, options in (("runtime mxu3", {"config_overrides": {"resampler": "mxu3"}}),
+                         ("runtime fm", {"config_overrides": {"demod": "fm"}}),
+                         ("runtime fm mxu3",
+                          {"config_overrides": {"demod": "fm", "resampler": "mxu3"}}),
+                         ("runtime invert 4 taps",
+                          {"invert": True, "config_overrides": {"interp_taps": 4}})):
+        reset_counts()
+        ema_rt, _, _, _ = run_runtime(tp, blocks[:2], mode, dev, **options)
+        load = (options["config_overrides"].get("demod", "am"),
+                options["config_overrides"].get("resampler") == "mxu3")
+        if "invert" in options:
+            launches[key] = rk.frames_to_screens.launches_by_variant[4, False]
+            ok = launches[key] == 2 and words_entry.launches == 0
+        else:
+            launches[key] = load_launches(words_entry, *load)
+            ok = launches[key] == 2 == words_entry.launches and rk.frames_to_screens.launches == 0
+        check(ok and bool(np.isfinite(ema_rt).all()),
+              f"{key}: 2 blocks, one K1 launch a block through the route it takes "
+              f"({dict(words_entry.launches_by_variant)}, envelope "
+              f"{dict(rk.frames_to_screens.launches_by_variant)})")
+    print(f"[stage 1 in K1] launches on the main paths: {launches}")
+
+    turns = {"parent": [], "this": []}
+    if parent_root is not None:
+        import importlib
+
+        parent_bench = importlib.import_module(f"{load_other(Path(parent_root)).__name__}"
+                                               ".bench.bench")
+        for who in ("parent", "this", "this", "parent"):
+            run = parent_bench.run if who == "parent" else bench.run
+            cfg_b = (parent_bench if who == "parent" else bench).bench_config()
+            got, _ = run(cfg_b, bench.ITERS, dev)
+            turns[who].append(got)
+        for who, lines in turns.items():
+            ms = " ".join(f"{x['ms_per_block']:.4f}" for x in lines)
+            rate = " ".join(f"{x['value']:.2f}" for x in lines)
+            print(f"[stage 1 in K1] bench line, {who}: {ms} ms a block = {rate} Msamples/s, "
+                  f"turns parent this this parent, on {card}")
+    print(f"[stage 1 in K1] bench line: {json.dumps(line)}")
+    return {"measured": measured, "steps": steps, "launches": launches, "bench": line,
+            "bench_turns": turns}
+
+
 class LoopSource:
     """A file replay in small: blocks cut from ``samples`` played in a loop,
     ``n_blocks`` of them, then the capture reports itself exhausted."""
@@ -2133,7 +2372,7 @@ def phase_mesh_one_card(tp, torch, dev, card: str, reset_counts, loop, truth, ac
     out = {"reference": {}}
     for chain, options, bar in (("default", {}, PSNR_BAR_DB),
                                 ("fidelity", {"fidelity": True}, FIDELITY_PSNR_BAR_DB)):
-        variant = (2, chain == "fidelity")
+        variant = (2, chain == "fidelity", "am", False)
         reset_counts()
         ema1, frames1, sync1, emas1, s1, srt = run_stream(
             tp, tp.StreamingRuntime, LoopSource(loop, S, n_spans), mode, n_spans, **options)
@@ -2213,7 +2452,7 @@ def phase_mesh_one_card(tp, torch, dev, card: str, reset_counts, loop, truth, ac
         reset_counts()
         ema_g, _, _, _, seconds, _ = run_stream(tp, tp.MeshStreamingRuntime, LoopSource(loop, S, 3),
                                                 mode, 2, gmesh)
-        launches = frames_to_screens_from_words.launches_by_variant[2, False]
+        launches = frames_to_screens_from_words.launches_by_variant[2, False, "am", False]
         equal = bool(np.array_equal(ema_g, out["reference"]["default"][1]))
         print(f"[mesh, NCCL] one rank, {launches} dispatches of one span: EMA equal to the "
               f"single-device runtime's after 2 blocks: {equal}; collectives "
@@ -2521,7 +2760,8 @@ def main(argv: list[str] | None = None) -> int:
                          "phase 17, its reference")
     ap.add_argument("--parent", type=Path, default=None,
                     help="another checkout (the parent commit's tempest_tpu_torch/ under this "
-                         "directory): its frame_to_screen timed in turns with this one's")
+                         "directory): its frame_to_screen and its bench line timed in turns with "
+                         "this one's")
     args = ap.parse_args(argv)
     import torch
 
@@ -2870,33 +3110,39 @@ def main(argv: list[str] | None = None) -> int:
     small_raster = (int(np.floor(small_spf)), small_mode.height, small_mode.width, (h, w))
     small_starts = torch.from_numpy(
         np.round(np.arange(small_frames) * small_spf).astype(np.int32)).to(dev)
-    small_i16 = torch.from_numpy(small_words["am"]).to(dev)
-    small_env = tp.am_envelope_from_iq(small_i16)
+    small_i16 = {kind: torch.from_numpy(small_words[kind]).to(dev) for kind in ("am", "fm")}
+    small_env = tp.am_envelope_from_iq(small_i16["am"])
     small_geom = screen_geometry(*small_raster, dev)
-    ref = frames_to_screens_plain(small_env, small_starts, small_geom, None, 4)
-    # The 4-tap envelope and int16 rows as auto_reconstruct launches them
-    # there (phase 8): their kernels-line numbers, the slice's as secondary.
+    # The 4-tap rows as auto_reconstruct launches them there (phase 8): the
+    # int16 words under the AM and the FM load, their kernels-line numbers
+    # with the slice's as secondary; and the envelope entry on the AM capture.
     measured_small = {}
-    for name, fn, data, demod in (("envelope", frames_to_screens, small_env, False),
-                                  ("int16 words", frames_to_screens_from_words, small_i16, True)):
-        got = fn(data, small_starts, *small_raster, None, 4)
+    for name, fn, data, demod in (
+            ("envelope", frames_to_screens, small_env, None),
+            ("int16 words", frames_to_screens_from_words, small_i16["am"], "am"),
+            ("FM int16 words", frames_to_screens_from_words, small_i16["fm"], "fm")):
+        def plain(data=data, demod=demod):
+            env = data if demod is None else resample_kernel.words_envelope_plain(data, demod)
+            return frames_to_screens_plain(env, small_starts, small_geom, None, 4)
+
+        call = functools.partial(fn, data, small_starts, *small_raster, None, 4,
+                                 **({} if demod is None else {"demod": demod}))
+        got, ref = call(), plain()
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
         print(f"[K1 {name}, 4 taps] {small_frames} frames of {SMALL_MODE_NAME} at "
               f"{SMALL_SAMPLE_RATE / 1e6:g} Msps: max abs diff {err:.3e}")
         check(got.shape == (small_frames, h, w) and bool(torch.equal(got, ref)),
               f"K1 on {name}, 4 taps, at the 640x480 shapes equals its plain version to the bit")
-        del got
-        call = functools.partial(fn, data, small_starts, *small_raster, None, 4)
+        del got, ref
         n_small = small_env.shape[0]
-        bound_ms, bound_by, nbytes = k1_bound(n_small, 4, small_frames, small_raster, demod, 4)
-        parts = k1_bound_parts(n_small, 4, small_frames, small_raster, demod, 4)
+        word = 0 if demod is None else resample_kernel.word_code(data.dtype, demod)[0]
+        bound_ms, bound_by, nbytes = k1_bound(n_small, 4, small_frames, small_raster, word, 4)
+        parts = k1_bound_parts(n_small, 4, small_frames, small_raster, word, 4)
         m = dict(err=err, ms=time_call(torch, call), b2b_ms=time_back_to_back(torch, call),
                  device_ms=kernels_device_ms(torch, call, ("catmull_rom_tiles_kernel",))[
                      "catmull_rom_tiles_kernel"],
-                 plain_ms=time_call(torch, lambda: frames_to_screens_plain(
-                     tp.am_envelope_from_iq(data) if demod else data, small_starts, small_geom,
-                     None, 4), calls=5),
+                 plain_ms=time_call(torch, plain, calls=5),
                  bound_ms=bound_ms, bound_by=bound_by, bytes_bound_ms=parts["bytes"],
                  instruction_bound_ms=parts["instructions"])
         check(m["device_ms"] > 0, f"the profiler traced K1's 4-tap kernel on {name}")
@@ -2909,7 +3155,7 @@ def main(argv: list[str] | None = None) -> int:
               f"reached {bound_ms / m['b2b_ms']:.3f} back to back, "
               f"{bound_ms / m['device_ms']:.3f} of device time; plain {m['plain_ms']:.4f} ms, "
               f"on {card}")
-    del ref, small_env, small_i16
+    del small_env, small_i16
 
     # ---- 6. the fidelity runtime: exact cuts through K1's residuals, sync skipped
     reset_counts()
@@ -2917,7 +3163,7 @@ def main(argv: list[str] | None = None) -> int:
     demod_calls.clear()
     fid_gpu, fid_sync, fid_devices, seconds = run_runtime(tp, blocks, mode, dev, fidelity=True)
     poff.demodulate = demodulate
-    fidelity_launches = frames_to_screens_from_words.launches_by_variant[2, True]
+    fidelity_launches = frames_to_screens_from_words.launches_by_variant[2, True, "am", False]
     fidelity_folds = align_fold.launches_by_mode[None, True]
     check(blanking_sync.launches == 0
           and fidelity_folds == align_fold.launches == fidelity_launches,
@@ -2949,7 +3195,7 @@ def main(argv: list[str] | None = None) -> int:
     reset_counts()
     fid4_gpu, _, _, _ = run_runtime(tp, blocks[:1], mode, dev, fidelity=True,
                                     config_overrides={"interp_taps": 4})
-    fidelity4_launches = frames_to_screens_from_words.launches_by_variant[4, True]
+    fidelity4_launches = frames_to_screens_from_words.launches_by_variant[4, True, "am", False]
     check(fidelity4_launches >= 1 and frames_to_screens_from_words.launches == fidelity4_launches,
           f"K1's fused entry with residuals and 4 taps launched ({fidelity4_launches})")
     fid4_cpu, _, _, _ = run_runtime(tp, blocks[:1], mode, "cpu", fidelity=True,
@@ -2964,7 +3210,7 @@ def main(argv: list[str] | None = None) -> int:
     auto_words = words[: 2 * block]      # 0.62 s as int16 words
     reset_counts()
     timing, recon = tp.auto_reconstruct(auto_words, SAMPLE_RATE, alpha=ALPHA)
-    auto_launches = frames_to_screens_from_words.launches_by_variant[2, False]
+    auto_launches = frames_to_screens_from_words.launches_by_variant[2, False, "am", False]
     check(auto_launches == 1 and frames_to_screens_from_words.launches == 1
           and frames_to_screens.launches == 0,
           f"auto_reconstruct went through K1's fused entry once ({auto_launches})")
@@ -3019,10 +3265,11 @@ def main(argv: list[str] | None = None) -> int:
 
     # ---- 8. auto_reconstruct where the taps rule picks 4, AM and FM
     small_launches = {}
-    for kind, entry in (("am", frames_to_screens_from_words), ("fm", frames_to_screens)):
+    for kind in ("am", "fm"):
         reset_counts()
         t, r = tp.auto_reconstruct(small_words[kind], SMALL_SAMPLE_RATE, alpha=ALPHA, demod=kind)
-        small_launches[kind] = entry.launches_by_variant[4, False]
+        small_launches[kind] = frames_to_screens_from_words.launches_by_variant[
+            4, False, kind, False]
         print(f"[auto, {kind}] {t.mode_name} at {SMALL_SAMPLE_RATE / 1e6:g} Msps, refresh "
               f"{t.refresh_hz:.6f} Hz, line count {t.line_count:.4f}, {r.frames.shape[0]} frames, "
               f"4-tap launches {small_launches[kind]}")
@@ -3031,7 +3278,8 @@ def main(argv: list[str] | None = None) -> int:
               f"auto_reconstruct ({kind}) refresh within {REFRESH_TOL_HZ} Hz")
         check(small_launches[kind] == 1
               and frames_to_screens.launches + frames_to_screens_from_words.launches == 1,
-              f"auto_reconstruct ({kind}) went through K1's 4-tap entry once")
+              f"auto_reconstruct ({kind}) went through K1's 4-tap words load with its demod "
+              f"once ({dict(frames_to_screens_from_words.launches_by_variant)})")
         check(r.frames.shape[0] == small_frames,
               f"auto_reconstruct ({kind}) rendered the {small_frames} frames phase 5 timed")
         check(r.image.shape == (h, w) and bool(np.isfinite(r.image).all()),
@@ -3109,6 +3357,11 @@ def main(argv: list[str] | None = None) -> int:
     # ---- 22. the repo's bench and entry-point programs in the port
     entry_points = phase_entry_points(tp, torch, dev, card, reset_counts)
 
+    # ---- 23. stage 1 inside K1's words load: the bfloat16 rounding, the FM
+    # discriminator; the mxu3 and FM steps; the bench line beside the parent's
+    stage1 = phase_stage1(tp, torch, dev, card, words_i16, blocks, reset_counts, args.parent,
+                          activities)
+
     def kernel_entry(name, key, launches):
         m = key if isinstance(key, dict) else measured[key]
         return {
@@ -3128,10 +3381,11 @@ def main(argv: list[str] | None = None) -> int:
 
     def taps4_entry(name, key, launches, small=None):
         """A 4-tap row: its own kernel since the redesign, its bound the larger
-        of bytes and instructions, both given.  With ``small``, the numbers
-        at the 640x480 shapes its path launches (phase 5's last part), and
-        the slice's as ``slice_*``."""
-        m = measured[key]
+        of bytes and instructions, both given.  ``key`` is a key of phase 5's
+        measurements or a measurement.  With ``small``, the numbers at the
+        640x480 shapes its path launches (phase 5's last part), and the
+        slice's as ``slice_*``."""
+        m = key if isinstance(key, dict) else measured[key]
         if small is None:
             return dict(kernel_entry(name, key, launches), redesigned=True,
                         source_kernel="catmull_rom_tiles_kernel",
@@ -3182,12 +3436,14 @@ def main(argv: list[str] | None = None) -> int:
                     ("int16 words", 4, False), small_launches["am"], "int16 words"),
         taps4_entry("K1 frames_to_screens_from_words, 4 taps, residuals (float32 words)",
                     ("float32 words", 4, True), fidelity4_launches),
+        # 4 taps on an envelope: the runtime with invert (its block maximum
+        # keeps the demod a pass), at the slice's shapes.
         taps4_entry("K1 frames_to_screens, 4 taps (envelope)",
-                    ("envelope", 4, False), small_launches["fm"], "envelope"),
+                    ("envelope", 4, False), stage1["launches"]["runtime invert 4 taps"]),
         # The operator surface's paths: 144 frames of 4 streams in one launch
         # a batched step; one launch over the candidates of the mode search,
         # at a 150x200 grid (one a shard of the sharded search); one launch a
-        # block under the mxu names.
+        # block under an mxu name with invert (without it, the words load).
         kernel_entry("K1 frames_to_screens_from_words, batched step (int16 words, 144 frames)",
                      batched["static cuts"], batched["static cuts"]["launches"]),
         kernel_entry("K1 frames_to_screens_from_words, batched step, residuals "
@@ -3201,7 +3457,7 @@ def main(argv: list[str] | None = None) -> int:
              per_candidate_back_to_back_ms=search["per_candidate_back_to_back_ms"],
              per_candidate_device_ms=search["per_candidate_device_ms"],
              search_ms=search["search_ms"], refine_ms=search["refine_ms"]),
-        kernel_entry("K1 frames_to_screens, quantised table (envelope, the mxu names)",
+        kernel_entry("K1 frames_to_screens, quantised table (envelope, mxu3 with invert)",
                      named["quantised"], named["quantised"]["launches"]),
         # One frame onto 600x800, one launch (bench_all's scenario 3).
         dict(kernel_entry("K1 frame_to_screen, one frame (envelope, 2 taps)", f2s,
@@ -3210,6 +3466,27 @@ def main(argv: list[str] | None = None) -> int:
              device_ms=f2s["device_ms"], host_us=f2s["host_us"], tile_plans=f2s["plans"],
              **({"parent": f2s["parent"]} if "parent" in f2s else {})),
     ]
+    # Stage 1 inside K1's words load (phase 23), each load under the word type
+    # and taps its main path launched, timed at the slice's shapes.
+    for name, key, launches in (
+            ("AM rounded to bfloat16, residuals (int16 words): the bench chain, mxu3",
+             ("int16 words", "am", True, 2, True), stage1["launches"]["bench"]),
+            ("AM rounded to bfloat16 (float32 words): the runtime under mxu3",
+             ("float32 words", "am", True, 2, False), stage1["launches"]["runtime mxu3"]),
+            ("FM (float32 words): the runtime under demod='fm'",
+             ("float32 words", "fm", False, 2, False), stage1["launches"]["runtime fm"]),
+            ("FM rounded to bfloat16 (float32 words): the runtime under FM and mxu3",
+             ("float32 words", "fm", True, 2, False), stage1["launches"]["runtime fm mxu3"])):
+        m = stage1["measured"][key]
+        kernels.append(dict(kernel_entry(f"K1 frames_to_screens_from_words, {name}", m, launches),
+                            device_ms=m["device_ms"], added_in="stage 1 in the words load"))
+    # FM with 4 taps: auto_reconstruct(demod='fm') at 640x480 (phase 8), timed
+    # there in phase 5 and at the slice's shapes in phase 23.
+    kernels.append(dict(taps4_entry(
+        "K1 frames_to_screens_from_words, FM, 4 taps (int16 words): "
+        "auto_reconstruct(demod='fm') at 640x480",
+        stage1["measured"]["int16 words", "fm", False, 4, False], small_launches["fm"],
+        "FM int16 words"), added_in="stage 1 in the words load"))
     # K2 and K3, timed at the slice's 36 screens of 600x800 (phase 20); their
     # launches are the runtime's over its 3 blocks (phase 3) and the fidelity
     # runtime's (phase 6).  No single PyTorch call computes either function:

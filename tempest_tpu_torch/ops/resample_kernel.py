@@ -10,9 +10,11 @@ frame's fractional residual in [0, 1): frame cuts exact to the sub-sample,
 where ``frame_starts`` alone cuts at whole samples.
 ``frames_to_screens_from_words``
 does the same from the raw interleaved I/Q words of the block (int16 or
-float32), taking the AM envelope ``sqrt(I² + Q²)`` on the way, so that the
-envelope is never written to device memory.  Both follow the Pallas kernel's
-boundary semantics, not the gather path's:
+float32), taking the AM envelope ``sqrt(I² + Q²)`` or the FM discriminator
+on the way (``demod=``), rounded to bfloat16 where asked (``bf16=``: the
+``mxu3``, ``mxu4`` and ``mxu_batched`` chains), so that the envelope is never
+written to device memory.  Both follow the Pallas kernel's boundary
+semantics, not the gather path's:
 
 * line starts are clamped at 0 and the negative remainder is folded into
   the fraction, and positions are lower-clipped at 0;
@@ -82,8 +84,8 @@ import numpy as np
 import torch
 
 from ..utils.roofline import report_launch
-from .demod import am_envelope_from_iq
-from .resample import RENDER_SIZE, _screen_geometry
+from .demod import am_envelope_from_iq, fm_demod_from_iq
+from .resample import RENDER_SIZE, _screen_geometry, round_to_bfloat16
 
 __all__ = [
     "ScreenGeometry",
@@ -91,6 +93,7 @@ __all__ = [
     "frames_to_screens",
     "frames_to_screens_from_words",
     "frames_to_screens_plain",
+    "words_envelope_plain",
     "frames_to_screens_candidates",
     "frames_to_screens_candidates_plain",
     "CandidateTable",
@@ -132,6 +135,11 @@ _INT32_MAX = int(np.iinfo(np.int32).max)
 # What the kernel stages: code and bytes per sample, by the tensor's dtype.
 _ENVELOPE = (0, 4)
 _WORDS = {torch.int16: (1, 4), torch.float32: (2, 8)}
+# Flags of an I/Q word code (``csrc/resample.cu`` kFm, kBf16): the FM
+# discriminator in place of the AM envelope, and each demodulated sample
+# rounded to bfloat16 and back.
+_FM, _BF16 = 4, 8
+_DEMODS = ("am", "fm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -335,10 +343,10 @@ def frame_samples_read(
 
 
 def launch_cost(n_samples: int, sample_bytes: int, n_frames: int, frame_len: int, y_t: int,
-                x_t: int, out_shape: tuple[int, int], demod: bool, taps: int = 2,
+                x_t: int, out_shape: tuple[int, int], word: int, taps: int = 2,
                 exact: bool = False) -> tuple[int, int, int]:
-    """(bytes, float32 operations, square roots) of one K1 launch: what its
-    bound on the card and a roofline count are computed from.
+    """(bytes, float32 operations, transcendentals) of one K1 launch: what
+    its bound on the card and a roofline count are computed from.
 
     Bytes: the samples of the block that the frames' line tables address
     (:func:`frame_samples_read` per frame, the whole block at most) read once,
@@ -348,8 +356,13 @@ def launch_cost(n_samples: int, sample_bytes: int, n_frames: int, frame_len: int
     Operations per pixel: one product for ``c·delta``; per vertical tap add,
     max, floor, two subtractions, two products, add; three for the blend.
     With 4 taps a vertical tap takes add, max, floor, subtraction, 19 for the
-    Catmull-Rom weights and 7 for the four-term sum.  The demod adds two
-    products, an add and a square root per sample read."""
+    Catmull-Rom weights and 7 for the four-term sum.  ``word`` is the word
+    code K1 stages (:func:`word_code`; 0 an envelope, and a bool reads as
+    an envelope or AM words).  The demod adds, per sample read, two
+    products, an add and a square root (AM), or under ``_FM`` four
+    products, two sums and an arc tangent (the FM discriminator); the square
+    root or the arc tangent is also the sample's transcendental.  ``_BF16``
+    adds the rounding, one operation a sample."""
     h, w = int(out_shape[0]), int(out_shape[1])
     pixels = n_frames * h * w
     per_frame = frame_samples_read(int(frame_len), int(y_t), int(x_t), (h, w),
@@ -358,8 +371,9 @@ def launch_cost(n_samples: int, sample_bytes: int, n_frames: int, frame_len: int
     nbytes = (samples * sample_bytes + (8 if exact else 4) * n_frames + h * (8 + 8 + 4)
               + 4 * pixels)
     per_tap = 8 if taps == 2 else 4 + 19 + 7
-    flops = pixels * (1 + 2 * per_tap + 3) + (4 * samples if demod else 0)
-    return nbytes, flops, (samples if demod else 0)
+    per_sample = ((7 if word & _FM else 4) + (1 if word & _BF16 else 0)) if word else 0
+    flops = pixels * (1 + 2 * per_tap + 3) + per_sample * samples
+    return nbytes, flops, (samples if word else 0)
 
 
 def _check_launch(src: torch.Tensor, n_samples: int, frame_starts: torch.Tensor) -> int:
@@ -396,6 +410,16 @@ PIXEL_INSTRUCTIONS = 1 + 3 + 0.25
 # A sample's demod: two products, an add and a correctly rounded square root
 # (an approximation and three fix-ups); int16 words two conversions more.
 DEMOD_INSTRUCTIONS = {4: 2 + 2 + 1 + 4, 8: 2 + 1 + 4}
+# The least an arc tangent of a quotient takes: the smaller magnitude over
+# the larger (a minimum, a maximum, an approximate reciprocal, the product),
+# an odd polynomial of degree 15 in it (a square, 7 fused multiply-adds, the
+# product with the quotient), the octant's fix-ups (two selections, the sign).
+ATAN2_INSTRUCTIONS = 2 + 2 + 9 + 3
+# A sample's FM discriminator: four products and two sums with the sample
+# before, the arc tangent; int16 words two conversions more.
+FM_INSTRUCTIONS = {4: 2 + 4 + 2 + ATAN2_INSTRUCTIONS, 8: 4 + 2 + ATAN2_INSTRUCTIONS}
+# The bfloat16 rounding of a sample: a conversion to bfloat16, one back.
+BF16_INSTRUCTIONS = 2
 
 
 def line_loads(taps: int, delta: float, group: int) -> float:
@@ -408,7 +432,7 @@ def line_loads(taps: int, delta: float, group: int) -> float:
 
 
 def launch_instructions(n_samples: int, sample_bytes: int, n_frames: int, frame_len: int,
-                        y_t: int, x_t: int, out_shape: tuple[int, int], demod: bool,
+                        y_t: int, x_t: int, out_shape: tuple[int, int], word: int,
                         taps: int = 2, exact: bool = False) -> float:
     """The least instructions one K1 launch issues, over all lanes: what its
     instruction bound is computed from, beside :func:`launch_cost`'s bytes.
@@ -417,7 +441,8 @@ def launch_instructions(n_samples: int, sample_bytes: int, n_frames: int, frame_
     :func:`line_loads` counts them for the kernel's work item (four columns
     when the width is a multiple of 4, else one); each sample the line
     tables address copied in 16-byte requests, and demodulated when the
-    words are I/Q (``DEMOD_INSTRUCTIONS``).  The card issues one instruction
+    word code ``word`` is I/Q (``DEMOD_INSTRUCTIONS``, under ``_FM``
+    ``FM_INSTRUCTIONS``, and ``BF16_INSTRUCTIONS`` more under ``_BF16``).  The card issues one instruction
     a cycle on each of its schedulers (``ops.sync_kernel.H100_ISSUE_PER_S``
     lanes a second)."""
     h, w = int(out_shape[0]), int(out_shape[1])
@@ -426,7 +451,10 @@ def launch_instructions(n_samples: int, sample_bytes: int, n_frames: int, frame_
     per_frame = frame_samples_read(int(frame_len), int(y_t), int(x_t), (h, w),
                                    sum(line_reach(taps, exact)))
     samples = min(int(n_samples), n_frames * per_frame)
-    per_sample = sample_bytes / 16 + (DEMOD_INSTRUCTIONS[sample_bytes] if demod else 0)
+    per_sample = sample_bytes / 16
+    if word:
+        per_sample += ((FM_INSTRUCTIONS if word & _FM else DEMOD_INSTRUCTIONS)[sample_bytes]
+                       + (BF16_INSTRUCTIONS if word & _BF16 else 0))
     per_line = LINE_INSTRUCTIONS[taps] + line_loads(taps, delta, 4 if w % 4 == 0 else 1)
     return n_frames * h * w * (2 * per_line + PIXEL_INSTRUCTIONS) + samples * per_sample
 
@@ -454,28 +482,29 @@ class LaunchPlan:
 def launch_plan(
     n_samples: int, n_frames: int, frame_len: int, y_t: int, x_t: int,
     out_shape: tuple[int, int], device: torch.device, num_phases: int | None,
-    sample_bytes: int, demod: bool, taps: int, exact: bool,
+    sample_bytes: int, word: int, taps: int, exact: bool,
     rows_per_tile: int, fill: int,
 ) -> LaunchPlan:
-    """The :class:`LaunchPlan` of a launch; ``rows_per_tile`` and ``fill``
-    are ``ROWS_PER_TILE[sample_bytes]`` and ``FILL_TILES_PER_SM`` as the
-    caller reads them, so that a plan is made again where they change."""
+    """The :class:`LaunchPlan` of a launch of the word code ``word`` (0 an
+    envelope); ``rows_per_tile`` and ``fill`` are
+    ``ROWS_PER_TILE[sample_bytes]`` and ``FILL_TILES_PER_SM`` as the caller
+    reads them, so that a plan is made again where they change."""
     del rows_per_tile, fill  # read by tile_plan; part of the cache's key
     raster = (frame_len, y_t, x_t, out_shape)
     lead, extra = line_reach(taps, exact)
     sms = sm_count(device) if device.type == "cuda" else 0
     rows, run_cap = tile_plan(*raster, sample_bytes, lead + extra, taps, n_frames, sms)
     geom = screen_geometry(*raster, device, num_phases)
-    return LaunchPlan(geom, rows, run_cap, geom.span + extra,
-                      launch_cost(n_samples, sample_bytes, n_frames, *raster, demod, taps, exact))
+    cost = launch_cost(n_samples, sample_bytes, n_frames, *raster, word, taps, exact)
+    return LaunchPlan(geom, rows, run_cap, geom.span + extra, cost)
 
 
 def _plan(n_samples: int, n_frames: int, sample_bytes: int, frame_len: int, y_t: int, x_t: int,
-          out_shape, device: torch.device, num_phases: int | None, demod: bool, taps: int,
+          out_shape, device: torch.device, num_phases: int | None, word: int, taps: int,
           exact: bool) -> LaunchPlan:
     return launch_plan(int(n_samples), int(n_frames), int(frame_len), int(y_t), int(x_t),
                        (int(out_shape[0]), int(out_shape[1])), device, num_phases, sample_bytes,
-                       demod, taps, exact, ROWS_PER_TILE[sample_bytes], FILL_TILES_PER_SM)
+                       word, taps, exact, ROWS_PER_TILE[sample_bytes], FILL_TILES_PER_SM)
 
 
 def _current(device: torch.device):
@@ -505,7 +534,8 @@ def _launch(
     num_phases: int | None = None,
 ) -> torch.Tensor:
     """Check the arguments and launch the kernel on ``src``'s device, on the
-    current stream.  ``staged`` is (what ``src`` holds, bytes per sample)."""
+    current stream.  ``staged`` is (what ``src`` holds: the word code with
+    its flags, bytes per sample)."""
     n_frames = _check_launch(src, n_samples, frame_starts)
     if frac_offsets is not None:
         if frac_offsets.dtype != torch.float32 or not frac_offsets.is_contiguous():
@@ -513,7 +543,7 @@ def _launch(
     word, sample_bytes = staged
     dev = src.device
     plan = _plan(n_samples, n_frames, sample_bytes, frame_len, y_t, x_t, out_shape, dev,
-                 num_phases, word != 0, interp_taps, frac_offsets is not None)
+                 num_phases, word, interp_taps, frac_offsets is not None)
     from .. import _build
 
     lib = _build.load_library("resample")
@@ -549,10 +579,11 @@ def _check_block(
             f"{tuple(frac_offsets.shape)} on {frac_offsets.device}")
 
 
-def _count(wrapper, interp_taps: int, frac_offsets: torch.Tensor | None) -> None:
-    """One more launch of ``wrapper``: in all, and by (taps, residuals given)."""
+def _count(wrapper, interp_taps: int, frac_offsets: torch.Tensor | None, *load) -> None:
+    """One more launch of ``wrapper``: in all, and by (taps, residuals given,
+    ``*load``)."""
     wrapper.launches += 1
-    wrapper.launches_by_variant[interp_taps, frac_offsets is not None] += 1
+    wrapper.launches_by_variant[(interp_taps, frac_offsets is not None, *load)] += 1
 
 
 def frames_to_screens(
@@ -596,6 +627,28 @@ frames_to_screens.launches = 0
 frames_to_screens.launches_by_variant = collections.Counter()
 
 
+def word_code(dtype: torch.dtype, demod: str = "am", bf16: bool = False) -> tuple[int, int]:
+    """(word code, bytes per sample) that K1 stages for I/Q words of
+    ``dtype``: its type's code with the ``_FM`` and ``_BF16`` flags."""
+    if dtype not in _WORDS:
+        raise TypeError(f"K1 takes int16 or float32 I/Q words, got {dtype}")
+    code, sample_bytes = _WORDS[dtype]
+    return code | (_FM if demod == "fm" else 0) | (_BF16 if bf16 else 0), sample_bytes
+
+
+def words_envelope_plain(words: torch.Tensor, demod: str = "am", bf16: bool = False
+                         ) -> torch.Tensor:
+    """The plain PyTorch version of what K1's words load computes, on any
+    device: the AM envelope (``am_envelope_from_iq``) or the FM
+    discriminator (``fm_demod_from_iq``, 0 at the first pair of ``words``) of
+    interleaved I/Q words, rounded to bfloat16 and back with ``bf16``
+    (``round_to_bfloat16``)."""
+    if demod not in _DEMODS:
+        raise ValueError(f"demod must be one of {_DEMODS}, got {demod!r}")
+    env = fm_demod_from_iq(words) if demod == "fm" else am_envelope_from_iq(words)
+    return round_to_bfloat16(env) if bf16 else env
+
+
 def frames_to_screens_from_words(
     words: torch.Tensor,
     frame_starts: torch.Tensor,
@@ -606,31 +659,38 @@ def frames_to_screens_from_words(
     frac_offsets: torch.Tensor | None = None,
     interp_taps: int = 2,
     num_phases: int | None = None,
+    *,
+    demod: str = "am",
+    bf16: bool = False,
 ) -> torch.Tensor:
     """All frames of a block of raw I/Q → (n_frames, h, w) float32 screens,
-    equal to ``frames_to_screens(am_envelope_from_iq(words), ...)``.
+    equal to ``frames_to_screens(words_envelope_plain(words, demod, bf16),
+    ...)``: the AM envelope, or with ``demod="fm"`` the FM discriminator
+    (0 at the first pair of ``words``), rounded to bfloat16 with ``bf16``.
 
     ``words`` holds the block's interleaved I/Q words (2N,), int16 or
     float32.  An odd trailing word is dropped, on either device, as the
     demod does.  On a CUDA tensor the words must be contiguous and of one
     of those two types: the kernel reads them as they lie, where the demod
-    would first convert and copy them.  ``frac_offsets``, ``interp_taps``
-    and ``num_phases`` as in :func:`frames_to_screens`."""
+    would first convert and copy them, and demodulates and rounds each
+    sample where it stages it.  ``frac_offsets``, ``interp_taps`` and
+    ``num_phases`` as in :func:`frames_to_screens`."""
     _check_block(words, frame_starts, frac_offsets, interp_taps, "words")
+    if demod not in _DEMODS:
+        raise ValueError(f"demod must be one of {_DEMODS}, got {demod!r}")
     if words.device.type == "cpu":
         geom = screen_geometry(int(frame_len), int(y_t), int(x_t), tuple(out_shape), words.device,
                                num_phases)
-        return frames_to_screens_plain(am_envelope_from_iq(words), frame_starts, geom,
-                                       frac_offsets, interp_taps)
-    if words.dtype not in _WORDS:
-        raise TypeError(f"K1 takes int16 or float32 I/Q words, got {words.dtype}")
-    out = _launch(words, words.shape[0] // 2, _WORDS[words.dtype], frame_starts,
+        return frames_to_screens_plain(words_envelope_plain(words, demod, bf16), frame_starts,
+                                       geom, frac_offsets, interp_taps)
+    out = _launch(words, words.shape[0] // 2, word_code(words.dtype, demod, bf16), frame_starts,
                   frame_len, y_t, x_t, out_shape, frac_offsets, interp_taps, num_phases)
-    _count(frames_to_screens_from_words, interp_taps, frac_offsets)
+    _count(frames_to_screens_from_words, interp_taps, frac_offsets, demod, bool(bf16))
     return out
 
 
-# K1 launches on I/Q words since the last reset, counted as the envelope entry's.
+# K1 launches on I/Q words since the last reset: in all, and by
+# (interp_taps, residuals given, demod, bfloat16 rounding).
 frames_to_screens_from_words.launches = 0
 frames_to_screens_from_words.launches_by_variant = collections.Counter()
 
@@ -658,7 +718,7 @@ def _frame_plan(n: int, y_t: int, x_t: int, out_shape: tuple[int, int], device: 
     launch: made once per raster and launch shape, as :func:`launch_plan`."""
     from .. import _build
 
-    plan = launch_plan(n, 1, n, y_t, x_t, out_shape, device, None, 4, False, taps, exact,
+    plan = launch_plan(n, 1, n, y_t, x_t, out_shape, device, None, 4, 0, taps, exact,
                        rows_per_tile, fill)
     g = plan.geom
     packed = _FrameArgs(_zero_start(device).data_ptr(), g.line_start.data_ptr(),

@@ -23,8 +23,8 @@ Stage 2, one step on a block of I/Q:
    (``carry_phase``);
 3. resamples every frame from signal to screen with K1
    (``ops.resample_kernel.frames_to_screens``), which takes the residuals
-   and 2 or 4 taps itself — or, for interleaved I/Q words with plain AM
-   demod (``fuses_demod``), does 1 and 3 in one pass with K1's fused entry
+   and 2 or 4 taps itself — or, for interleaved I/Q words under AM or FM
+   (``fuses_demod``), does 1 and 3 in one pass with K1's fused entry
    (``frames_to_screens_from_words``), which gives the same values without
    writing the envelope.  Every ``resampler=`` name of the JAX package is
    accepted and keeps its values (``RESAMPLERS``): ``"gather"`` and
@@ -32,7 +32,8 @@ Stage 2, one step on a block of I/Q:
    ``"fft"`` its band-limited resampler on ``torch.fft``, and the ``mxu``
    names go through K1 with the line fractions quantised to ``num_phases``
    levels and, where the JAX formulation rounds the envelope to bfloat16,
-   with that rounding as one elementwise pass first;
+   with that rounding too: inside K1's load on words, else one elementwise
+   pass first;
 4. finds each frame's sub-pixel blanking position: on the card with K2
    (``ops.sync_kernel``), two launches for all frames of the block;
 5. aligns the frame by a fractional circular shift and
@@ -452,16 +453,22 @@ def demodulate(iq: torch.Tensor, config: ReconstructionConfig) -> torch.Tensor:
     return invert_envelope(env) if config.invert else env
 
 
-def fuses_demod(config: ReconstructionConfig, iq: torch.Tensor) -> bool:
-    """Whether the step hands ``iq`` to K1 as raw words, with the demod done
-    inside the resampler: interleaved int16 or float32 words, plain AM, and
-    a resampler that is K1 on the float32 envelope (the names that round the
-    envelope to bfloat16 first demodulate as a pass).
-    The values are those of ``demodulate`` followed by K1 on the envelope."""
+def fuses_demod(config: ReconstructionConfig, iq: torch.Tensor, batched: bool = False) -> bool:
+    """Whether the step hands ``iq`` to K1 as raw words, with the demod (AM
+    or FM) and the bfloat16 rounding of the ``mxu3``, ``mxu4`` and
+    ``mxu_batched`` chains done inside the resampler's load: interleaved
+    int16 or float32 words and a resampler that is K1.  The values are those
+    of ``demodulate``, the rounding and K1 on the envelope, to the bit.
+
+    The routes that keep the demod as a pass: ``invert`` (it divides by the
+    block's maximum); complex, planar and envelope input and other word
+    types; the plain resamplers; and FM in the batched step (``batched``),
+    where the streams lie end to end: a stream's first sample would look
+    back into the stream before it, and the edge pairs the layout repeats
+    would demodulate to 0 where the plain route repeats the edge samples."""
     how = RESAMPLERS[config.resampler]
-    return (how.route == "k1" and not how.bf16_envelope
-            and config.input_format == "iq_interleaved"
-            and config.demod == "am" and not config.invert
+    return (how.route == "k1" and config.input_format == "iq_interleaved"
+            and not config.invert and not (batched and config.demod == "fm")
             and iq.dtype in (torch.int16, torch.float32))
 
 
@@ -473,7 +480,9 @@ def _screens(
     from_words: bool,
     frac_offsets: torch.Tensor | None,
 ) -> torch.Tensor:
-    """Stage 3: the [F, h, w] screens of one block's frames."""
+    """Stage 3: the [F, h, w] screens of one block's frames.  With
+    ``from_words`` K1 demodulates and rounds the words itself; an envelope
+    is rounded here first where the resampler asks for it."""
     mode = config.mode
     raster = (frame_len, mode.height, mode.width, config.render_size)
     how = RESAMPLERS[config.resampler]
@@ -481,15 +490,21 @@ def _screens(
         return frames_to_screens_gather(env, frame_starts, *raster, frac_offsets)
     if how.route == "fft":
         return frames_to_screens_fft(env, frame_starts, *raster)
-    if how.bf16_envelope:
-        env = round_to_bfloat16(env)
+    taps = config.interp_taps if how.takes_taps else 2
     # A residual moves every position of its frame, so the quantised
     # line table does not apply to an exact cut: K1 takes it unquantised.
-    quantise = ({"num_phases": config.num_phases}
-                if how.quantised and frac_offsets is None else {})
-    resample = frames_to_screens_from_words if from_words else frames_to_screens
-    return resample(env, frame_starts, *raster, frac_offsets,
-                    config.interp_taps if how.takes_taps else 2, **quantise)
+    options = ({"num_phases": config.num_phases}
+               if how.quantised and frac_offsets is None else {})
+    if not from_words:
+        if how.bf16_envelope:
+            env = round_to_bfloat16(env)
+        return frames_to_screens(env, frame_starts, *raster, frac_offsets, taps, **options)
+    # The load's options only where they differ from AM without rounding.
+    if config.demod != "am":
+        options["demod"] = config.demod
+    if how.bf16_envelope:
+        options["bf16"] = True
+    return frames_to_screens_from_words(env, frame_starts, *raster, frac_offsets, taps, **options)
 
 
 def _sync_align_fold(
@@ -531,7 +546,8 @@ def process_frames(
     """Resample + sync + align all frames of one envelope block: returns
     ``(frames [F,h,w], sync [F,2], score [F])``.  With ``from_words``,
     ``env`` is the block's interleaved I/Q words instead and K1 takes their
-    AM envelope itself.  ``frac_offsets`` (per frame, in [0, 1)) are the
+    envelope (``config.demod``, rounded where the resampler rounds) itself.
+    ``frac_offsets`` (per frame, in [0, 1)) are the
     residuals of sub-sample-exact cuts (``config.subsample_align``)."""
     screens = _screens(env, frame_starts, config, frame_len, from_words, frac_offsets)
     return _sync_align_fold(screens, config, None, None, 1)[1:]
@@ -622,6 +638,19 @@ def _cut_fn(config: ReconstructionConfig):
     return lambda phase: exact_cut_starts(phase, spf, n_frames)
 
 
+def _upload_cuts(starts: np.ndarray, fracs: np.ndarray | None, device: torch.device):
+    """(int32 frame starts, float32 residuals or None) on ``device`` in ONE
+    upload: the residuals' bits ride behind the starts in one int32 buffer,
+    and both are views of it."""
+    if fracs is None:
+        return torch.from_numpy(np.asarray(starts, np.int32)).to(device), None
+    n = len(starts)
+    buf = torch.from_numpy(np.concatenate([np.asarray(starts, np.int32),
+                                           np.asarray(fracs, np.float32).view(np.int32)]))
+    buf = buf.to(device)
+    return buf[:n], buf[n:].view(torch.float32)
+
+
 def make_reconstruct_fn(config: ReconstructionConfig, device: torch.device | str | None = None):
     """Build the stage-2 step for a fixed config on ``device`` (``None``:
     the CUDA card; raises when there is none).
@@ -639,8 +668,7 @@ def make_reconstruct_fn(config: ReconstructionConfig, device: torch.device | str
     def _body(iq, ema, alpha, starts: np.ndarray, fracs: np.ndarray | None):
         iq = _as_tensor(iq, device)
         ema = _as_tensor(ema, device).to(torch.float32)
-        fstarts = torch.from_numpy(starts).to(device)
-        frac_offsets = None if fracs is None else torch.from_numpy(fracs).to(device)
+        fstarts, frac_offsets = _upload_cuts(starts, fracs, device)
         from_words = fuses_demod(config, iq)
         return _process_and_fold(
             iq if from_words else demodulate(iq, config), fstarts, config, frame_len, ema, alpha,
@@ -690,8 +718,9 @@ def make_batched_reconstruct_fn(config: ReconstructionConfig, fuse: bool | None 
 
     The B blocks are ONE contiguous buffer and stream b's frame starts are
     offset by b·(samples per block), so all B·F frames go through one K1
-    launch (the fused words entry where ``fuses_demod`` says so, else one
-    demodulation per stream and the envelope entry), one sync over the B·F
+    launch (the fused words entry where ``fuses_demod(..., batched=True)``
+    says so, else one demodulation per stream and the envelope entry: FM),
+    one sync over the B·F
     screens and one K3 launch that aligns them and folds each stream's frames
     into its EMA, in the single step's order: each stream's EMA is the
     single-stream step's to the bit.  Each stream's
@@ -729,7 +758,7 @@ def make_batched_reconstruct_fn(config: ReconstructionConfig, fuse: bool | None 
             raise ValueError(
                 f"{n_streams} streams of I/Q, {ema_b.shape[0]} EMA images and "
                 f"{len(stream_cuts)} phases: one of each per stream")
-        from_words = fuses_demod(config, iq_b)
+        from_words = fuses_demod(config, iq_b, batched=True)
         if from_words:
             per = 2
             buf = iq_b[:, : 2 * (iq_b.shape[1] // 2)]
@@ -755,8 +784,7 @@ def make_batched_reconstruct_fn(config: ReconstructionConfig, fuse: bool | None 
                 f"{n_streams} streams of {n_block} samples do not fit K1's int32 frame "
                 "starts: serve them in smaller batches")
         offsets = np.arange(n_streams, dtype=np.int64)[:, None] * n_block + front
-        fstarts = torch.from_numpy((starts + offsets).reshape(-1).astype(np.int32)).to(device)
-        frac_offsets = None if fracs is None else torch.from_numpy(fracs).to(device)
+        fstarts, frac_offsets = _upload_cuts((starts + offsets).reshape(-1), fracs, device)
         ema_out, frames, sync, score = _process_and_fold(
             buf.reshape(-1), fstarts, config, frame_len, ema_b, alpha, n_streams,
             from_words=from_words, frac_offsets=frac_offsets)
