@@ -41,7 +41,9 @@ Phases, each of which fails the run if it fails:
    the 2-tap rounded-cut times and beside both its bounds, bytes and
    instructions; hold and time the 4-tap envelope entry and the int16 words
    under the AM and the FM load also at the 640x480 shapes that phase 8
-   launches (11 frames), with their device time;
+   launches (11 frames), with their device time; time the int16 FM load
+   there at 5 to 8 rows a tile and, with ``--parent DIR``, against that
+   checkout's in turns;
 6. run three blocks through ``StreamingRuntime(fidelity=True)`` (exact cuts
    through K1's residuals, sync skipped, K3's fold alone once a block), and
    one with 4 taps: PSNR against its bar, card against CPU;
@@ -134,8 +136,12 @@ Phases, each of which fails the run if it fails:
     step against the same steps with the demod and rounding as passes: the
     same bits, wall clock and device time in turns, 5 device events a step;
     the launches of each new load on its main path (the bench line, the
-    runtime under ``mxu3``, FM and both, 4 taps with ``invert``); with
-    ``--parent DIR`` that checkout's bench line in turns with this one's.
+    slice's FM step on int16 words, the runtime under ``mxu3``, FM and both,
+    4 taps with ``invert``); the int16 FM load's arc tangent against
+    ``torch.atan2`` on every sample of 2^26 random quadruples of int16 words
+    and of every edge quadruple, to the bit; the int16 FM load at 5 to 8
+    rows a tile; with ``--parent DIR`` each int16 FM row at the slice's
+    shapes and that checkout's bench line in turns with this one's.
 
 Run ``python3 chip_smoke.py`` from the root of a checkout on a machine with
 a CUDA card; it ends with torch.profiler tables of three steps, with the
@@ -2083,6 +2089,87 @@ def load_launches(words_entry, demod: str, bf16: bool) -> int:
     return sum(n for key, n in words_entry.launches_by_variant.items() if key[2:] == (demod, bf16))
 
 
+def int16_fm_vs_parent(torch, card: str, parent_rk, rk, rows: dict, bounds: dict) -> dict:
+    """Each int16 FM row of K1's words load against the parent checkout's
+    kernel at the same shapes, in turns (parent, this, this, parent): the
+    same bits, device time (torch.profiler) and back-to-back time of each,
+    beside the row's bound.  ``rows`` maps a label to a function of the
+    ``resample_kernel`` module that launches the row."""
+    out = {}
+    for label, launch in rows.items():
+        mods = {"parent": parent_rk, "this": rk}
+        a, b = launch(parent_rk), launch(rk)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(a, b)), f"int16 FM, {label}: this kernel gives the parent's bits")
+        del a, b
+        dev_ms = {"parent": [], "this": []}
+        b2b = {"parent": [], "this": []}
+        for who in ("parent", "this", "this", "parent"):
+            fn = functools.partial(launch, mods[who])
+            dev_ms[who].append(kernels_device_ms(torch, fn, ("tiles_kernel",))["tiles_kernel"])
+            b2b[who].append(time_back_to_back(torch, fn))
+        bound = bounds[label]
+        out[label] = {"device_ms": dev_ms, "b2b_ms": b2b, "bound_ms": bound}
+        print(f"[int16 FM vs parent] {label}: the parent's bits; device ms parent "
+              f"{dev_ms['parent'][0]:.4f} {dev_ms['parent'][1]:.4f}, this {dev_ms['this'][0]:.4f} "
+              f"{dev_ms['this'][1]:.4f}; back to back parent {b2b['parent'][0]:.4f} "
+              f"{b2b['parent'][1]:.4f}, this {b2b['this'][0]:.4f} {b2b['this'][1]:.4f} (turns "
+              f"parent, this, this, parent); bound {bound:.4f} ms, share this "
+              f"{bound / max(b2b['this']):.3f}-{bound / min(b2b['this']):.3f} back to back, "
+              f"{bound / max(dev_ms['this']):.3f}-{bound / min(dev_ms['this']):.3f} of device "
+              f"time, the parent {bound / max(dev_ms['parent']):.3f}-"
+              f"{bound / min(dev_ms['parent']):.3f}; on {card}")
+    return out
+
+
+# Rows a tile of the int16 FM load's balanced walk timed around the wrapper's
+# (resample_kernel.ROWS_PER_TILE_FM).
+FM_TILE_ROWS = (5, 6, 7, 8)
+
+
+def fm_rows_sweep(torch, card: str, rk, label: str, launch, ref) -> dict:
+    """The int16 FM load at each of ``FM_TILE_ROWS`` rows a tile (it sets
+    ``rk.ROWS_PER_TILE_FM``; no option does): equal to ``ref`` to the bit,
+    its device time forwards then backwards, so that a drift of the card's
+    clocks shows between the two passes."""
+    default = rk.ROWS_PER_TILE_FM
+    times = {rows: [] for rows in FM_TILE_ROWS}
+    try:
+        for rows in FM_TILE_ROWS + FM_TILE_ROWS[::-1]:
+            rk.ROWS_PER_TILE_FM = rows
+            if not times[rows]:
+                got = launch()
+                torch.cuda.synchronize()
+                check(bool(torch.equal(got, ref)),
+                      f"the int16 FM load, {label}, at {rows} rows a tile equals its plain version")
+                del got
+            times[rows].append(kernels_device_ms(torch, launch, ("tiles_kernel",))["tiles_kernel"])
+    finally:
+        rk.ROWS_PER_TILE_FM = default
+    print(f"[int16 FM rows a tile] {label}: device ms " + "; ".join(
+        f"{rows} rows{' (the wrapper' + chr(39) + 's)' if rows == default else ''} "
+        f"{a:.4f} {b:.4f}" for rows, (a, b) in times.items())
+        + f" (forwards, backwards), on {card}")
+    return times
+
+
+# Values of int16 words at the ends of their range and on the axes: every
+# quadruple of two pairs of them is one sample of the FM discriminator on an
+# axis, a diagonal, at (0, 0) with either sign of zero, or at the products'
+# extremes.
+FM_EDGE_VALUES = (0, 1, -1, 2, -2, 3, -3, 100, -100, 181, -181, 16384, -16384, 12345, -23456,
+                  32766, -32767, 32767, -32768)
+FM_SWEEP_LOG2 = 26   # random int16 quadruples the arc tangent is held on: 2^26
+
+
+def fm_edge_words() -> np.ndarray:
+    """Interleaved int16 words, pair a then pair b for every two pairs of
+    ``FM_EDGE_VALUES``."""
+    pairs = np.array([(i, q) for i in FM_EDGE_VALUES for q in FM_EDGE_VALUES], np.int16)
+    return np.stack([np.repeat(pairs, len(pairs), axis=0), np.tile(pairs, (len(pairs), 1))],
+                    axis=1).reshape(-1)
+
+
 def phase_stage1(tp, torch, dev, card: str, words_i16, blocks, reset_counts, parent_root,
                  activities) -> dict:
     """Phase 23: stage 1 inside K1's words load.  Every load (AM, AM rounded
@@ -2092,15 +2179,19 @@ def phase_stage1(tp, torch, dev, card: str, words_i16, blocks, reset_counts, par
     the bit, also with the first frame at sample 0 and the last cut by the
     block end, from an unaligned source, and at ``OTHER_SHAPES``; timed
     single, back to back and on the device beside its bound and its plain
-    version.  Then ``bench_config()``'s ``mxu3`` step and the slice's FM step,
-    each against the same step with the demod and the rounding as passes
-    (the route before): equal to the bit, wall clock and device time in
-    turns, and the profiler's events a step (5: K1, K2a, K2b, K3, the
-    upload; no demod or rounding kernel).  The launch counts are set to 0
-    before each main path that takes a new load (the bench line; the runtime
-    under ``mxu3``, FM, and FM under ``mxu3``; 4 taps with ``invert``) and
-    read after.  With ``parent_root`` the bench line of that checkout in
-    turns with this one's (parent, this, this, parent)."""
+    version.  The int16 FM load's arc tangent on every sample of 2^26
+    random and of the edge quadruples (``fm_int16_words``), and that load at
+    ``FM_TILE_ROWS`` rows a tile.  Then ``bench_config()``'s ``mxu3`` step
+    and the slice's FM step, each against the same step with the demod and
+    the rounding as passes (the route before): equal to the bit, wall clock
+    and device time in turns, and the profiler's events a step (5: K1, K2a,
+    K2b, K3, the upload; no demod or rounding kernel).  The launch counts
+    are set to 0 before each main path that takes a new load (the bench
+    line; the slice's FM step on int16 words; the runtime under ``mxu3``,
+    FM, and FM under ``mxu3``; 4 taps with ``invert``) and read after.  With
+    ``parent_root`` each int16 FM row of that checkout (``int16_fm_vs_parent``)
+    and its bench line in turns with this one's (parent, this, this,
+    parent)."""
     from tempest_tpu_torch.bench import bench
     from tempest_tpu_torch.ops import resample_kernel as rk
     from tempest_tpu_torch.pipeline import offline as poff
@@ -2179,6 +2270,58 @@ def phase_stage1(tp, torch, dev, card: str, words_i16, blocks, reset_counts, par
                           f"{m['plain_ms']:.4f} ms, on {card}")
             del env
 
+    # The int16 FM load's arc tangent (no slow path for its division) on every
+    # sample: 2^26 random quadruples of int16 words, then every edge quadruple,
+    # through the load's check entry against torch.atan2 after the same
+    # roundings, bit for bit.
+    rng = np.random.default_rng(SEED)
+    sweep = {}
+    for what, words in (
+            ("random", rng.integers(-32768, 32768, 2 * ((1 << FM_SWEEP_LOG2) + 1))
+             .astype(np.int16)), ("edges", fm_edge_words())):
+        tw = torch.from_numpy(words).to(dev)
+        got, ref = rk.fm_int16_words(tw), rk.words_envelope_plain(tw, "fm")
+        torch.cuda.synchronize()
+        sweep[what] = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+        check(sweep[what] == 0 and got.numel() == words.size // 2,
+              f"the int16 FM arc tangent equals torch.atan2 on all {got.numel()} samples of the "
+              f"{what} quadruples ({sweep[what]} differ)")
+        del tw, got, ref
+    print(f"[stage 1 in K1] the int16 FM load's arc tangent on every sample: 2^{FM_SWEEP_LOG2} "
+          f"random quadruples and {len(FM_EDGE_VALUES) ** 4} edge quadruples, "
+          f"{sum(sweep.values())} differ from torch.atan2, on {card}")
+
+    # Each int16 FM row against the parent's kernel, in turns.
+    fm_parent = {}
+    if parent_root is not None:
+        import importlib
+
+        parent_rk = importlib.import_module(
+            f"{load_other(Path(parent_root)).__name__}.ops.resample_kernel")
+        wd = data["int16 words"]
+        rows, bounds = {}, {}
+        for taps, exact, bf16 in ((2, False, False), (2, True, False), (2, False, True),
+                                  (4, False, False), (4, False, True)):
+            label = (f"the slice, {taps} taps" + (", residuals" if exact else "")
+                     + (", rounded to bfloat16" if bf16 else ""))
+            rows[label] = functools.partial(
+                lambda mod, taps, res, bf16: mod.frames_to_screens_from_words(
+                    wd, starts, *raster, res, taps, demod="fm", bf16=bf16),
+                taps=taps, res=fracs if exact else None, bf16=bf16)
+            bounds[label] = measured["int16 words", "fm", bf16, taps, exact]["bound_ms"]
+        fm_parent = int16_fm_vs_parent(torch, card, parent_rk, rk, rows, bounds)
+
+    # Rows a tile of its balanced walk, at the slice's shapes.
+    wd = data["int16 words"]
+    fm_env = rk.words_envelope_plain(wd, "fm")
+    fm_rows = {}
+    for taps in (2, 4):
+        fm_rows[taps] = fm_rows_sweep(
+            torch, card, rk, f"the slice, {taps} taps",
+            functools.partial(words_entry, wd, starts, *raster, None, taps, demod="fm"),
+            rk.frames_to_screens_plain(fm_env, starts, geom, None, taps))
+    del fm_env
+
     # The two steps, words load against demod and rounding as passes, in turns.
     ema0 = torch.zeros(RENDER, dtype=torch.float32, device=dev)
     steps = {}
@@ -2231,6 +2374,17 @@ def phase_stage1(tp, torch, dev, card: str, words_i16, blocks, reset_counts, par
           and rk.frames_to_screens.launches == 0 and bool(torch.isfinite(ema).all()),
           f"the bench chain went through the words load with the rounding "
           f"({dict(words_entry.launches_by_variant)}, envelope {rk.frames_to_screens.launches})")
+    # The slice's FM step on int16 words as an SDR delivers them.
+    reset_counts()
+    out = tp.make_reconstruct_fn(dataclasses.replace(cfg, demod="fm"), dev)(
+        data["int16 words"], ema0, ALPHA, 0.0)
+    torch.cuda.synchronize()
+    launches["fm step int16"] = load_launches(words_entry, "fm", False)
+    check(launches["fm step int16"] == 1 == words_entry.launches
+          and rk.frames_to_screens.launches == 0 and bool(torch.isfinite(out[0]).all()),
+          f"the slice's FM step on int16 words is one launch of the int16 FM load "
+          f"({dict(words_entry.launches_by_variant)})")
+    del out
     for key, options in (("runtime mxu3", {"config_overrides": {"resampler": "mxu3"}}),
                          ("runtime fm", {"config_overrides": {"demod": "fm"}}),
                          ("runtime fm mxu3",
@@ -2271,7 +2425,7 @@ def phase_stage1(tp, torch, dev, card: str, words_i16, blocks, reset_counts, par
                   f"turns parent this this parent, on {card}")
     print(f"[stage 1 in K1] bench line: {json.dumps(line)}")
     return {"measured": measured, "steps": steps, "launches": launches, "bench": line,
-            "bench_turns": turns}
+            "bench_turns": turns, "fm_sweep": sweep, "fm_parent": fm_parent, "fm_rows": fm_rows}
 
 
 class LoopSource:
@@ -3155,6 +3309,26 @@ def main(argv: list[str] | None = None) -> int:
               f"reached {bound_ms / m['b2b_ms']:.3f} back to back, "
               f"{bound_ms / m['device_ms']:.3f} of device time; plain {m['plain_ms']:.4f} ms, "
               f"on {card}")
+    small_fm = resample_kernel.words_envelope_plain(small_i16["fm"], "fm")
+    fm_rows_sweep(torch, card, resample_kernel,
+                  f"{small_frames} frames of {SMALL_MODE_NAME}, 4 taps",
+                  functools.partial(frames_to_screens_from_words, small_i16["fm"], small_starts,
+                                    *small_raster, None, 4, demod="fm"),
+                  frames_to_screens_plain(small_fm, small_starts, small_geom, None, 4))
+    del small_fm
+    if args.parent is not None:
+        # The FM row at these shapes against the parent's kernel, in turns.
+        import importlib
+
+        parent_rk = importlib.import_module(
+            f"{load_other(Path(args.parent)).__name__}.ops.resample_kernel")
+        label = (f"{small_frames} frames of {SMALL_MODE_NAME} at {SMALL_SAMPLE_RATE / 1e6:g} "
+                 f"Msps, 4 taps")
+        int16_fm_vs_parent(
+            torch, card, parent_rk, resample_kernel,
+            {label: lambda mod: mod.frames_to_screens_from_words(
+                small_i16["fm"], small_starts, *small_raster, None, 4, demod="fm")},
+            {label: measured_small["FM int16 words"]["bound_ms"]})
     del small_env, small_i16
 
     # ---- 6. the fidelity runtime: exact cuts through K1's residuals, sync skipped
@@ -3473,6 +3647,8 @@ def main(argv: list[str] | None = None) -> int:
              ("int16 words", "am", True, 2, True), stage1["launches"]["bench"]),
             ("AM rounded to bfloat16 (float32 words): the runtime under mxu3",
              ("float32 words", "am", True, 2, False), stage1["launches"]["runtime mxu3"]),
+            ("FM (int16 words): the slice's FM step, make_reconstruct_fn(demod='fm')",
+             ("int16 words", "fm", False, 2, False), stage1["launches"]["fm step int16"]),
             ("FM (float32 words): the runtime under demod='fm'",
              ("float32 words", "fm", False, 2, False), stage1["launches"]["runtime fm"]),
             ("FM rounded to bfloat16 (float32 words): the runtime under FM and mxu3",

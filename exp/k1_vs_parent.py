@@ -10,10 +10,14 @@ onto 600x800 screens at two geometries: one 36-frame block of 1920x1080 @
 (per-frame residuals), 2 and 4 taps; and 11 frames of 640x480 @ 60 Hz at
 32 Msps with rounded cuts and 4 taps (what ``auto_reconstruct`` launches on
 the smoke's 0.2 s capture there, where its taps rule picks Catmull-Rom),
-and 36 frames of it; each on the envelope, int16 and float32 words.  At 11
-frames of 640x480 a launch is short enough that back to back measures the
-wrapper's host time: its device time is the kernel's.  2 frames of 1080p60 at 20
-Msps for the search over the 26 modes within 0.5 Hz of 60 Hz.  The other
+and 36 frames of it; each on the envelope, and on int16 and float32 words
+under every load of K1's words entry (``LOADS``: AM, FM, each with and
+without the bfloat16 rounding; with residuals AM and FM).  At 11 frames of
+640x480 a launch is short enough that back to back measures the wrapper's
+host time: its device time is the kernel's.  2 frames of 1080p60 at 20
+Msps for the search over the 26 modes within 0.5 Hz of 60 Hz.  Last, the
+SASS of every K1 instantiation of the two libraries, function by function:
+the ones whose code did not change are listed as the same.  The other
 checkout's package is loaded under another name from its own directory and
 builds its kernels there.  Needs a CUDA card:
 
@@ -24,9 +28,11 @@ builds its kernels there.  Needs a CUDA card:
 from __future__ import annotations
 
 import argparse
+import functools
 import importlib
 import importlib.util
 import json
+import re
 import subprocess
 import sys
 import time
@@ -44,6 +50,9 @@ from tempest_tpu_torch.pipeline import offline as poff  # noqa: E402
 CALLS = 10          # calls a profiler window
 BACK_TO_BACK = 50   # launches between two events
 KERNELS = ("tiles_kernel",)   # K1's kernels, both designs
+# (demod, bfloat16 rounding) of each load of the words entry timed, with
+# rounded cuts and, with residuals, the loads without the rounding.
+LOADS = (("am", False), ("am", True), ("fm", False), ("fm", True))
 # (mode, sample rate, frames, the (taps, residuals) variants timed there).
 GEOMETRIES = {
     "1080p60, 20 Msps, 36 frames": ("1920x1080 @ 60Hz", 20e6, 36,
@@ -113,10 +122,43 @@ def wall_ms(fn, calls: int = 5) -> float:
     return float(np.median(times))
 
 
+def sass_functions(path: str) -> dict[str, list[str]]:
+    """Each function of a library's SASS (cuobjdump), its instructions
+    without their addresses and encodings."""
+    from tempest_tpu_torch import _build
+
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    listing = subprocess.run([str(cuobjdump), "-sass", path], capture_output=True, text=True,
+                             check=True).stdout
+    out, name = {}, None
+    for line in listing.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            # The anonymous namespace's name carries a hash of the source.
+            name = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "(anonymous)", m.group(1))
+            out[name] = []
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(.*?);", line)
+        if name and m:
+            out[name].append(m.group(1))
+    return out
+
+
+def sass_compare(parent_path: str, this_path: str) -> dict[str, str]:
+    """For each K1 instantiation of this library: "same" where its SASS is the
+    parent's instruction for instruction, else how many instructions each has."""
+    old, new = sass_functions(parent_path), sass_functions(this_path)
+    return {k: "same" if old.get(k) == v else
+            f"{len(old[k]) if k in old else 'none'} -> {len(v)} instructions"
+            for k, v in new.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True, type=Path)
     ap.add_argument("--out", type=Path, default=None)
+    ap.add_argument("--only-int16-fm", action="store_true",
+                    help="time the int16 FM loads alone (the SASS comparison still covers all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -146,29 +188,38 @@ def main() -> int:
         raster = (frame_len, mode.height, mode.width, (600, 800))
         geom = rk.screen_geometry(*raster, dev)
 
-        def call(mod, word, taps, exact):
-            fn = mod.frames_to_screens if word == "envelope" else mod.frames_to_screens_from_words
-            if exact:
-                return fn(data[word], exact_starts, *raster, fracs, taps)
-            return fn(data[word], rounded, *raster, None, taps)
+        def call(mod, word, taps, exact, load):
+            starts, res = (exact_starts, fracs) if exact else (rounded, None)
+            if word == "envelope":
+                return mod.frames_to_screens(data[word], starts, *raster, res, taps)
+            return mod.frames_to_screens_from_words(data[word], starts, *raster, res, taps,
+                                                    demod=load[0], bf16=load[1])
 
         for taps, exact in variants:
-            for word in data:
-                label = f"{where}: {word}, {taps} taps" + (", residuals" if exact else "")
-                a = call(ork, word, taps, exact)
-                b = call(rk, word, taps, exact)
+            for word, load in [("envelope", ("am", False))] + [
+                    (w, ld) for w in ("int16 words", "float32 words") for ld in LOADS
+                    if not (exact and ld[1])]:
+                if args.only_int16_fm and (word, load[0]) != ("int16 words", "fm"):
+                    continue
+                label = (f"{where}: {word}"
+                         + (f", {load[0].upper()}{' bf16' * load[1]}" if word != "envelope"
+                            else "") + f", {taps} taps" + (", residuals" if exact else ""))
+                a = call(ork, word, taps, exact, load)
+                b = call(rk, word, taps, exact, load)
+                env = (data["envelope"] if word == "envelope"
+                       else rk.words_envelope_plain(data[word], *load))
                 ref = rk.frames_to_screens_plain(
-                    data["envelope"], exact_starts if exact else rounded, geom,
-                    fracs if exact else None, taps)
+                    env, exact_starts if exact else rounded, geom, fracs if exact else None, taps)
                 torch.cuda.synchronize()
                 same = bool(torch.equal(a, b)) and bool(torch.equal(b, ref))
                 report["bits"][label] = same
-                del a, b, ref
+                del a, b, ref, env
                 dev_ms = {"parent": [], "this": []}
                 b2b = {"parent": [], "this": []}
                 for who in ("parent", "this", "this", "parent"):
-                    dev_ms[who].append(device_ms(lambda: call(mods[who], word, taps, exact)))
-                    b2b[who].append(back_to_back_ms(lambda: call(mods[who], word, taps, exact)))
+                    fn = functools.partial(call, mods[who], word, taps, exact, load)
+                    dev_ms[who].append(device_ms(fn))
+                    b2b[who].append(back_to_back_ms(fn))
                 report["device_ms"][label] = dev_ms
                 report["back_to_back_ms"][label] = b2b
                 print(f"[K1 vs parent] {label}: parent, this and plain equal: {same}; device "
@@ -198,6 +249,13 @@ def main() -> int:
           f"winners {report['search']['winner']}; wall ms parent {ms['parent']}, this "
           f"{ms['this']}; K1 device ms a search parent {k1['parent']}, this {k1['this']}, "
           f"on {card}")
+    report["sass"] = sass_compare(
+        importlib.import_module(f"{old.__name__}._build").load_library("resample").path,
+        importlib.import_module("tempest_tpu_torch._build").load_library("resample").path)
+    changed = [k for k, v in report["sass"].items() if v != "same"]
+    print(f"[K1 vs parent] SASS: {len(report['sass']) - len(changed)} of "
+          f"{len(report['sass'])} instantiations the same as the parent's; changed or new: "
+          f"{changed}")
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps(report, indent=1))

@@ -38,6 +38,7 @@ SIGNATURES = {
         "tt_resample_frame": ([_P, _P, _LL, _F, _P, _P], ctypes.c_int),
         "tt_resample_candidates": (
             [_P, _LL, _P, _I, _P, _I, _I, _P, _I, _I, _I, _P], ctypes.c_int),
+        "tt_fm_int16": ([_P, _LL, _P, _P], ctypes.c_int),
     },
     "sync": {
         "tt_blanking_sync": (

@@ -94,6 +94,9 @@ __all__ = [
     "frames_to_screens_from_words",
     "frames_to_screens_plain",
     "words_envelope_plain",
+    "fm_int16_words",
+    "balanced_walk",
+    "walk_tiles",
     "frames_to_screens_candidates",
     "frames_to_screens_candidates_plain",
     "CandidateTable",
@@ -117,6 +120,11 @@ __all__ = [
 # about as much (36 and 48 KB at 1080p60, 20 Msps), so that several blocks
 # share an SM.
 ROWS_PER_TILE = {4: 8, 8: 4}
+# Rows of a tile on the balanced walk (:func:`balanced_walk`, the int16 FM
+# load): 7 was the fastest of 5 to 8 at the slice, 2 and 4 taps, and within
+# the spread at 11 frames of 640x480 at 32 Msps, 4 taps (``chip_smoke.py``
+# phases 23 and 5; PERF.md, section 6).
+ROWS_PER_TILE_FM = 7
 # A launch of fewer tiles than FILL_TILES_PER_SM for each of the card's SMs
 # (one frame of 600 rows is 75 tiles of 8 rows on 132 SMs) takes tiles of
 # fewer rows, halved down to one, until it has that many: every SM takes
@@ -276,20 +284,22 @@ def frames_to_screens_plain(
 @functools.lru_cache(maxsize=64)
 def tile_run_cap(
     frame_len: int, y_t: int, x_t: int, out_shape: tuple[int, int], rows_per_tile: int,
-    reach: int = 0,
+    reach: int = 0, any_start: bool = False,
 ) -> int:
     """Samples one stage buffer of the kernel must hold: the longest
     contiguous run that a tile of ``rows_per_tile`` output rows reads (first
     row's upper line start to last row's lower line start plus the span,
     and ``reach`` samples more: ``sum(line_reach(...))``),
     plus 3 samples of 16-byte alignment slack at each end, as a multiple of
-    4.  The kernel takes a tile's run from its first and last row, so the
-    line starts must not decrease along the rows."""
+    4.  The tiles start at multiples of ``rows_per_tile``, or with
+    ``any_start`` at any row (the balanced walk, :func:`balanced_walk`).
+    The kernel takes a tile's run from its first and last row, so the line
+    starts must not decrease along the rows."""
     h = out_shape[0]
     line_start, _, _, _, span = _line_tables(frame_len, y_t, x_t, out_shape)
     if (np.diff(line_start, axis=0) < 0).any() or (line_start[:, 1] < line_start[:, 0]).any():
         raise ValueError("K1 takes line starts that do not decrease along the rows")
-    first = np.arange(0, h, rows_per_tile)
+    first = np.arange(0, h, 1 if any_start else rows_per_tile)
     last = np.minimum(first + rows_per_tile, h) - 1
     run = int((line_start[last, 1] + span - line_start[first, 0]).max()) + reach
     return (run + 6 + 3) // 4 * 4
@@ -298,28 +308,34 @@ def tile_run_cap(
 def tile_plan(
     frame_len: int, y_t: int, x_t: int, out_shape: tuple[int, int], sample_bytes: int,
     reach: int = 0, taps: int = 2, n_frames: int | None = None, sms: int = 0,
+    balanced: bool = False,
 ) -> tuple[int, int]:
     """(rows of a tile, samples of a stage buffer) for staged samples of
-    ``sample_bytes``: ``ROWS_PER_TILE`` rows where a block's shared memory
-    holds them.  A block has two stage buffers of the run and, for 8-byte
-    pairs, a buffer for the envelope they become (the 4-tap kernel adds a
-    table of the columns' positions where the SM holds as many blocks with
-    it as without).  A screen of far fewer rows than the raster
-    has scan lines spreads a tile's rows over a long run, so the rows are
-    halved, down to one, until the buffers fit.  Given the launch's
-    ``n_frames`` and the card's ``sms``, a launch of fewer tiles than
+    ``sample_bytes``: ``ROWS_PER_TILE`` rows (``ROWS_PER_TILE_FM`` with
+    ``balanced``) where a block's shared memory holds them.  A block has two
+    stage buffers of the run and, for 8-byte pairs, a buffer for the
+    envelope they become (the 4-tap kernel adds a table of the columns'
+    positions where the SM holds as many blocks with it as without).  A
+    screen of far fewer rows than the raster has scan lines spreads a tile's
+    rows over a long run, so the rows are halved, down to one, until the
+    buffers fit.  Given the launch's ``n_frames`` and the card's ``sms``, a
+    launch of fewer tiles than
     ``FILL_TILES_PER_SM · sms`` halves its rows further, down to one, until
-    it has that many."""
+    it has that many.  ``balanced``: the kernel's balanced walk
+    (:func:`balanced_walk`, the int16 FM load), whose tiles start at any row
+    and whose blocks share out the launch's rows whatever their count: the
+    buffer holds the run from any row, and the rows are not halved to fill
+    the card."""
     per_sample = 2 * sample_bytes + (4 if sample_bytes == 8 else 0)
     budget = MAX_SHARED_BYTES_4 if _check_taps(taps) == 4 else MAX_SHARED_BYTES
-    rows = ROWS_PER_TILE[sample_bytes]
-    while (rows > 1 and tile_run_cap(frame_len, y_t, x_t, out_shape, rows, reach) * per_sample
-           > budget):
+    rows = ROWS_PER_TILE_FM if balanced else ROWS_PER_TILE[sample_bytes]
+    while (rows > 1 and tile_run_cap(frame_len, y_t, x_t, out_shape, rows, reach, balanced)
+           * per_sample > budget):
         rows //= 2
-    if n_frames is not None:
+    if n_frames is not None and not balanced:
         while rows > 1 and n_frames * -(-int(out_shape[0]) // rows) < FILL_TILES_PER_SM * sms:
             rows //= 2
-    run_cap = tile_run_cap(frame_len, y_t, x_t, out_shape, rows, reach)
+    run_cap = tile_run_cap(frame_len, y_t, x_t, out_shape, rows, reach, balanced)
     if run_cap * per_sample > budget:
         raise ValueError(
             f"a tile of {rows} rows stages {run_cap * per_sample} bytes, more than the "
@@ -414,6 +430,12 @@ DEMOD_INSTRUCTIONS = {4: 2 + 2 + 1 + 4, 8: 2 + 1 + 4}
 # the larger (a minimum, a maximum, an approximate reciprocal, the product),
 # an odd polynomial of degree 15 in it (a square, 7 fused multiply-adds, the
 # product with the quotient), the octant's fix-ups (two selections, the sign).
+# What computes the bits K1 must give takes more: atan2f runs 43 SASS
+# instructions on a finite, non-zero input for sm_90a (a correctly rounded
+# division, a rational approximation whose reciprocal is a second one, the
+# tests for zeros and infinities), 49 with the convergence barriers its
+# branches take in K1's loop; the int16 load's atan2_int16 27, with no
+# branch (exp/k1_clocks.py; csrc/resample.cu).  The bound keeps this count.
 ATAN2_INSTRUCTIONS = 2 + 2 + 9 + 3
 # A sample's FM discriminator: four products and two sums with the sample
 # before, the arc tangent; int16 words two conversions more.
@@ -459,6 +481,33 @@ def launch_instructions(n_samples: int, sample_bytes: int, n_frames: int, frame_
     return n_frames * h * w * (2 * per_line + PIXEL_INSTRUCTIONS) + samples * per_sample
 
 
+def balanced_walk(word: int) -> bool:
+    """Whether K1's blocks take the balanced walk on the word code ``word``
+    (``csrc/resample.cu`` ``kBalanced``): on int16 FM words.  There the
+    launch's rows, frame after frame, are cut into as many ranges as it has
+    blocks, ranges that differ by one row at most, and each block renders
+    its range in tiles of at most the plan's rows that end at a frame's end
+    (:func:`walk_tiles`); elsewhere block b takes tiles b, b + B, ...  of
+    the plan's rows."""
+    return (word & 3) == _WORDS[torch.int16][0] and bool(word & _FM)
+
+
+def walk_tiles(n_frames: int, h: int, rows_per_tile: int, blocks: int, block: int
+               ) -> list[tuple[int, int, int]]:
+    """The tiles (frame, first row, rows) that block ``block`` of ``blocks``
+    renders on the balanced walk, in its order: the kernel's ``walk_start``,
+    ``walk_tile`` and ``walk_next``."""
+    total = n_frames * h
+    pos, end = total * block // blocks, total * (block + 1) // blocks
+    tiles = []
+    while pos < end:
+        f, r0 = divmod(pos, h)
+        rows = min(rows_per_tile, h - r0, end - pos)
+        tiles.append((f, r0, rows))
+        pos += rows
+    return tiles
+
+
 @functools.lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
     """Streaming multiprocessors of a CUDA device (132 on an H100 SXM)."""
@@ -487,13 +536,15 @@ def launch_plan(
 ) -> LaunchPlan:
     """The :class:`LaunchPlan` of a launch of the word code ``word`` (0 an
     envelope); ``rows_per_tile`` and ``fill`` are
-    ``ROWS_PER_TILE[sample_bytes]`` and ``FILL_TILES_PER_SM`` as the caller
-    reads them, so that a plan is made again where they change."""
+    ``ROWS_PER_TILE[sample_bytes]`` (``ROWS_PER_TILE_FM`` on the balanced
+    walk) and ``FILL_TILES_PER_SM`` as the caller reads them, so that a plan
+    is made again where they change."""
     del rows_per_tile, fill  # read by tile_plan; part of the cache's key
     raster = (frame_len, y_t, x_t, out_shape)
     lead, extra = line_reach(taps, exact)
     sms = sm_count(device) if device.type == "cuda" else 0
-    rows, run_cap = tile_plan(*raster, sample_bytes, lead + extra, taps, n_frames, sms)
+    rows, run_cap = tile_plan(*raster, sample_bytes, lead + extra, taps, n_frames, sms,
+                              balanced_walk(word))
     geom = screen_geometry(*raster, device, num_phases)
     cost = launch_cost(n_samples, sample_bytes, n_frames, *raster, word, taps, exact)
     return LaunchPlan(geom, rows, run_cap, geom.span + extra, cost)
@@ -502,9 +553,10 @@ def launch_plan(
 def _plan(n_samples: int, n_frames: int, sample_bytes: int, frame_len: int, y_t: int, x_t: int,
           out_shape, device: torch.device, num_phases: int | None, word: int, taps: int,
           exact: bool) -> LaunchPlan:
+    rows = ROWS_PER_TILE_FM if balanced_walk(word) else ROWS_PER_TILE[sample_bytes]
     return launch_plan(int(n_samples), int(n_frames), int(frame_len), int(y_t), int(x_t),
                        (int(out_shape[0]), int(out_shape[1])), device, num_phases, sample_bytes,
-                       word, taps, exact, ROWS_PER_TILE[sample_bytes], FILL_TILES_PER_SM)
+                       word, taps, exact, rows, FILL_TILES_PER_SM)
 
 
 def _current(device: torch.device):
@@ -693,6 +745,37 @@ def frames_to_screens_from_words(
 # (interp_taps, residuals given, demod, bfloat16 rounding).
 frames_to_screens_from_words.launches = 0
 frames_to_screens_from_words.launches_by_variant = collections.Counter()
+
+
+def fm_int16_words(words: torch.Tensor) -> torch.Tensor:
+    """The FM discriminator of interleaved int16 I/Q words sample by sample,
+    as K1's int16 FM load computes it (its arc tangent without the
+    division's slow path, ``csrc/resample.cu`` ``atan2_int16``): equal to
+    ``words_envelope_plain(words, "fm")`` to the bit.  On a CUDA tensor one
+    launch of ``tt_fm_int16``; on the CPU the plain version.  No path of the
+    port calls it: the card's tests and ``chip_smoke.py`` hold it against
+    the plain version on every sample of a block, where K1 shows only the
+    samples its pixels read."""
+    if words.dtype != torch.int16 or words.dim() != 1:
+        raise TypeError(
+            f"fm_int16_words takes 1-D int16 words, got {words.dtype} {words.dim()}-D")
+    if words.device.type == "cpu":
+        return words_envelope_plain(words, "fm")
+    if words.device.type != "cuda" or not words.is_contiguous():
+        raise ValueError("fm_int16_words takes contiguous CUDA or CPU words")
+    from .. import _build
+
+    n = words.shape[0] // 2
+    out = torch.empty(n, dtype=torch.float32, device=words.device)
+    rc = _build.load_library("resample").tt_fm_int16(
+        words.data_ptr(), n, out.data_ptr(), torch.cuda.current_stream(words.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"tt_fm_int16 failed with cudaError_t {rc}")
+    fm_int16_words.launches += 1
+    return out
+
+
+fm_int16_words.launches = 0
 
 
 @functools.lru_cache(maxsize=None)

@@ -517,3 +517,109 @@ def test_steps_on_the_card_take_the_words_load_and_equal_the_passes(cuda_device,
     torch.cuda.synchronize()
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------- the int16 FM load's arc tangent
+# int16 values at the ends of their range and on the axes: every I/Q pair of
+# two of them gives a quadruple whose discriminator lies on an axis, on a
+# diagonal (|y| = |x|), at (0, 0) with either sign of zero, or at the products'
+# extremes (2^30 each, 2^31 summed).
+EDGE_VALUES = (0, 1, -1, 2, -2, 3, -3, 100, -100, 181, -181, 16384, -16384, 12345, -23456,
+               32766, -32767, 32767, -32768)
+
+
+def _edge_quadruples() -> np.ndarray:
+    """Interleaved int16 words: for every two pairs (a, b) of EDGE_VALUES
+    pairs, pair a then pair b, so that every such quadruple is one sample."""
+    pairs = np.array([(i, q) for i in EDGE_VALUES for q in EDGE_VALUES], np.int16)
+    a = np.repeat(pairs, len(pairs), axis=0)
+    b = np.tile(pairs, (len(pairs), 1))
+    return np.stack([a, b], axis=1).reshape(-1)
+
+
+def test_fm_int16_words_on_the_cpu_is_the_plain_fm_and_matches_jax():
+    """On the CPU the check entry of the int16 FM load runs its plain
+    version: ``words_envelope_plain(words, "fm")`` to the bit, and the JAX
+    package's discriminator within one float32 ulp (the two ``atan2``
+    differ in the last bit), on random words and on every edge quadruple."""
+    jdemod = pytest.importorskip("tempest_tpu.ops.demod")
+    jnp = pytest.importorskip("jax.numpy")
+    rng = np.random.default_rng(11)
+    random = rng.integers(-32768, 32768, 2 * 20_001).astype(np.int16)
+    for words in (random, _edge_quadruples()):
+        tw = torch.from_numpy(words)
+        got = rk.fm_int16_words(tw)
+        plain = rk.words_envelope_plain(tw, "fm")
+        assert torch.equal(got.view(torch.int32), plain.view(torch.int32))
+        ref = np.asarray(jdemod.fm_demod_from_iq(jnp.asarray(words)))
+        assert got.shape == ref.shape and float(got[0]) == 0.0
+        assert np.all(np.abs(got.numpy() - ref) <= np.spacing(np.abs(ref)))
+    with pytest.raises(TypeError):
+        rk.fm_int16_words(torch.zeros(8, dtype=torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("words", ["random", "edges"])
+def test_int16_fm_arc_tangent_on_the_card_equals_torch_on_every_sample(cuda_device, words):
+    """The int16 FM load's arc tangent without the division's slow path
+    (``atan2_int16``) against ``torch.atan2`` after the same roundings, every
+    sample compared bit for bit: 2^26 random quadruples of int16 words, then
+    every edge quadruple (each sign of zero at (0, 0) included)."""
+    if words == "random":
+        rng = np.random.default_rng(12)
+        data = rng.integers(-32768, 32768, 2 * ((1 << 26) + 1)).astype(np.int16)
+    else:
+        data = _edge_quadruples()
+    tw = torch.from_numpy(data).to(cuda_device)
+    before = rk.fm_int16_words.launches
+    got = rk.fm_int16_words(tw)
+    assert rk.fm_int16_words.launches == before + 1
+    ref = rk.words_envelope_plain(tw, "fm")
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape == (data.size // 2,)
+    assert int((got.view(torch.int32) != ref.view(torch.int32)).sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["fm", "fm_bf16"])
+@pytest.mark.parametrize("exact", [False, True], ids=["rounded", "residuals"])
+@pytest.mark.parametrize("taps", [2, 4])
+def test_int16_fm_load_at_640x480_on_the_card_equals_plain(cuda_device, taps, exact, bf16):
+    """The int16 FM load at the shapes ``auto_reconstruct(demod="fm")``
+    launches at 640x480 @ 60 Hz, 32 Msps (11 frames, 600x800): each warp's
+    segment of a run longer than at the slice; with the first frame at
+    sample 0 (its first sample 0), the last cut by the block end, from an
+    unaligned source and at the screens of the other work splits: equal to
+    its plain version to the bit."""
+    mode = ALL_VIDEO_MODES["640x480 @ 60Hz"]
+    spf = 32e6 / mode.refresh
+    frame_len = int(np.floor(spf))
+    n = int(np.ceil(11 * spf)) + 1
+    rng = np.random.default_rng(3)
+    words = torch.from_numpy(rng.integers(-32768, 32768, 2 * n + 1).astype(np.int16)).to(
+        cuda_device)
+    starts, fracs = (torch.from_numpy(a).to(cuda_device)
+                     for a in poff.exact_cut_starts(1000.25, spf, 11))
+    fracs = fracs if exact else None
+    raster = (frame_len, mode.height, mode.width, (600, 800))
+    got = rk.frames_to_screens_from_words(words, starts, *raster, fracs, taps, demod="fm",
+                                          bf16=bf16)
+    ref = rk.frames_to_screens_plain(_envelope(words, "fm", bf16), starts,
+                                     rk.screen_geometry(*raster, cuda_device), fracs, taps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    short = int(starts[-1]) + frame_len - 4000
+    edge = torch.tensor([0, frame_len + 3, int(starts[-1])], dtype=torch.int32,
+                        device=cuda_device)
+    edge_fracs = None if fracs is None else fracs[:3].contiguous()
+    for lo in (0, 2):
+        cut = words[lo: 2 * short]
+        env = _envelope(cut, "fm", bf16)
+        for shape in ((600, 800),) + OTHER_SHAPES:
+            other = (frame_len, mode.height, mode.width, shape)
+            got = rk.frames_to_screens_from_words(cut, edge, *other, edge_fracs, taps,
+                                                  demod="fm", bf16=bf16)
+            ref = rk.frames_to_screens_plain(env, edge, rk.screen_geometry(*other, cuda_device),
+                                             edge_fracs, taps)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ref), (lo, shape)

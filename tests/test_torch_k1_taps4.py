@@ -201,3 +201,30 @@ def test_int16_words_at_the_ends_of_their_range(cuda_device, taps):
                                      rk.screen_geometry(*raster, cuda_device), None, taps)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("taps", [2, 4])
+def test_int16_fm_words_at_the_ends_of_their_range(cuda_device, taps):
+    """The int16 FM load (its arc tangent without the division's slow path)
+    on pairs of 0, ±1, ±2 and the extremes, on runs of equal pairs (y = 0,
+    x from 0 to 2^31) and of pairs on the axes, then random words.  Both
+    kernels give the plain version's bits."""
+    frame_len, mode, _, starts, _ = _block("1080p60_20Msps", cuda_device, n_frames=3)
+    n = int(starts[-1]) + 2 * frame_len
+    rng = np.random.default_rng(6)
+    ends = np.int16([0, 1, -1, 2, -2, 32767, -32767, -32768])
+    every = np.arange(-32768, 32768, dtype=np.int16)
+    zero = np.zeros_like(every)
+    pairs = np.concatenate([
+        np.repeat(rng.choice(ends, (20_000, 2)), 3, axis=0),
+        np.stack([every, zero], 1), np.stack([zero, every], 1),
+        rng.choice(ends, (200_000, 2)),
+        rng.integers(-32768, 32768, (n - 60_000 - 2 * every.size - 200_000, 2)).astype(np.int16)])
+    words = torch.from_numpy(pairs.reshape(-1)).to(cuda_device)
+    raster = (frame_len, mode.height, mode.width, SHAPE)
+    got = rk.frames_to_screens_from_words(words, starts, *raster, None, taps, demod="fm")
+    ref = rk.frames_to_screens_plain(rk.words_envelope_plain(words, "fm"), starts,
+                                     rk.screen_geometry(*raster, cuda_device), None, taps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
