@@ -31,8 +31,9 @@ Phases, each of which fails the run if it fails:
    on the card, that the final EMA matches the port's CPU run of the same
    blocks, and that its PSNR against the capture's ground truth clears the
    bar; time the step;
-4. run two blocks through the runtime with ``invert=True``, the route that
-   demodulates first and hands K1 the envelope, on the card and on the CPU;
+4. run two blocks through the runtime with ``invert=True``: each block one
+   launch of the block maximum (``words_maxima``) and one of K1's words
+   entry with the inversion, no demod pass, on the card and on the CPU;
 5. hold K1 with per-frame residuals, with 4 taps (its own kernel, the
    Catmull-Rom read redesigned) and with both against its plain version to
    the bit, on the envelope entry and on both word entries, also with the
@@ -70,11 +71,17 @@ Phases, each of which fails the run if it fails:
     the native ring against the Python ring;
 12. batched serving: ``make_batched_reconstruct_fn`` on 4 streams of the
     slice's int16 words, static cuts and ``carry_phase`` with exact cuts: one
-    K1 launch a step for the 144 frames, equal to its plain version to the
-    bit, each stream's EMA, frames, sync and score equal to the single-stream
-    step's to the bit with the sync NOT pinned (and once more pinned), K2
-    giving each frame the same bits among 144 and among its stream's 36;
-    the step's time beside four single-stream steps;
+    K1 launch a step for the 144 frames (the caller's words as they lie,
+    each stream clamped into its own block: no layout copy), equal to its
+    plain version to the bit, each stream's EMA, frames, sync and score
+    equal to the single-stream step's to the bit with the sync NOT pinned
+    (and once more pinned), K2 giving each frame the same bits among 144
+    and among its stream's 36; the step's time beside four single-stream
+    steps, its device events (no demod, no layout copy); then the same step
+    under FM and under ``invert`` (one block maximum for the four streams):
+    one K1 words launch, each stream equal to its single step to the bit, 5
+    and 6 device events, and with ``--parent DIR`` timed in turns with that
+    checkout's step (its demod passes);
 13. the mode search: ``mode_search_static`` over the video modes near 60 Hz,
     one K1 launch over the candidate set at a 150x200 score grid
     (``frames_to_screens_candidates``), held to the bit against its plain
@@ -86,7 +93,7 @@ Phases, each of which fails the run if it fails:
     capture: PSNR beside K1's, the difference from K1 beside the bound the
     quantisation gives, the names that round to bfloat16 through K1's words
     load with no pass, K1 with the quantised table against its plain version
-    (launched on the envelope by ``mxu3`` with ``invert``);
+    (launched on the envelope by ``mxu3`` on complex input);
 15. the command line in process (``synth``, ``analyze``, ``reconstruct``,
     ``scan``, ``survey``, ``stream``, ``search``, ``warmup``, and ``stream
     --mesh 4`` and ``search --dynamic --devices 4`` on four shards of the
@@ -137,11 +144,23 @@ Phases, each of which fails the run if it fails:
     same bits, wall clock and device time in turns, 5 device events a step;
     the launches of each new load on its main path (the bench line, the
     slice's FM step on int16 words, the runtime under ``mxu3``, FM and both,
-    4 taps with ``invert``); the int16 FM load's arc tangent against
-    ``torch.atan2`` on every sample of 2^26 random quadruples of int16 words
-    and of every edge quadruple, to the bit; the int16 FM load at 5 to 8
-    rows a tile; with ``--parent DIR`` each int16 FM row at the slice's
-    shapes and that checkout's bench line in turns with this one's.
+    4 taps with ``invert``, complex input with 4 taps); the int16 FM load's
+    arc tangent against ``torch.atan2`` on every sample of 2^26 random
+    quadruples of int16 words and of every edge quadruple, to the bit; the
+    int16 FM load at 5 to 8 rows a tile; with ``--parent DIR`` each int16 FM
+    row at the slice's shapes and that checkout's bench line in turns with
+    this one's;
+24. ``invert`` in K1's words load: the block maximum against ``torch.max``
+    of the plain envelope to the bit (int16 and float32, AM and FM, 1 and 4
+    streams, the int16 range's ends, an all-zero stream, NaN and infinities
+    in float32 words), timed beside its bound; every inverted load (AM, AM
+    rounded, FM, FM rounded; int16 and float32; 2 and 4 taps; with and
+    without residuals) equal to its plain version to the bit and timed; the
+    slice's step under ``invert`` (2 taps, 4 taps, ``mxu3``) against the
+    pass route: the same bits, 6 device events (the block maximum, K1, K2a,
+    K2b, K3, the upload), wall clock and device time in turns; with
+    ``--parent DIR`` the block maximum's route and the inverted step in
+    turns with that checkout's.
 
 Run ``python3 chip_smoke.py`` from the root of a checkout on a machine with
 a CUDA card; it ends with torch.profiler tables of three steps, with the
@@ -198,7 +217,7 @@ TIMED_CALLS = 30
 BACK_TO_BACK = 50     # launches between two events
 # The kernels' sources, built at once, one nvcc each.
 KERNEL_SOURCES = ("resample", "sync", "align_ema")
-ENVELOPE_BLOCKS = 2   # depth of the envelope-entry run of phase 4
+INVERT_BLOCKS = 2     # depth of the inverted runtime's run of phase 4
 # Screens whose width is no multiple of 4 (one column a work item; fewer and
 # more work items a row than the block has threads), one of more than
 # 4 x 256 columns, and one of so few rows that the wrapper takes fewer rows a
@@ -962,13 +981,14 @@ def read_png(path) -> np.ndarray:
 
 
 def phase_batched(tp, torch, dev, card: str, words: np.ndarray, reset_counts,
-                  profile_activities) -> dict:
+                  profile_activities, parent_root=None) -> dict:
     """Phase 12: batched serving at full width.  ``words`` is the capture's
     int16 words; stream b is the block that starts 2/3 of a block after
-    stream b-1's.  Returns what the kernels line reports of K1 at 144 frames."""
+    stream b-1's.  Returns what the kernels line reports of K1 at 144 frames,
+    under AM (static and exact cuts), FM and ``invert``."""
     from tempest_tpu_torch.ops.resample_kernel import (
         frames_to_screens, frames_to_screens_from_words, frames_to_screens_plain,
-        screen_geometry)
+        screen_geometry, words_envelope_plain, words_maxima)
     from tempest_tpu_torch.ops.sync_kernel import blanking_sync
     from tempest_tpu_torch.pipeline import offline as poff
 
@@ -1075,40 +1095,7 @@ def phase_batched(tp, torch, dev, card: str, words: np.ndarray, reset_counts,
               f"batched step, {label}: alignment and EMA at the single streams' sync values match")
 
         # K1 alone on the 144 frames, as the step calls it, against its plain version.
-        cuts = [poff._cut_fn(cfg)(*([p] if cfg.carry_phase else [])) for p in STREAM_PHASES]
-        lead, tail = poff._stream_margins(cfg, frame_len, cfg.subsample_align)
-        back = max(int(max(c[0].max() for c in cuts)) + tail - n, 0)
-        flat = iq_b
-        if back:
-            flat = torch.cat([iq_b, iq_b[:, -2:].repeat(1, back)], dim=1)
-        n_b = flat.shape[1] // 2
-        flat = flat.reshape(-1)
-        starts = torch.from_numpy(np.concatenate(
-            [c[0].astype(np.int64) + b * n_b for b, c in enumerate(cuts)]).astype(np.int32)).to(dev)
-        fracs = None
-        if cfg.subsample_align:
-            fracs = torch.from_numpy(np.concatenate([c[1] for c in cuts])).to(dev)
-        got = frames_to_screens_from_words(flat, starts, *raster, fracs, 2)
-        ref = frames_to_screens_plain(tp.am_envelope_from_iq(flat), starts,
-                                      screen_geometry(*raster, dev), fracs, 2)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        check(bool(torch.equal(got, ref)),
-              f"K1 on {N_STREAMS * N_FRAMES} frames, {label}, equals its plain version to the bit "
-              f"(max abs diff {err:.3e})")
-        plain_ms = time_call(torch, lambda: frames_to_screens_plain(
-            tp.am_envelope_from_iq(flat), starts, screen_geometry(*raster, dev), fracs, 2), calls=3)
-        del ref
-        bound_ms, bound_by, nbytes = k1_bound(N_STREAMS * n_b, 4, N_STREAMS * N_FRAMES, raster, True,
-                                              2, cfg.subsample_align)
-        ms = time_call(torch, lambda: frames_to_screens_from_words(flat, starts, *raster, fracs, 2))
-        b2b_ms = time_back_to_back(
-            torch, lambda: frames_to_screens_from_words(flat, starts, *raster, fracs, 2))
-        print(f"[K1 int16 words, {N_STREAMS * N_FRAMES} frames, {label}] equal to plain to the bit"
-              f"{' (each block padded by ' + str(back) + ' samples)' if back else ''}; "
-              f"{ms:.4f} ms single call, {b2b_ms:.4f} ms back to back; bound {bound_ms:.4f} ms "
-              f"({nbytes / 1e6:.1f} MB, by {bound_by}), share reached {bound_ms / b2b_ms:.3f} back "
-              f"to back; plain {plain_ms:.4f} ms, on {card}")
+        m = batched_k1(tp, torch, dev, card, cfg, iq_b, raster, label)
 
         batched_ms = time_call(torch, lambda: step(iq_b, ema_b, ALPHA, *phases), calls=10)
 
@@ -1121,17 +1108,146 @@ def phase_batched(tp, torch, dev, card: str, words: np.ndarray, reset_counts,
         prof = profiled(torch, lambda: [step(iq_b, ema_b, ALPHA, *phases) for _ in range(3)],
                         profile_activities)
         prof1 = profiled(torch, lambda: [four_singles() for _ in range(3)], profile_activities)
-        dev_b, launches_b = step_device_ms(device_by_kernel(prof, 3))
+        by_kernel = device_by_kernel(prof, 3)
+        dev_b, launches_b = step_device_ms(by_kernel)
         dev_1, launches_1 = step_device_ms(device_by_kernel(prof1, 3))
         print(f"[batched, {label}] {batched_ms:.3f} ms a batched step beside {singles_ms:.3f} ms "
               f"for four single-stream steps (CUDA events, median of 10) = "
               f"{N_STREAMS * n / batched_ms / 1e3:.1f} Msamples/s; device time "
               f"{dev_b:.3f} ms in {launches_b} kernels beside {dev_1:.3f} ms in {launches_1} "
-              f"(profiler), on {card}")
-        out[label] = dict(launches=launches, err=err, ms=ms, b2b_ms=b2b_ms, plain_ms=plain_ms,
-                          bound_ms=bound_ms, bound_by=bound_by)
-        del iq_b, flat, got, frames
+              f"(profiler); by kernel: {step_kernels(by_kernel)}, on {card}")
+        check(launches_b == 5 and all(any(e in k for e in STEP_EVENTS) for k in by_kernel),
+              f"batched step, {label}: 5 device events, K1, K2a, K2b, K3 and the upload, no "
+              f"demod or layout copy ({sorted(by_kernel)})")
+        out[label] = dict(m, launches=launches, device_ms=dev_b, events=launches_b)
+        del iq_b, frames
+
+    # The routes that demodulated as a pass before: FM, and invert (AM), whose
+    # block maximum is one launch for the four streams; static cuts.
+    parent = load_other(Path(parent_root)) if parent_root is not None else None
+    for label, extra in (("FM", {"demod": "fm"}), ("invert", {"invert": True})):
+        cfg = tp.ReconstructionConfig(**base, **extra)
+        n = cfg.block_samples
+        frame_len = int(np.floor(cfg.samples_per_frame))
+        raster = (frame_len, mode.height, mode.width, RENDER)
+        stride = 2 * n // 3
+        host = np.stack([words[2 * b * stride: 2 * b * stride + 2 * n] for b in range(N_STREAMS)])
+        iq_b = torch.from_numpy(host).to(dev)
+        ema_b = torch.zeros((N_STREAMS, h, w), dtype=torch.float32, device=dev)
+        step = tp.make_batched_reconstruct_fn(cfg)
+        single = tp.make_reconstruct_fn(cfg)
+        step(iq_b, ema_b, ALPHA)                   # warm
+        reset_counts()
+        got = step(iq_b, ema_b, ALPHA)
+        torch.cuda.synchronize()
+        key = (2, False, cfg.demod, False) + (("invert",) if cfg.invert else ())
+        launches = frames_to_screens_from_words.launches_by_variant[key]
+        maxima = words_maxima.launches
+        check(launches == 1 == frames_to_screens_from_words.launches
+              and frames_to_screens.launches == 0 and maxima == (1 if cfg.invert else 0),
+              f"batched step, {label}: one K1 words launch for {N_STREAMS * N_FRAMES} frames "
+              f"and {maxima} block maximum ({dict(frames_to_screens_from_words.launches_by_variant)}"
+              f", envelope {frames_to_screens.launches})")
+        for b in range(N_STREAMS):
+            one = single(iq_b[b], ema_b[b], ALPHA)
+            check(all(bool(torch.equal(x[b], y)) for x, y in zip(got, one)),
+                  f"batched step, {label}: stream {b}'s EMA, frames, sync and score equal its "
+                  "single step's to the bit")
+        del got, one
+        m = batched_k1(tp, torch, dev, card, cfg, iq_b, raster, label)
+        prof = profiled(torch, lambda: [step(iq_b, ema_b, ALPHA) for _ in range(3)],
+                        profile_activities)
+        by_kernel = device_by_kernel(prof, 3)
+        dev_b, events = step_device_ms(by_kernel)
+        allowed = STEP_EVENTS + (("words_max_kernel",) if cfg.invert else ())
+        check(events == 5 + cfg.invert and all(any(e in k for e in allowed) for k in by_kernel),
+              f"batched step, {label}: {5 + cfg.invert} device events (K1, K2a, K2b, K3, the "
+              f"upload{', the block maximum' if cfg.invert else ''}), no demod pass or layout "
+              f"copy ({sorted(by_kernel)})")
+        routes = {"this": step}
+        if parent is not None:
+            pcfg = parent.ReconstructionConfig(
+                sample_rate=SAMPLE_RATE, mode=parent.ALL_VIDEO_MODES[MODE_NAME], n_frames=N_FRAMES,
+                input_format="iq_interleaved", align_subpixel=True, **extra)
+            routes["parent"] = parent.make_batched_reconstruct_fn(pcfg)
+            a, b_ = step(iq_b, ema_b, ALPHA), routes["parent"](iq_b, ema_b, ALPHA)
+            torch.cuda.synchronize()
+            check(all(bool(torch.equal(x, y)) for x, y in zip(a, b_)),
+                  f"batched step, {label}: the parent's step (its demod passes) gives these bits")
+            del a, b_
+        turns = {who: {"ms": [], "device": [], "events": []} for who in routes}
+        for who in (("parent", "this", "this", "parent") if parent is not None else ("this",)):
+            fn = routes[who]
+            turns[who]["ms"].append(time_call(torch, lambda: fn(iq_b, ema_b, ALPHA), calls=10))
+            bk = device_by_kernel(profiled(torch, lambda: [fn(iq_b, ema_b, ALPHA)
+                                                           for _ in range(3)],
+                                           profile_activities), 3)
+            d, e = step_device_ms(bk)
+            turns[who]["device"].append(d)
+            turns[who]["events"].append(e)
+        for who, t in turns.items():
+            print(f"[batched, {label}, {who}] {' '.join(f'{x:.3f}' for x in t['ms'])} ms a step "
+                  f"(CUDA events, median of 10), device {' '.join(f'{x:.4f}' for x in t['device'])}"
+                  f" ms in {' '.join(str(x) for x in t['events'])} events, turns parent this this "
+                  f"parent, on {card}")
+        print(f"[batched, {label}] one K1 words launch and {maxima} block maximum a step, each "
+              f"stream equal to its single step to the bit; device time {dev_b:.4f} ms in "
+              f"{events} events; by kernel: {step_kernels(by_kernel)}, on {card}")
+        out[label] = dict(m, launches=launches, max_launches=maxima, device_ms=dev_b,
+                          events=events, turns=turns)
+        del iq_b
     return out
+
+
+def step_kernels(by_kernel: dict) -> str:
+    return "; ".join(f"{short_name(k)} {ms:.4f} x{n}" for k, (ms, n) in by_kernel.items())
+
+
+def batched_k1(tp, torch, dev, card: str, cfg, iq_b, raster, label: str) -> dict:
+    """K1 alone on the batched step's B·F frames as the step launches it (the
+    caller's words, ``streams=B``, the config's load), against its plain
+    version to the bit; its times beside its bound."""
+    from tempest_tpu_torch.ops import resample_kernel as rk
+    from tempest_tpu_torch.pipeline import offline as poff
+
+    n_streams, n = iq_b.shape[0], iq_b.shape[1] // 2
+    cuts = [poff._cut_fn(cfg)(*([p] if cfg.carry_phase else [])) for p in STREAM_PHASES]
+    starts = torch.from_numpy(np.concatenate(
+        [c[0].astype(np.int64) + b * n for b, c in enumerate(cuts)]).astype(np.int32)).to(dev)
+    fracs = None
+    if cfg.subsample_align:
+        fracs = torch.from_numpy(np.concatenate([c[1] for c in cuts])).to(dev)
+    flat = iq_b.reshape(-1)
+    load = dict(demod=cfg.demod, invert=cfg.invert, streams=n_streams)
+
+    def call():
+        return rk.frames_to_screens_from_words(flat, starts, *raster, fracs, 2, **load)
+
+    def plain():
+        env = rk.words_envelope_plain(flat, cfg.demod, False, cfg.invert, n_streams)
+        return rk.frames_to_screens_plain(env, starts, rk.screen_geometry(*raster, dev), fracs, 2,
+                                          n_streams)
+
+    got, ref = call(), plain()
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    check(bool(torch.equal(got, ref)),
+          f"K1 on {n_streams * N_FRAMES} frames, {label}, equals its plain version to the bit "
+          f"(max abs diff {err:.3e})")
+    del got, ref
+    word = rk.word_code(iq_b.dtype, cfg.demod, False, cfg.invert)[0]
+    bound_ms, bound_by, nbytes = k1_bound(n_streams * n, 4, n_streams * N_FRAMES, raster, word,
+                                          2, cfg.subsample_align)
+    m = dict(err=err, ms=time_call(torch, call), b2b_ms=time_back_to_back(torch, call),
+             device_ms=kernels_device_ms(torch, call, ("tiles_kernel",))["tiles_kernel"],
+             plain_ms=time_call(torch, plain, calls=3), bound_ms=bound_ms, bound_by=bound_by)
+    print(f"[K1 int16 words, {n_streams * N_FRAMES} frames, {label}] {n_streams} streams as they "
+          f"lie, each clamped into its own block: equal to plain to the bit; {m['ms']:.4f} ms "
+          f"single call, {m['b2b_ms']:.4f} ms back to back{' (with its block maximum)' * cfg.invert},"
+          f" K1's device time {m['device_ms']:.4f} ms; bound {bound_ms:.4f} ms ({nbytes / 1e6:.1f} "
+          f"MB, by {bound_by}), share reached {bound_ms / m['device_ms']:.3f} of device time; plain "
+          f"{m['plain_ms']:.4f} ms, on {card}")
+    return m
 
 
 def phase_search(tp, torch, dev, card: str, words_f32, reset_counts) -> dict:
@@ -1377,14 +1493,15 @@ def phase_resamplers(tp, torch, dev, card: str, words_i16, truth, reset_counts) 
         check(name == "fft" or out[name]["psnr"] > PSNR_BAR_DB - 0.5,
               f"resampler={name} reconstructs the screen")
 
-    # The quantised table on the envelope entry: an mxu name with invert, whose
-    # block maximum keeps the demod a pass.
+    # The quantised table on the envelope entry: an mxu name on complex input,
+    # whose demod (torch.abs) stays a pass.
     reset_counts()
-    tp.make_reconstruct_fn(dataclasses.replace(base, resampler="mxu3", invert=True,
-                                               do_align=False))(block, ema0, ALPHA)
+    tp.make_reconstruct_fn(dataclasses.replace(base, resampler="mxu3", input_format="complex64",
+                                               do_align=False))(
+        block.to(torch.float32).view(torch.complex64), ema0, ALPHA)
     envelope_quantised = frames_to_screens.launches
     check(envelope_quantised == 1 and frames_to_screens_from_words.launches == 0,
-          f"resampler=mxu3 with invert: one envelope-entry launch ({envelope_quantised})")
+          f"resampler=mxu3 on complex input: one envelope-entry launch ({envelope_quantised})")
 
     # K1 with the quantised table, at the slice's shapes, against its plain version.
     spf = base.samples_per_frame
@@ -2396,15 +2513,29 @@ def phase_stage1(tp, torch, dev, card: str, words_i16, blocks, reset_counts, par
         load = (options["config_overrides"].get("demod", "am"),
                 options["config_overrides"].get("resampler") == "mxu3")
         if "invert" in options:
-            launches[key] = rk.frames_to_screens.launches_by_variant[4, False]
-            ok = launches[key] == 2 and words_entry.launches == 0
+            # The block maximum, then K1's words load with the inversion.
+            launches[key] = words_entry.launches_by_variant[4, False, "am", False, "invert"]
+            launches["runtime invert 4 taps, block maximum"] = rk.words_maxima.launches
+            ok = launches[key] == 2 == words_entry.launches == rk.words_maxima.launches
         else:
             launches[key] = load_launches(words_entry, *load)
-            ok = launches[key] == 2 == words_entry.launches and rk.frames_to_screens.launches == 0
-        check(ok and bool(np.isfinite(ema_rt).all()),
-              f"{key}: 2 blocks, one K1 launch a block through the route it takes "
+            ok = launches[key] == 2 == words_entry.launches
+        check(ok and rk.frames_to_screens.launches == 0 and bool(np.isfinite(ema_rt).all()),
+              f"{key}: 2 blocks, one K1 launch a block through the words load "
               f"({dict(words_entry.launches_by_variant)}, envelope "
               f"{dict(rk.frames_to_screens.launches_by_variant)})")
+    # 4 taps on an envelope: complex input, whose demod (torch.abs) stays a pass.
+    reset_counts()
+    complex_cfg = dataclasses.replace(cfg, input_format="complex64", interp_taps=4)
+    out = tp.make_reconstruct_fn(complex_cfg, dev)(
+        data["float32 words"].view(torch.complex64), ema0, ALPHA, 0.0)
+    torch.cuda.synchronize()
+    launches["complex 4 taps"] = rk.frames_to_screens.launches_by_variant[4, False]
+    check(launches["complex 4 taps"] == 1 == rk.frames_to_screens.launches
+          and words_entry.launches == 0 and bool(torch.isfinite(out[0]).all()),
+          f"complex input with 4 taps: one launch of the envelope entry "
+          f"({dict(rk.frames_to_screens.launches_by_variant)})")
+    del out
     print(f"[stage 1 in K1] launches on the main paths: {launches}")
 
     turns = {"parent": [], "this": []}
@@ -2426,6 +2557,281 @@ def phase_stage1(tp, torch, dev, card: str, words_i16, blocks, reset_counts, par
     print(f"[stage 1 in K1] bench line: {json.dumps(line)}")
     return {"measured": measured, "steps": steps, "launches": launches, "bench": line,
             "bench_turns": turns, "fm_sweep": sweep, "fm_parent": fm_parent, "fm_rows": fm_rows}
+
+
+def max_bound(n_samples: int, sample_bytes: int, word: int, streams: int = 1
+              ) -> tuple[float, str, int]:
+    """The least milliseconds the card could take for one launch of the
+    block maximum: the larger of its bytes over the memory rate and its
+    operations (float32 operations or instructions at the issue rate,
+    ``resample_kernel.max_launch_cost`` and ``max_launch_instructions``)
+    over their peaks.  Returns (ms, "bytes" or "operations", bytes)."""
+    from tempest_tpu_torch.ops.resample_kernel import max_launch_cost, max_launch_instructions
+    from tempest_tpu_torch.ops.sync_kernel import H100_ISSUE_PER_S
+    from tempest_tpu_torch.utils.roofline import H100_PEAKS
+
+    nbytes, flops, _ = max_launch_cost(n_samples, sample_bytes, word, streams)
+    by_bytes = 1e3 * nbytes / H100_PEAKS["bytes_per_s"]
+    ops = max(1e3 * flops / H100_PEAKS["flops_per_s"],
+              1e3 * max_launch_instructions(n_samples, sample_bytes, word) / H100_ISSUE_PER_S)
+    return max(by_bytes, ops), ("bytes" if by_bytes >= ops else "operations"), nbytes
+
+
+def same_bits(torch, got, ref) -> bool:
+    """Equal NaN positions, equal bits elsewhere."""
+    nan = torch.isnan(ref)
+    return (bool(torch.equal(torch.isnan(got), nan))
+            and bool(torch.equal(got[~nan].view(torch.int32), ref[~nan].view(torch.int32))))
+
+
+# The inverted steps of phase 24: (label, config options).
+INVERTED_STEPS = (("2 taps", {}), ("4 taps", {"interp_taps": 4}), ("mxu3", {"resampler": "mxu3"}))
+
+
+def phase_invert(tp, torch, dev, card: str, words_i16, reset_counts, parent_root,
+                 activities) -> dict:
+    """Phase 24: ``invert`` inside K1's words load.  The block maximum
+    (``words_maxima``) against ``torch.max`` of the plain envelope to the
+    bit, 1 and 4 streams, the int16 range's ends, an all-zero stream, NaN and
+    infinities in float32 words; timed beside its bound.  Every inverted
+    load at the slice's shapes against its plain version to the bit (also
+    at the block's edges and from an unaligned source), timed.  The slice's
+    step under ``invert`` (2 taps, 4 taps, ``mxu3``) against the pass route,
+    bits and device events, wall clock and device time in turns; the
+    launches of its main paths from counts at 0.  With ``parent_root`` the
+    block maximum against that checkout's demod and ``torch.max``, and each
+    inverted step against that checkout's step, in turns."""
+    from tempest_tpu_torch.ops import resample_kernel as rk
+    from tempest_tpu_torch.pipeline import offline as poff
+
+    cfg = slice_config(tp)
+    mode = cfg.mode
+    frame_len = int(np.floor(cfg.samples_per_frame))
+    block = cfg.block_samples
+    raster = (frame_len, mode.height, mode.width, RENDER)
+    geom = rk.screen_geometry(*raster, dev)
+    rng = np.random.default_rng(SEED + 1)
+    capture = words_i16[: 2 * block]
+    # The capture's FM discriminator lies below 0 (a carrier offset), so its
+    # maximum is the first pair's 0 and the inversion gives infinities: the
+    # FM loads are held on random words, whose discriminator takes both signs.
+    noise = torch.from_numpy(rng.integers(-20000, 20000, 2 * block).astype(np.int16)).to(dev)
+    data = {("int16 words", "am"): capture, ("float32 words", "am"): capture.float(),
+            ("int16 words", "fm"): noise, ("float32 words", "fm"): noise.float()}
+    parent = parent_rk = None
+    if parent_root is not None:
+        import importlib
+
+        parent = load_other(Path(parent_root))
+        parent_rk = importlib.import_module(f"{parent.__name__}.ops.resample_kernel")
+    v_starts, v_fracs = (torch.from_numpy(a).to(dev) for a in poff.exact_cut_starts(
+        VARIANT_PHASE, cfg.samples_per_frame, N_FRAMES))
+
+    # ---- the block maximum, to the bit
+    held = 0
+    for (name, demod), wd in data.items():
+        for streams in (1, N_STREAMS):
+            w = wd[: 2 * streams * (block // streams)]
+            cases = {"as captured": w}
+            if streams > 1:
+                edged = w.clone()
+                idx = torch.from_numpy(rng.integers(0, w.numel(), 4000)).to(dev)
+                edged[idx[:2000]] = -32768
+                edged[idx[2000:]] = 32767
+                edged[-2 * (block // streams):] = 0
+                cases["int16 ends, last stream all zero"] = edged
+                if name == "float32 words":
+                    special = w.clone()
+                    length = 2 * (block // streams)
+                    for b, value in enumerate((float("nan"), float("inf"), -float("inf"))):
+                        pos = torch.from_numpy(rng.integers(0, length, 64) + b * length).to(dev)
+                        special[pos] = value
+                    cases["NaN, +inf, -inf in streams 0-2"] = special
+            for what, x in cases.items():
+                got, ref = rk.words_maxima(x, demod, streams), rk.words_maxima_plain(x, demod,
+                                                                                     streams)
+                torch.cuda.synchronize()
+                check(same_bits(torch, got, ref),
+                      f"the block maximum, {name}, {demod}, {streams} streams, {what}, equals "
+                      f"torch.max of the plain envelope to the bit ({got.tolist()}, {ref.tolist()})")
+                if what.startswith("int16 ends"):
+                    check(int(got[-1].view(torch.int32)) == 0, "an all-zero stream's maximum is +0")
+                if what.startswith("NaN"):
+                    check(bool(torch.isnan(got[0])), "a NaN makes its stream's maximum NaN")
+                held += 1
+    zero = torch.zeros(2 * 4099, dtype=torch.int16, device=dev)
+    check(all(int(rk.words_maxima(zero, d).view(torch.int32)) == 0 for d in ("am", "fm")),
+          "the maximum of an all-zero block is +0")
+    print(f"[invert] the block maximum equals torch.max of the plain envelope to the bit in "
+          f"{held} cases (int16 and float32 words, AM and FM, 1 and {N_STREAMS} streams, the "
+          f"int16 range's ends, an all-zero stream, NaN and infinities), on {card}")
+
+    # ---- the block maximum's time at the slice, one stream
+    maxima = {}
+    for (name, demod), wd in data.items():
+        sample_bytes = 4 if wd.dtype == torch.int16 else 8
+        word = rk.word_code(wd.dtype, demod)[0]
+        call = functools.partial(rk.words_maxima, wd, demod)
+        env = rk.words_envelope_plain(wd, demod)
+        bound_ms, bound_by, nbytes = max_bound(block, sample_bytes, word)
+        m = dict(err=0.0, ms=time_call(torch, call), b2b_ms=time_back_to_back(torch, call),
+                 device_ms=kernels_device_ms(torch, call, ("words_max_kernel",))[
+                     "words_max_kernel"],
+                 plain_ms=time_call(torch, functools.partial(rk.words_maxima_plain, wd, demod),
+                                    calls=10),
+                 torch_max_ms=time_call(torch, lambda: torch.max(env), calls=10),
+                 bound_ms=bound_ms, bound_by=bound_by)
+        del env
+        if parent is not None:
+            routes = {"parent": lambda: torch.max(parent_rk.words_envelope_plain(wd, demod)),
+                      "this": call}
+            turns = {"parent": [], "this": []}
+            for who in ("parent", "this", "this", "parent"):
+                bk = device_by_kernel(profiled(torch, lambda: [routes[who]() for _ in range(3)],
+                                               activities), 3)
+                turns[who].append((time_call(torch, routes[who], calls=10),
+                                   *step_device_ms(bk)))
+            m["turns"] = turns
+            for who, t in turns.items():
+                print(f"[invert] block maximum route, {name}, {demod}, {who}: "
+                      + " ".join(f"{ms:.4f} ms ({d:.4f} device in {e})" for ms, d, e in t)
+                      + f", turns parent this this parent, on {card}")
+        maxima[name, demod] = m
+        print(f"[invert] block maximum, {name}, {demod.upper()}, {block} samples: {m['ms']:.4f} ms "
+              f"single, {m['b2b_ms']:.4f} back to back, {m['device_ms']:.4f} device; bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB), share "
+              f"{bound_ms / m['device_ms']:.3f} of device time; plain (demod and torch.max) "
+              f"{m['plain_ms']:.4f} ms, torch.max of the envelope alone {m['torch_max_ms']:.4f}, "
+              f"on {card}")
+
+    # ---- every inverted load of K1's words entry, to the bit, timed
+    measured = {}
+    for (name, demod), wd in data.items():
+        sample_bytes = 4 if wd.dtype == torch.int16 else 8
+        for bf16 in (False, True):
+            env = rk.words_envelope_plain(wd, demod, bf16, True)
+            for taps in (2, 4):
+                for exact in (False, True):
+                    res, starts = (v_fracs if exact else None), v_starts
+                    label = (f"{load_label(demod, bf16)} inverted, {name}, {taps} taps"
+                             + (", residuals" if exact else ""))
+
+                    def call(wd=wd, res=res, taps=taps, demod=demod, bf16=bf16, starts=starts):
+                        return rk.frames_to_screens_from_words(wd, starts, *raster, res, taps,
+                                                               demod=demod, bf16=bf16, invert=True)
+
+                    got, ref = call(), rk.frames_to_screens_plain(env, starts, geom, res, taps)
+                    torch.cuda.synchronize()
+                    check(bool(torch.equal(got, ref)),
+                          f"K1 words load {label} equals its plain version to the bit")
+                    err = float((got - ref).abs().max())
+                    del got, ref
+                    short = int(starts[-1]) + frame_len - 4000
+                    edge = torch.tensor([0, frame_len + 3, int(starts[-1])], dtype=torch.int32,
+                                        device=dev)
+                    edge_res = None if res is None else res[:3].contiguous()
+                    for lo in (0, 2):
+                        cut = wd[lo: 2 * short]
+                        got = rk.frames_to_screens_from_words(cut, edge, *raster, edge_res, taps,
+                                                              demod=demod, bf16=bf16, invert=True)
+                        ref = rk.frames_to_screens_plain(
+                            rk.words_envelope_plain(cut, demod, bf16, True), edge, geom, edge_res,
+                            taps)
+                        torch.cuda.synchronize()
+                        check(bool(torch.equal(got, ref)),
+                              f"K1 words load {label}, block edges{' unaligned' * lo}, equals its "
+                              "plain version to the bit")
+                        del got, ref
+                    word = rk.word_code(wd.dtype, demod, bf16, True)[0]
+                    bound_ms, bound_by, nbytes = k1_bound(block, sample_bytes, N_FRAMES, raster,
+                                                          word, taps, exact)
+                    m = dict(err=err, ms=time_call(torch, call),
+                             b2b_ms=time_back_to_back(torch, call),
+                             device_ms=kernels_device_ms(torch, call, ("tiles_kernel",))[
+                                 "tiles_kernel"],
+                             plain_ms=time_call(torch, lambda: rk.frames_to_screens_plain(
+                                 rk.words_envelope_plain(wd, demod, bf16, True), starts, geom,
+                                 res, taps), calls=3),
+                             bound_ms=bound_ms, bound_by=bound_by)
+                    measured[name, demod, bf16, taps, exact] = m
+                    print(f"[invert] K1 {label}: equal to plain to the bit (edges, unaligned); "
+                          f"{m['ms']:.4f} ms single, {m['b2b_ms']:.4f} back to back (with the "
+                          f"block maximum), K1 {m['device_ms']:.4f} device; bound {bound_ms:.4f} "
+                          f"ms by {bound_by} ({nbytes / 1e6:.1f} MB), share "
+                          f"{bound_ms / m['device_ms']:.3f} of device time; plain "
+                          f"{m['plain_ms']:.4f} ms, on {card}")
+            del env
+
+    # ---- the slice's step under invert against the pass route, in turns
+    ema0 = torch.zeros(RENDER, dtype=torch.float32, device=dev)
+    allowed = STEP_EVENTS + ("words_max_kernel",)
+    steps = {}
+    for label, options in INVERTED_STEPS:
+        step_cfg = dataclasses.replace(cfg, invert=True, **options)
+        fused = tp.make_reconstruct_fn(step_cfg, dev)
+        env_step = tp.make_reconstruct_fn(
+            dataclasses.replace(step_cfg, input_format="envelope", invert=False), dev)
+        routes = {"words load": lambda: fused(capture, ema0, ALPHA, 0.0),
+                  "passes": lambda: env_step(poff.demodulate(capture, step_cfg), ema0, ALPHA, 0.0)}
+        if parent is not None:
+            # The parent's slice_config with the same options.
+            pcfg = parent.ReconstructionConfig(**{
+                **dict(sample_rate=SAMPLE_RATE, mode=parent.ALL_VIDEO_MODES[MODE_NAME],
+                       n_frames=N_FRAMES, carry_phase=True, input_format="iq_interleaved",
+                       resampler="pallas", do_align=True, align_subpixel=True,
+                       align_interp="linear", invert=True), **options})
+            parent_step = parent.make_reconstruct_fn(pcfg, dev)
+            routes["parent"] = lambda: parent_step(capture, ema0, ALPHA, 0.0)
+        outs = {who: fn() for who, fn in routes.items()}
+        torch.cuda.synchronize()
+        for who in outs:
+            check(all(same_bits(torch, x, y) for x, y in zip(outs["words load"], outs[who])),
+                  f"the slice's step under invert, {label}: the words load gives the {who}' bits")
+        del outs
+        order = ("words load", "passes", "passes", "words load") + (
+            ("parent", "words load", "words load", "parent") if parent is not None else ())
+        out = {who: {"ms": [], "device": [], "kernels": []} for who in routes}
+        for who in order:
+            r = out[who]
+            r["ms"].append(time_call(torch, routes[who], calls=10))
+            by_kernel = device_by_kernel(profiled(torch, lambda: [routes[who]() for _ in range(3)],
+                                                  activities), 3)
+            ms_step, launches = step_device_ms(by_kernel)
+            r["device"].append(ms_step)
+            r["kernels"].append(launches)
+            r["by_kernel"] = by_kernel
+        for who, r in out.items():
+            print(f"[invert] the slice's step under invert, {label}, {who}: "
+                  f"{' '.join(f'{x:.3f}' for x in r['ms'])} ms wall clock (median of 10), device "
+                  f"{' '.join(f'{x:.4f}' for x in r['device'])} ms in "
+                  f"{' '.join(str(x) for x in r['kernels'])} kernels a step, turns "
+                  f"{' '.join(order)}; by kernel: {step_kernels(r['by_kernel'])}, on {card}")
+        names = out["words load"]["by_kernel"]
+        check(set(out["words load"]["kernels"]) == {6}
+              and all(any(e in k for e in allowed) for k in names),
+              f"the slice's step under invert, {label}: 6 device events, the block maximum, K1, "
+              f"K2a, K2b, K3 and the upload, no demod, reduction or elementwise kernel "
+              f"({sorted(names)})")
+        steps[label] = out
+
+    # ---- the main paths that take the inverted load, each from counts at 0
+    launches = {}
+    for label, options in INVERTED_STEPS[::2]:
+        step_cfg = dataclasses.replace(cfg, invert=True, **options)
+        reset_counts()
+        out = tp.make_reconstruct_fn(step_cfg, dev)(capture, ema0, ALPHA, 0.0)
+        torch.cuda.synchronize()
+        key = (2, False, "am", step_cfg.resampler == "mxu3", "invert")
+        launches[label] = rk.frames_to_screens_from_words.launches_by_variant[key]
+        launches[label + ", block maximum"] = rk.words_maxima.launches
+        check(launches[label] == 1 == rk.frames_to_screens_from_words.launches
+              == rk.words_maxima.launches and rk.frames_to_screens.launches == 0
+              and bool(torch.isfinite(out[0]).all()),
+              f"the slice's step under invert, {label}: one block maximum and one inverted K1 "
+              f"words launch ({dict(rk.frames_to_screens_from_words.launches_by_variant)})")
+        del out
+    print(f"[invert] launches on the main paths: {launches}")
+    return {"maxima": maxima, "measured": measured, "steps": steps, "launches": launches}
 
 
 class LoopSource:
@@ -2948,6 +3354,7 @@ def main(argv: list[str] | None = None) -> int:
             wrapper.launches = 0
             wrapper.launches_by_variant.clear()
         resample_kernel.frames_to_screens_candidates.launches = 0
+        resample_kernel.words_maxima.launches = 0
         frame_to_screen.launches = 0
         blanking_sync.launches = 0
         align_fold.launches = 0
@@ -3158,26 +3565,31 @@ def main(argv: list[str] | None = None) -> int:
     print(f"[runtime] aligned PSNR {db:.3f} dB (bar {PSNR_BAR_DB} dB), shift {shift}")
     check(db > PSNR_BAR_DB, "PSNR clears the bar")
 
-    # ---- 4. the envelope entry's path: the runtime with invert=True
+    # ---- 4. the runtime with invert=True: the block maximum, then K1's words load
     reset_counts()
     inv_gpu, inv_sync_gpu, inv_devices, _ = run_runtime(
-        tp, blocks[:ENVELOPE_BLOCKS], mode, dev, invert=True)
-    envelope_launches = frames_to_screens.launches
-    check(envelope_launches >= ENVELOPE_BLOCKS and frames_to_screens_from_words.launches == 0
-          and len(demod_calls) == ENVELOPE_BLOCKS,
-          f"the envelope entry launched for every inverted block ({envelope_launches})")
+        tp, blocks[:INVERT_BLOCKS], mode, dev, invert=True)
+    invert_launches = frames_to_screens_from_words.launches_by_variant[
+        2, False, "am", False, "invert"]
+    max_launches = resample_kernel.words_maxima.launches
+    check(invert_launches == max_launches == INVERT_BLOCKS
+          and frames_to_screens_from_words.launches == INVERT_BLOCKS
+          and frames_to_screens.launches == 0 and not demod_calls,
+          f"every inverted block is one block maximum and one inverted K1 words launch, no demod "
+          f"pass ({dict(frames_to_screens_from_words.launches_by_variant)}, maxima "
+          f"{max_launches}, envelope {frames_to_screens.launches}, demodulate {len(demod_calls)})")
     poff.demodulate = demodulate
     check(inv_devices and all(d == "cuda" for d in inv_devices),
           "every inverted step output on the card")
     check(inv_gpu.shape == (h, w) and bool(np.isfinite(inv_gpu).all()),
           "inverted EMA finite, of the screen's shape")
-    inv_cpu, inv_sync_cpu, _, _ = run_runtime(tp, blocks[:ENVELOPE_BLOCKS], mode, "cpu",
+    inv_cpu, inv_sync_cpu, _, _ = run_runtime(tp, blocks[:INVERT_BLOCKS], mode, "cpu",
                                               invert=True)
     inv_rel = float(np.abs(inv_gpu - inv_cpu).max()) / float(inv_cpu.max() - inv_cpu.min())
     inv_sync_err = float(np.abs(inv_sync_gpu - inv_sync_cpu).max())
-    print(f"[runtime, invert] {ENVELOPE_BLOCKS} blocks, envelope-entry launches "
-          f"{envelope_launches}; card vs CPU: EMA max diff {inv_rel:.3e} of range, sync max "
-          f"diff {inv_sync_err:.3e} px")
+    print(f"[runtime, invert] {INVERT_BLOCKS} blocks, block maximum launches {max_launches}, "
+          f"inverted K1 words launches {invert_launches}, demod passes 0; card vs CPU: EMA max "
+          f"diff {inv_rel:.3e} of range, sync max diff {inv_sync_err:.3e} px")
     check(inv_rel < EMA_REL_TOL, "inverted card EMA matches the CPU run")
     check(inv_sync_err < SYNC_ABS_TOL, "inverted card sync matches the CPU run")
 
@@ -3467,7 +3879,7 @@ def main(argv: list[str] | None = None) -> int:
 
     # ---- 12-16. the operator surface: batched serving, the mode search, every
     # resampler name, the command line and the web view, the roofline count
-    batched = phase_batched(tp, torch, dev, card, words, reset_counts, activities)
+    batched = phase_batched(tp, torch, dev, card, words, reset_counts, activities, args.parent)
     search = phase_search(tp, torch, dev, card, words_f32, reset_counts)
     named = phase_resamplers(tp, torch, dev, card, words_i16, truth, reset_counts)
     phase_cli_and_web(tp, torch, dev, card, reset_counts)
@@ -3536,6 +3948,11 @@ def main(argv: list[str] | None = None) -> int:
     stage1 = phase_stage1(tp, torch, dev, card, words_i16, blocks, reset_counts, args.parent,
                           activities)
 
+    # ---- 24. invert inside K1's words load: the block maximum, the inverted
+    # loads, the slice's inverted step beside the pass route and the parent's
+    inverted = phase_invert(tp, torch, dev, card, words_i16, reset_counts, args.parent,
+                            activities)
+
     def kernel_entry(name, key, launches):
         m = key if isinstance(key, dict) else measured[key]
         return {
@@ -3590,7 +4007,9 @@ def main(argv: list[str] | None = None) -> int:
     # slice's shapes (36 frames of 1080p60 at 20 Msps).
     # The envelope entry also carries the combine paths, at the channel rate:
     # once per combined_reconstruct, once a block of the live combine front.
-    envelope_entry = kernel_entry("K1 frames_to_screens", "envelope", envelope_launches)
+    # Its main path since the words load took invert: the live combine front
+    # (phase 10, a block each).
+    envelope_entry = kernel_entry("K1 frames_to_screens", "envelope", combine_launches["default"])
     envelope_entry.update(
         combine_offline_launches=combine_launches["offline"],
         combine_live_launches=combine_launches["default"],
@@ -3610,14 +4029,14 @@ def main(argv: list[str] | None = None) -> int:
                     ("int16 words", 4, False), small_launches["am"], "int16 words"),
         taps4_entry("K1 frames_to_screens_from_words, 4 taps, residuals (float32 words)",
                     ("float32 words", 4, True), fidelity4_launches),
-        # 4 taps on an envelope: the runtime with invert (its block maximum
-        # keeps the demod a pass), at the slice's shapes.
+        # 4 taps on an envelope: complex input (its demod stays a pass), at
+        # the slice's shapes.
         taps4_entry("K1 frames_to_screens, 4 taps (envelope)",
-                    ("envelope", 4, False), stage1["launches"]["runtime invert 4 taps"]),
+                    ("envelope", 4, False), stage1["launches"]["complex 4 taps"]),
         # The operator surface's paths: 144 frames of 4 streams in one launch
         # a batched step; one launch over the candidates of the mode search,
         # at a 150x200 grid (one a shard of the sharded search); one launch a
-        # block under an mxu name with invert (without it, the words load).
+        # block under an mxu name on complex input (on words, the words load).
         kernel_entry("K1 frames_to_screens_from_words, batched step (int16 words, 144 frames)",
                      batched["static cuts"], batched["static cuts"]["launches"]),
         kernel_entry("K1 frames_to_screens_from_words, batched step, residuals "
@@ -3631,7 +4050,7 @@ def main(argv: list[str] | None = None) -> int:
              per_candidate_back_to_back_ms=search["per_candidate_back_to_back_ms"],
              per_candidate_device_ms=search["per_candidate_device_ms"],
              search_ms=search["search_ms"], refine_ms=search["refine_ms"]),
-        kernel_entry("K1 frames_to_screens, quantised table (envelope, mxu3 with invert)",
+        kernel_entry("K1 frames_to_screens, quantised table (envelope, mxu3 on complex input)",
                      named["quantised"], named["quantised"]["launches"]),
         # One frame onto 600x800, one launch (bench_all's scenario 3).
         dict(kernel_entry("K1 frame_to_screen, one frame (envelope, 2 taps)", f2s,
@@ -3663,6 +4082,45 @@ def main(argv: list[str] | None = None) -> int:
         "auto_reconstruct(demod='fm') at 640x480",
         stage1["measured"]["int16 words", "fm", False, 4, False], small_launches["fm"],
         "FM int16 words"), added_in="stage 1 in the words load"))
+    # invert in the words load (phase 24; the runtime's in phases 4 and 23)
+    # and the batched step's new routes (phase 12): the block maximum, a
+    # launch of its own, and K1's inverted instantiations.
+    maxima = inverted["maxima"]
+    for name, key, launches in (
+            ("block maximum words_max_kernel (int16 words, AM): the slice's step under invert",
+             ("int16 words", "am"), inverted["launches"]["2 taps, block maximum"]),
+            ("block maximum words_max_kernel (float32 words, AM): the runtime with invert",
+             ("float32 words", "am"), max_launches)):
+        m = maxima[key]
+        fm = maxima[key[0], "fm"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "tempest_tpu_torch/csrc/resample.cu",
+            "replaces": "tempest_tpu/pipeline/offline.py:498", "launches": launches,
+            "max_abs_err": m["err"], "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"], "library_ms": None,
+            "back_to_back_ms": m["b2b_ms"], "device_ms": m["device_ms"],
+            "torch_max_of_envelope_ms": m["torch_max_ms"], "fm_ms": fm["ms"],
+            "fm_device_ms": fm["device_ms"], "fm_bound_ms": fm["bound_ms"],
+            "added_in": "invert in the words load"})
+    for name, m, launches in (
+            ("AM inverted (float32 words): the runtime with invert",
+             inverted["measured"]["float32 words", "am", False, 2, False], invert_launches),
+            ("AM inverted, 4 taps (float32 words): the runtime with invert and 4 taps",
+             inverted["measured"]["float32 words", "am", False, 4, False],
+             stage1["launches"]["runtime invert 4 taps"]),
+            ("AM inverted (int16 words): the slice's step under invert",
+             inverted["measured"]["int16 words", "am", False, 2, False],
+             inverted["launches"]["2 taps"]),
+            ("AM inverted, rounded to bfloat16 (int16 words): mxu3 with invert",
+             inverted["measured"]["int16 words", "am", True, 2, False],
+             inverted["launches"]["mxu3"]),
+            ("FM (int16 words), batched step of 4 streams, 144 frames", batched["FM"],
+             batched["FM"]["launches"]),
+            ("AM inverted (int16 words), batched step of 4 streams, 144 frames",
+             batched["invert"], batched["invert"]["launches"])):
+        kernels.append(dict(kernel_entry(f"K1 frames_to_screens_from_words, {name}", m, launches),
+                            device_ms=m["device_ms"], added_in="invert and streams in the words "
+                                                               "load"))
     # K2 and K3, timed at the slice's 36 screens of 600x800 (phase 20); their
     # launches are the runtime's over its 3 blocks (phase 3) and the fidelity
     # runtime's (phase 6).  No single PyTorch call computes either function:

@@ -33,12 +33,14 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 SIGNATURES = {
     "resample": {
         "tt_resample_frames": (
-            [_P, _LL, _I, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
+            [_P, _LL, _I, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P, _LL, _I,
+             _P],
             ctypes.c_int),
         "tt_resample_frame": ([_P, _P, _LL, _F, _P, _P], ctypes.c_int),
         "tt_resample_candidates": (
             [_P, _LL, _P, _I, _P, _I, _I, _P, _I, _I, _I, _P], ctypes.c_int),
         "tt_fm_int16": ([_P, _LL, _P, _P], ctypes.c_int),
+        "tt_words_max": ([_P, _LL, _I, _I, _I, _P, _P, _P, _P], ctypes.c_int),
     },
     "sync": {
         "tt_blanking_sync": (

@@ -11,13 +11,15 @@ one-hot sum adds exact zeros, so both give the same ``I² + Q²``; the FM
 discriminator reads I and Q as the two strided columns of the same view
 where the JAX version selects them with two more one-hot matmuls.
 
-The streaming step does not call ``am_envelope_from_iq`` or
-``fm_demod_from_iq`` on interleaved words: K1 takes the envelope or the
-discriminator inside its load, with the same roundings
-(``ops/resample_kernel.frames_to_screens_from_words``).  They stay the plain
-versions that entry is held against, and the demod of the routes that keep
-it a pass (``pipeline.offline.fuses_demod``: ``invert``, FM in the batched
-step).
+The streaming step does not call ``am_envelope_from_iq``,
+``fm_demod_from_iq`` or ``invert_envelope`` on interleaved words: K1 takes
+the envelope or the discriminator inside its load, inverted by the block
+maximum of its own launch, with the same roundings
+(``ops/resample_kernel.frames_to_screens_from_words``, ``words_maxima``),
+in the single step, the batched step and a shard's window.  They stay the
+plain versions those launches are held against, and the demod of the routes
+that keep it a pass (``pipeline.offline.fuses_demod``): complex, planar and
+envelope input, the plain resamplers, the mode search.
 """
 
 from __future__ import annotations

@@ -11,16 +11,22 @@ where ``frame_starts`` alone cuts at whole samples.
 ``frames_to_screens_from_words``
 does the same from the raw interleaved I/Q words of the block (int16 or
 float32), taking the AM envelope ``sqrt(I² + Q²)`` or the FM discriminator
-on the way (``demod=``), rounded to bfloat16 where asked (``bf16=``: the
+on the way (``demod=``), inverted as ``1 - env / max(env)`` where asked
+(``invert=``: the config's ``invert``; the maximum is ``words_maxima``, one
+launch of its own before K1), rounded to bfloat16 where asked (``bf16=``: the
 ``mxu3``, ``mxu4`` and ``mxu_batched`` chains), so that the envelope is never
-written to device memory.  Both follow the Pallas kernel's boundary
+written to device memory.  With ``streams=B`` the words are B streams of
+equal length laid end to end, each with an equal share of the frames (the
+batched step): each stream is demodulated, inverted and clamped as if it
+were launched alone.  Both entries follow the Pallas kernel's boundary
 semantics, not the gather path's:
 
 * line starts are clamped at 0 and the negative remainder is folded into
   the fraction, and positions are lower-clipped at 0;
 * reads past the frame end take the real following samples;
 * reads past the block end see the last envelope value (the read index is
-  clamped at ``N-1`` instead of copying the envelope into a padded buffer);
+  clamped at ``N-1`` instead of copying the envelope into a padded buffer;
+  with streams, into the frame's own stream);
 * the 4 taps sit at offsets -1, 0, 1, 2 around the floor of the position and
   obey the same clamp into the block: tap -1 of a line reads the real sample
   before the line start, and sample 0 where the line starts at sample 0 of
@@ -84,7 +90,7 @@ import numpy as np
 import torch
 
 from ..utils.roofline import report_launch
-from .demod import am_envelope_from_iq, fm_demod_from_iq
+from .demod import am_envelope_from_iq, fm_demod_from_iq, invert_envelope
 from .resample import RENDER_SIZE, _screen_geometry, round_to_bfloat16
 
 __all__ = [
@@ -94,6 +100,10 @@ __all__ = [
     "frames_to_screens_from_words",
     "frames_to_screens_plain",
     "words_envelope_plain",
+    "words_maxima",
+    "words_maxima_plain",
+    "max_launch_cost",
+    "max_launch_instructions",
     "fm_int16_words",
     "balanced_walk",
     "walk_tiles",
@@ -143,11 +153,14 @@ _INT32_MAX = int(np.iinfo(np.int32).max)
 # What the kernel stages: code and bytes per sample, by the tensor's dtype.
 _ENVELOPE = (0, 4)
 _WORDS = {torch.int16: (1, 4), torch.float32: (2, 8)}
-# Flags of an I/Q word code (``csrc/resample.cu`` kFm, kBf16): the FM
-# discriminator in place of the AM envelope, and each demodulated sample
-# rounded to bfloat16 and back.
-_FM, _BF16 = 4, 8
+# Flags of an I/Q word code (``csrc/resample.cu`` kFm, kBf16, kInvert): the
+# FM discriminator in place of the AM envelope, each demodulated sample
+# rounded to bfloat16 and back, and each made ``1 - v / max`` first.
+_FM, _BF16, _INVERT = 4, 8, 16
 _DEMODS = ("am", "fm")
+# 16-byte words of the source one block of the maximum's launch reads
+# (``csrc/resample.cu`` kThreads · kMaxWordsPerThread).
+MAX_WORDS_PER_BLOCK = 256 * 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -244,19 +257,38 @@ def catmull_rom_weights(t: torch.Tensor) -> tuple[torch.Tensor, ...]:
     )
 
 
+def _check_streams(n_samples: int, streams: int, n_frames: int | None = None) -> int:
+    """The samples a stream holds, where ``n_samples`` (and ``n_frames``)
+    split into ``streams`` equal shares."""
+    if streams < 1 or n_samples % streams or (n_frames is not None and n_frames % streams):
+        raise ValueError(f"{n_samples} samples and {n_frames} frames do not split into "
+                         f"{streams} equal streams")
+    return n_samples // streams
+
+
 def frames_to_screens_plain(
     env: torch.Tensor,
     frame_starts: torch.Tensor,
     geom: ScreenGeometry,
     frac_offsets: torch.Tensor | None = None,
     interp_taps: int = 2,
+    streams: int = 1,
 ) -> torch.Tensor:
     """The plain PyTorch version of K1, on any device: index arithmetic,
-    ``clamp`` and ``gather``, in the same arithmetic order as the kernel."""
+    ``clamp`` and ``gather``, in the same arithmetic order as the kernel.
+    With ``streams`` each frame's reads are clamped into its own stream's
+    samples (stream s: samples ``[s·L, s·L + L)``, frames ``[s·F, s·F +
+    F)``)."""
     _check_taps(interp_taps)
     h, w = geom.out_shape
     n = env.shape[0]
     dev = env.device
+    lo, hi = 0, n - 1
+    if streams != 1:
+        n_frames = frame_starts.shape[0]
+        length = _check_streams(n, streams, n_frames)
+        first = (torch.arange(n_frames, device=dev) // (n_frames // streams)) * length
+        lo, hi = first[:, None, None, None], first[:, None, None, None] + (length - 1)
     cp = torch.arange(w, dtype=torch.float32, device=dev) * torch.tensor(
         geom.delta, dtype=torch.float32, device=dev)
     frac = geom.line_frac[None]                                             # [1,h,2]
@@ -270,7 +302,7 @@ def frames_to_screens_plain(
     idx0 = base[..., None] + i0f.to(torch.int64)                            # [F,h,2,w]
 
     def tap(off: int) -> torch.Tensor:
-        return env[torch.clamp(idx0 + off, 0, n - 1)]
+        return env[torch.clamp(idx0 + off, lo, hi)]
 
     if interp_taps == 2:
         lines = tap(0) * (1.0 - t) + tap(1) * t                             # [F,h,2,w]
@@ -360,7 +392,7 @@ def frame_samples_read(
 
 def launch_cost(n_samples: int, sample_bytes: int, n_frames: int, frame_len: int, y_t: int,
                 x_t: int, out_shape: tuple[int, int], word: int, taps: int = 2,
-                exact: bool = False) -> tuple[int, int, int]:
+                exact: bool = False, streams: int = 1) -> tuple[int, int, int]:
     """(bytes, float32 operations, transcendentals) of one K1 launch: what
     its bound on the card and a roofline count are computed from.
 
@@ -378,16 +410,18 @@ def launch_cost(n_samples: int, sample_bytes: int, n_frames: int, frame_len: int
     products, an add and a square root (AM), or under ``_FM`` four
     products, two sums and an arc tangent (the FM discriminator); the square
     root or the arc tangent is also the sample's transcendental.  ``_BF16``
-    adds the rounding, one operation a sample."""
+    adds the rounding, one operation a sample; ``_INVERT`` the division and
+    the subtraction, two, and the ``streams`` maxima's 4 bytes each."""
     h, w = int(out_shape[0]), int(out_shape[1])
     pixels = n_frames * h * w
     per_frame = frame_samples_read(int(frame_len), int(y_t), int(x_t), (h, w),
                                    sum(line_reach(taps, exact)))
     samples = min(int(n_samples), n_frames * per_frame)
     nbytes = (samples * sample_bytes + (8 if exact else 4) * n_frames + h * (8 + 8 + 4)
-              + 4 * pixels)
+              + 4 * pixels + (4 * streams if word & _INVERT else 0))
     per_tap = 8 if taps == 2 else 4 + 19 + 7
-    per_sample = ((7 if word & _FM else 4) + (1 if word & _BF16 else 0)) if word else 0
+    per_sample = ((7 if word & _FM else 4) + (1 if word & _BF16 else 0)
+                  + (2 if word & _INVERT else 0)) if word else 0
     flops = pixels * (1 + 2 * per_tap + 3) + per_sample * samples
     return nbytes, flops, (samples if word else 0)
 
@@ -442,6 +476,10 @@ ATAN2_INSTRUCTIONS = 2 + 2 + 9 + 3
 FM_INSTRUCTIONS = {4: 2 + 4 + 2 + ATAN2_INSTRUCTIONS, 8: 4 + 2 + ATAN2_INSTRUCTIONS}
 # The bfloat16 rounding of a sample: a conversion to bfloat16, one back.
 BF16_INSTRUCTIONS = 2
+# The inversion of a sample, 1 - v / m: a correctly rounded division (an
+# approximate reciprocal, four fused multiply-adds for the quotient and its
+# correction) and the subtraction.
+INVERT_INSTRUCTIONS = 1 + 4 + 1
 
 
 def line_loads(taps: int, delta: float, group: int) -> float:
@@ -464,7 +502,8 @@ def launch_instructions(n_samples: int, sample_bytes: int, n_frames: int, frame_
     when the width is a multiple of 4, else one); each sample the line
     tables address copied in 16-byte requests, and demodulated when the
     word code ``word`` is I/Q (``DEMOD_INSTRUCTIONS``, under ``_FM``
-    ``FM_INSTRUCTIONS``, and ``BF16_INSTRUCTIONS`` more under ``_BF16``).  The card issues one instruction
+    ``FM_INSTRUCTIONS``, and ``BF16_INSTRUCTIONS`` more under ``_BF16``,
+    ``INVERT_INSTRUCTIONS`` under ``_INVERT``).  The card issues one instruction
     a cycle on each of its schedulers (``ops.sync_kernel.H100_ISSUE_PER_S``
     lanes a second)."""
     h, w = int(out_shape[0]), int(out_shape[1])
@@ -476,9 +515,30 @@ def launch_instructions(n_samples: int, sample_bytes: int, n_frames: int, frame_
     per_sample = sample_bytes / 16
     if word:
         per_sample += ((FM_INSTRUCTIONS if word & _FM else DEMOD_INSTRUCTIONS)[sample_bytes]
-                       + (BF16_INSTRUCTIONS if word & _BF16 else 0))
+                       + (BF16_INSTRUCTIONS if word & _BF16 else 0)
+                       + (INVERT_INSTRUCTIONS if word & _INVERT else 0))
     per_line = LINE_INSTRUCTIONS[taps] + line_loads(taps, delta, 4 if w % 4 == 0 else 1)
     return n_frames * h * w * (2 * per_line + PIXEL_INSTRUCTIONS) + samples * per_sample
+
+
+def max_launch_cost(n_samples: int, sample_bytes: int, word: int, streams: int = 1
+                    ) -> tuple[int, int, int]:
+    """(bytes, float32 operations, transcendentals) of one launch of the
+    block maximum (:func:`words_maxima`) over ``n_samples`` samples of
+    interleaved words: the words read once and the ``streams`` maxima
+    written once; a sample's demod (as :func:`launch_cost` counts it, ``word``
+    its code; the rounding and the inversion are not the maximum's) and one
+    comparison.  The partials its blocks fold are the kernel's own cost."""
+    per_sample = (7 if word & _FM else 4) + 1
+    return n_samples * sample_bytes + 4 * streams, per_sample * n_samples, n_samples
+
+
+def max_launch_instructions(n_samples: int, sample_bytes: int, word: int) -> float:
+    """The least instructions one launch of the block maximum issues, over
+    all lanes: a sample's share of a 16-byte load, its demod
+    (``DEMOD_INSTRUCTIONS`` or ``FM_INSTRUCTIONS``) and one maximum."""
+    demod = (FM_INSTRUCTIONS if word & _FM else DEMOD_INSTRUCTIONS)[sample_bytes]
+    return n_samples * (sample_bytes / 16 + demod + 1)
 
 
 def balanced_walk(word: int) -> bool:
@@ -532,7 +592,7 @@ def launch_plan(
     n_samples: int, n_frames: int, frame_len: int, y_t: int, x_t: int,
     out_shape: tuple[int, int], device: torch.device, num_phases: int | None,
     sample_bytes: int, word: int, taps: int, exact: bool,
-    rows_per_tile: int, fill: int,
+    rows_per_tile: int, fill: int, streams: int = 1,
 ) -> LaunchPlan:
     """The :class:`LaunchPlan` of a launch of the word code ``word`` (0 an
     envelope); ``rows_per_tile`` and ``fill`` are
@@ -546,17 +606,17 @@ def launch_plan(
     rows, run_cap = tile_plan(*raster, sample_bytes, lead + extra, taps, n_frames, sms,
                               balanced_walk(word))
     geom = screen_geometry(*raster, device, num_phases)
-    cost = launch_cost(n_samples, sample_bytes, n_frames, *raster, word, taps, exact)
+    cost = launch_cost(n_samples, sample_bytes, n_frames, *raster, word, taps, exact, streams)
     return LaunchPlan(geom, rows, run_cap, geom.span + extra, cost)
 
 
 def _plan(n_samples: int, n_frames: int, sample_bytes: int, frame_len: int, y_t: int, x_t: int,
           out_shape, device: torch.device, num_phases: int | None, word: int, taps: int,
-          exact: bool) -> LaunchPlan:
+          exact: bool, streams: int = 1) -> LaunchPlan:
     rows = ROWS_PER_TILE_FM if balanced_walk(word) else ROWS_PER_TILE[sample_bytes]
     return launch_plan(int(n_samples), int(n_frames), int(frame_len), int(y_t), int(x_t),
                        (int(out_shape[0]), int(out_shape[1])), device, num_phases, sample_bytes,
-                       word, taps, exact, rows, FILL_TILES_PER_SM)
+                       word, taps, exact, rows, FILL_TILES_PER_SM, streams)
 
 
 def _current(device: torch.device):
@@ -584,18 +644,22 @@ def _launch(
     frac_offsets: torch.Tensor | None = None,
     interp_taps: int = 2,
     num_phases: int | None = None,
+    maxima: torch.Tensor | None = None,
+    streams: int = 1,
 ) -> torch.Tensor:
     """Check the arguments and launch the kernel on ``src``'s device, on the
     current stream.  ``staged`` is (what ``src`` holds: the word code with
-    its flags, bytes per sample)."""
+    its flags, bytes per sample); ``maxima`` the streams' maxima under
+    ``_INVERT``."""
     n_frames = _check_launch(src, n_samples, frame_starts)
+    stream_len = _check_streams(n_samples, streams, n_frames)
     if frac_offsets is not None:
         if frac_offsets.dtype != torch.float32 or not frac_offsets.is_contiguous():
             raise TypeError("K1 takes contiguous float32 frac_offsets")
     word, sample_bytes = staged
     dev = src.device
     plan = _plan(n_samples, n_frames, sample_bytes, frame_len, y_t, x_t, out_shape, dev,
-                 num_phases, word, interp_taps, frac_offsets is not None)
+                 num_phases, word, interp_taps, frac_offsets is not None, streams)
     from .. import _build
 
     lib = _build.load_library("resample")
@@ -607,7 +671,9 @@ def _launch(
             src.data_ptr(), n_samples, word, frame_starts.data_ptr(),
             None if frac_offsets is None else frac_offsets.data_ptr(), n_frames, interp_taps,
             geom.line_start.data_ptr(), geom.line_frac.data_ptr(), geom.wr.data_ptr(),
-            out.data_ptr(), h, w, geom.delta, plan.span, plan.rows, plan.run_cap, _stream(dev),
+            out.data_ptr(), h, w, geom.delta, plan.span, plan.rows, plan.run_cap,
+            None if maxima is None else maxima.data_ptr(), stream_len, n_frames // streams,
+            _stream(dev),
         )
     if rc != 0:
         raise RuntimeError(f"K1 launch failed with cudaError_t {rc}")
@@ -679,26 +745,112 @@ frames_to_screens.launches = 0
 frames_to_screens.launches_by_variant = collections.Counter()
 
 
-def word_code(dtype: torch.dtype, demod: str = "am", bf16: bool = False) -> tuple[int, int]:
+def word_code(dtype: torch.dtype, demod: str = "am", bf16: bool = False, invert: bool = False
+              ) -> tuple[int, int]:
     """(word code, bytes per sample) that K1 stages for I/Q words of
-    ``dtype``: its type's code with the ``_FM`` and ``_BF16`` flags."""
+    ``dtype``: its type's code with the ``_FM``, ``_BF16`` and ``_INVERT``
+    flags."""
     if dtype not in _WORDS:
         raise TypeError(f"K1 takes int16 or float32 I/Q words, got {dtype}")
     code, sample_bytes = _WORDS[dtype]
-    return code | (_FM if demod == "fm" else 0) | (_BF16 if bf16 else 0), sample_bytes
+    return (code | (_FM if demod == "fm" else 0) | (_BF16 if bf16 else 0)
+            | (_INVERT if invert else 0)), sample_bytes
 
 
-def words_envelope_plain(words: torch.Tensor, demod: str = "am", bf16: bool = False
-                         ) -> torch.Tensor:
+def _check_demod(demod: str) -> None:
+    if demod not in _DEMODS:
+        raise ValueError(f"demod must be one of {_DEMODS}, got {demod!r}")
+
+
+def _stream_words(words: torch.Tensor, streams: int) -> list[torch.Tensor]:
+    """The interleaved words of each of ``streams`` equal streams laid end
+    to end (an odd trailing word dropped)."""
+    if streams == 1:
+        return [words]
+    length = _check_streams(words.shape[0] // 2, streams)
+    return [words[2 * length * b: 2 * length * (b + 1)] for b in range(streams)]
+
+
+def words_envelope_plain(words: torch.Tensor, demod: str = "am", bf16: bool = False,
+                         invert: bool = False, streams: int = 1) -> torch.Tensor:
     """The plain PyTorch version of what K1's words load computes, on any
     device: the AM envelope (``am_envelope_from_iq``) or the FM
     discriminator (``fm_demod_from_iq``, 0 at the first pair of ``words``) of
-    interleaved I/Q words, rounded to bfloat16 and back with ``bf16``
-    (``round_to_bfloat16``)."""
-    if demod not in _DEMODS:
-        raise ValueError(f"demod must be one of {_DEMODS}, got {demod!r}")
-    env = fm_demod_from_iq(words) if demod == "fm" else am_envelope_from_iq(words)
-    return round_to_bfloat16(env) if bf16 else env
+    interleaved I/Q words, inverted with ``invert`` (``invert_envelope``:
+    ``1 - env / torch.max(env)``), then rounded to bfloat16 and back with
+    ``bf16`` (``round_to_bfloat16``); with ``streams``, each of that many
+    equal streams laid end to end on its own, as if it were alone."""
+    _check_demod(demod)
+    envs = []
+    for part in _stream_words(words, streams):
+        env = fm_demod_from_iq(part) if demod == "fm" else am_envelope_from_iq(part)
+        if invert:
+            env = invert_envelope(env)
+        envs.append(round_to_bfloat16(env) if bf16 else env)
+    return envs[0] if streams == 1 else torch.cat(envs)
+
+
+def words_maxima_plain(words: torch.Tensor, demod: str = "am", streams: int = 1) -> torch.Tensor:
+    """The plain PyTorch version of :func:`words_maxima`, on any device:
+    ``torch.max`` of each stream's :func:`words_envelope_plain`, float32
+    [streams]."""
+    _check_demod(demod)
+    return torch.stack([torch.max(words_envelope_plain(part, demod))
+                        for part in _stream_words(words, streams)])
+
+
+@functools.lru_cache(maxsize=None)
+def _max_count(device: torch.device, stream: int) -> torch.Tensor:
+    """The maximum's block count on ``device`` for launches on one CUDA
+    stream: a device 0 that each launch leaves at 0 again."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+def words_maxima(words: torch.Tensor, demod: str = "am", streams: int = 1) -> torch.Tensor:
+    """The maximum of each stream's demodulated samples, float32
+    [streams]: what the inversion divides by, ``torch.max`` of
+    :func:`words_envelope_plain` (AM or FM, neither rounded nor inverted) of
+    each of ``streams`` equal streams of interleaved int16 or float32 I/Q
+    words laid end to end.  A NaN sample makes its stream's maximum NaN;
+    where the maximum is a zero it is +0 if the stream has a +0 sample
+    (``csrc/resample.cu`` ``words_max_kernel``; ``torch.max`` gives either
+    zero there, as its reduction order falls).
+
+    On a CUDA tensor ONE launch of ``tt_words_max``, the words read once, the
+    maxima left on the card; on the CPU the plain version."""
+    _check_demod(demod)
+    if words.dim() != 1:
+        raise ValueError(f"words must be 1-D, got shape {tuple(words.shape)}")
+    if words.device.type == "cpu":
+        return words_maxima_plain(words, demod, streams)
+    if words.device.type != "cuda" or not words.is_contiguous():
+        raise ValueError("words_maxima takes contiguous CUDA or CPU words")
+    code, sample_bytes = word_code(words.dtype, demod)
+    n = words.shape[0] // 2
+    length = _check_streams(n, streams)
+    if length == 0:
+        raise ValueError("words_maxima takes at least one sample a stream")
+    chunks = -(-(length // (16 // sample_bytes) + 2) // MAX_WORDS_PER_BLOCK)
+    dev = words.device
+    from .. import _build
+
+    lib = _build.load_library("resample")
+    partials = torch.empty(streams * chunks, dtype=torch.int32, device=dev)
+    out = torch.empty(streams, dtype=torch.float32, device=dev)
+    with _current(dev):
+        stream = _stream(dev)
+        rc = lib.tt_words_max(words.data_ptr(), length, streams, code, chunks,
+                              partials.data_ptr(), _max_count(dev, stream).data_ptr(),
+                              out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"the block maximum's launch failed with cudaError_t {rc}")
+    report_launch(*max_launch_cost(n, sample_bytes, code, streams))
+    words_maxima.launches += 1
+    return out
+
+
+# Launches of the block maximum since the last reset.
+words_maxima.launches = 0
 
 
 def frames_to_screens_from_words(
@@ -714,35 +866,49 @@ def frames_to_screens_from_words(
     *,
     demod: str = "am",
     bf16: bool = False,
+    invert: bool = False,
+    streams: int = 1,
 ) -> torch.Tensor:
     """All frames of a block of raw I/Q → (n_frames, h, w) float32 screens,
-    equal to ``frames_to_screens(words_envelope_plain(words, demod, bf16),
-    ...)``: the AM envelope, or with ``demod="fm"`` the FM discriminator
-    (0 at the first pair of ``words``), rounded to bfloat16 with ``bf16``.
+    equal to ``frames_to_screens_plain(words_envelope_plain(words, demod,
+    bf16, invert, streams), ..., streams)``: the AM envelope, or with
+    ``demod="fm"`` the FM discriminator (0 at the first pair of each
+    stream), with ``invert`` made ``1 - env / max(env)`` by its stream's
+    maximum, rounded to bfloat16 with ``bf16``.
 
     ``words`` holds the block's interleaved I/Q words (2N,), int16 or
     float32.  An odd trailing word is dropped, on either device, as the
-    demod does.  On a CUDA tensor the words must be contiguous and of one
-    of those two types: the kernel reads them as they lie, where the demod
-    would first convert and copy them, and demodulates and rounds each
-    sample where it stages it.  ``frac_offsets``, ``interp_taps`` and
-    ``num_phases`` as in :func:`frames_to_screens`."""
+    demod does.  With ``streams=B`` they are B streams of N / B samples laid
+    end to end, and the frames B groups of n_frames / B, group s read from
+    stream s only: each stream's reads are clamped into its own samples, as
+    a launch of that stream alone clamps into its block.  On a CUDA tensor
+    the words must be contiguous and of one of those two types: the kernel
+    reads them as they lie, where the demod would first convert and copy
+    them, and demodulates, inverts and rounds each sample where it stages
+    it; ``invert`` first launches :func:`words_maxima` (one float a stream,
+    left on the card), so that the call is two launches.  ``frac_offsets``,
+    ``interp_taps`` and ``num_phases`` as in :func:`frames_to_screens`."""
     _check_block(words, frame_starts, frac_offsets, interp_taps, "words")
-    if demod not in _DEMODS:
-        raise ValueError(f"demod must be one of {_DEMODS}, got {demod!r}")
+    _check_demod(demod)
     if words.device.type == "cpu":
         geom = screen_geometry(int(frame_len), int(y_t), int(x_t), tuple(out_shape), words.device,
                                num_phases)
-        return frames_to_screens_plain(words_envelope_plain(words, demod, bf16), frame_starts,
-                                       geom, frac_offsets, interp_taps)
-    out = _launch(words, words.shape[0] // 2, word_code(words.dtype, demod, bf16), frame_starts,
-                  frame_len, y_t, x_t, out_shape, frac_offsets, interp_taps, num_phases)
-    _count(frames_to_screens_from_words, interp_taps, frac_offsets, demod, bool(bf16))
+        return frames_to_screens_plain(words_envelope_plain(words, demod, bf16, invert, streams),
+                                       frame_starts, geom, frac_offsets, interp_taps, streams)
+    n = words.shape[0] // 2
+    _check_streams(n, streams, frame_starts.shape[0])
+    maxima = words_maxima(words, demod, streams) if invert else None
+    out = _launch(words, n, word_code(words.dtype, demod, bf16, invert), frame_starts,
+                  frame_len, y_t, x_t, out_shape, frac_offsets, interp_taps, num_phases, maxima,
+                  streams)
+    _count(frames_to_screens_from_words, interp_taps, frac_offsets, demod, bool(bf16),
+           *(("invert",) if invert else ()))
     return out
 
 
 # K1 launches on I/Q words since the last reset: in all, and by
-# (interp_taps, residuals given, demod, bfloat16 rounding).
+# (interp_taps, residuals given, demod, bfloat16 rounding), with "invert"
+# after those under the inversion.
 frames_to_screens_from_words.launches = 0
 frames_to_screens_from_words.launches_by_variant = collections.Counter()
 

@@ -181,8 +181,9 @@ def _span_frames(config, ext, starts, alpha):
     """The single-device chain on one shard's window at int32 frame
     ``starts``, folded from a zero image: (B, frames, sync, score).  Words
     go to K1's words entry where ``fuses_demod`` says so (AM or FM, rounded
-    where the resampler rounds): FM's 0 then lands on the window's first
-    sample, where ``demodulate(ext)`` puts it."""
+    where the resampler rounds, inverted under ``invert``): FM's 0 then lands
+    on the window's first sample and the inversion divides by the window's
+    maximum, where ``demodulate(ext)`` puts them."""
     frame_len = int(np.floor(config.samples_per_frame))
     fstarts = torch.from_numpy(starts).to(ext.device)
     from_words = fuses_demod(config, ext)

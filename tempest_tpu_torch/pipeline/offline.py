@@ -23,9 +23,10 @@ Stage 2, one step on a block of I/Q:
    (``carry_phase``);
 3. resamples every frame from signal to screen with K1
    (``ops.resample_kernel.frames_to_screens``), which takes the residuals
-   and 2 or 4 taps itself — or, for interleaved I/Q words under AM or FM
-   (``fuses_demod``), does 1 and 3 in one pass with K1's fused entry
-   (``frames_to_screens_from_words``), which gives the same values without
+   and 2 or 4 taps itself — or, for interleaved I/Q words under AM or FM,
+   inverted or not (``fuses_demod``), does 1 and 3 in one pass with K1's
+   fused entry (``frames_to_screens_from_words``; under ``invert`` after one
+   launch of the block maximum), which gives the same values without
    writing the envelope.  Every ``resampler=`` name of the JAX package is
    accepted and keeps its values (``RESAMPLERS``): ``"gather"`` and
    ``"rows"`` are that package's gather formulation in plain PyTorch,
@@ -453,22 +454,22 @@ def demodulate(iq: torch.Tensor, config: ReconstructionConfig) -> torch.Tensor:
     return invert_envelope(env) if config.invert else env
 
 
-def fuses_demod(config: ReconstructionConfig, iq: torch.Tensor, batched: bool = False) -> bool:
+def fuses_demod(config: ReconstructionConfig, iq: torch.Tensor) -> bool:
     """Whether the step hands ``iq`` to K1 as raw words, with the demod (AM
-    or FM) and the bfloat16 rounding of the ``mxu3``, ``mxu4`` and
+    or FM), the inversion (``invert``: the block maximum a launch of its
+    own before K1) and the bfloat16 rounding of the ``mxu3``, ``mxu4`` and
     ``mxu_batched`` chains done inside the resampler's load: interleaved
-    int16 or float32 words and a resampler that is K1.  The values are those
-    of ``demodulate``, the rounding and K1 on the envelope, to the bit.
+    int16 or float32 words and a resampler that is K1, in the single step,
+    the batched step (each stream demodulated, inverted and clamped on its
+    own) and a shard's window.  The values are those of ``demodulate``, the
+    rounding and K1 on the envelope, to the bit.
 
-    The routes that keep the demod as a pass: ``invert`` (it divides by the
-    block's maximum); complex, planar and envelope input and other word
-    types; the plain resamplers; and FM in the batched step (``batched``),
-    where the streams lie end to end: a stream's first sample would look
-    back into the stream before it, and the edge pairs the layout repeats
-    would demodulate to 0 where the plain route repeats the edge samples."""
+    The routes that keep the demod as a pass: complex input (``am_demod`` is
+    ``torch.abs``, whose bits differ from ``sqrt(I² + Q²)``), planar and
+    envelope input and other word types; the plain resamplers; and the mode
+    search (its candidate launch takes an envelope)."""
     how = RESAMPLERS[config.resampler]
     return (how.route == "k1" and config.input_format == "iq_interleaved"
-            and not config.invert and not (batched and config.demod == "fm")
             and iq.dtype in (torch.int16, torch.float32))
 
 
@@ -479,10 +480,13 @@ def _screens(
     frame_len: int,
     from_words: bool,
     frac_offsets: torch.Tensor | None,
+    n_streams: int = 1,
 ) -> torch.Tensor:
     """Stage 3: the [F, h, w] screens of one block's frames.  With
-    ``from_words`` K1 demodulates and rounds the words itself; an envelope
-    is rounded here first where the resampler asks for it."""
+    ``from_words`` K1 demodulates, inverts and rounds the words itself, of
+    ``n_streams`` streams laid end to end each on its own; an envelope (laid
+    out by the caller so that no stream's reads leave it) is rounded here
+    first where the resampler asks for it."""
     mode = config.mode
     raster = (frame_len, mode.height, mode.width, config.render_size)
     how = RESAMPLERS[config.resampler]
@@ -499,11 +503,16 @@ def _screens(
         if how.bf16_envelope:
             env = round_to_bfloat16(env)
         return frames_to_screens(env, frame_starts, *raster, frac_offsets, taps, **options)
-    # The load's options only where they differ from AM without rounding.
+    # The load's options only where they differ from one stream of AM
+    # without inversion or rounding.
     if config.demod != "am":
         options["demod"] = config.demod
     if how.bf16_envelope:
         options["bf16"] = True
+    if config.invert:
+        options["invert"] = True
+    if n_streams != 1:
+        options["streams"] = n_streams
     return frames_to_screens_from_words(env, frame_starts, *raster, frac_offsets, taps, **options)
 
 
@@ -566,9 +575,10 @@ def _process_and_fold(
 ):
     """:func:`process_frames` with the fold: (ema', frames, sync, score) of
     ``n_streams`` streams' frames laid out stream-major, ``ema`` [B, h, w]
-    (or [h, w] for one stream).  Equals ``ema_fold`` of each stream's
+    (or [h, w] for one stream); with ``from_words`` the words are the
+    streams' blocks end to end.  Equals ``ema_fold`` of each stream's
     frames, to the bit."""
-    screens = _screens(env, frame_starts, config, frame_len, from_words, frac_offsets)
+    screens = _screens(env, frame_starts, config, frame_len, from_words, frac_offsets, n_streams)
     return _sync_align_fold(screens, config, ema.contiguous(), alpha, n_streams)
 
 
@@ -718,18 +728,19 @@ def make_batched_reconstruct_fn(config: ReconstructionConfig, fuse: bool | None 
 
     The B blocks are ONE contiguous buffer and stream b's frame starts are
     offset by b·(samples per block), so all B·F frames go through one K1
-    launch (the fused words entry where ``fuses_demod(..., batched=True)``
-    says so, else one demodulation per stream and the envelope entry: FM),
-    one sync over the B·F
-    screens and one K3 launch that aligns them and folds each stream's frames
-    into its EMA, in the single step's order: each stream's EMA is the
-    single-stream step's to the bit.  Each stream's
-    frames equal the single-stream step's: where a stream's last frame, or
-    the tap before its first, would read past its own block (a read the
-    single-stream kernel clamps), the buffer is first laid out with each
-    block's edge samples repeated; else it is the caller's tensor as it
-    lies.  K1 indexes the buffer with int32 frame starts: B·(samples per
-    block) beyond that raises.
+    launch, one sync over the B·F screens and one K3 launch that aligns them
+    and folds each stream's frames into its EMA, in the single step's order:
+    each stream's EMA is the single-stream step's to the bit.  Each stream's
+    frames equal the single-stream step's.  Where ``fuses_demod`` says so
+    (AM or FM, inverted or not), K1's words entry takes the caller's words
+    as they lie, with the stream geometry: each stream demodulated (FM's 0
+    on its own first pair), inverted by its own maximum and every read
+    clamped into its own block, as the single-stream kernel clamps.  Else
+    one demodulation per stream goes to the envelope entry, and where a
+    stream's last frame, or the tap before its first, would read past its
+    own block, the envelopes are first laid out with each block's edge
+    samples repeated.  K1 indexes the buffer with int32 frame starts:
+    B·(samples per block) beyond that raises.
 
     ``fuse=True`` is the JAX package's option to fuse the frame axis across
     streams; here that is the one formulation, so it changes no value, but it
@@ -758,27 +769,27 @@ def make_batched_reconstruct_fn(config: ReconstructionConfig, fuse: bool | None 
             raise ValueError(
                 f"{n_streams} streams of I/Q, {ema_b.shape[0]} EMA images and "
                 f"{len(stream_cuts)} phases: one of each per stream")
-        from_words = fuses_demod(config, iq_b, batched=True)
-        if from_words:
-            per = 2
-            buf = iq_b[:, : 2 * (iq_b.shape[1] // 2)]
-        else:
-            per = 1
-            buf = torch.stack([demodulate(iq_b[b], config) for b in range(n_streams)])
-        n_block = buf.shape[1] // per
+        from_words = fuses_demod(config, iq_b)
         starts = np.stack([c[0] for c in stream_cuts]).astype(np.int64)         # [B, F]
         fracs = None
         if stream_cuts[0][1] is not None:
             fracs = np.stack([c[1] for c in stream_cuts]).astype(np.float32).reshape(-1)
-        front = lead if int(starts.min()) < lead else 0
-        back = max(int(starts.max()) + tail - n_block, 0)
-        if front or back:
-            # Repeat each block's first and last sample (for words: I/Q pair),
-            # as the single-stream kernel's index clamp does.
-            first = buf[:, :per].repeat(1, front)
-            last = buf[:, per * (n_block - 1): per * n_block].repeat(1, back)
-            buf = torch.cat([first, buf[:, : per * n_block], last], dim=1)
-            n_block += front + back
+        front = 0
+        if from_words:
+            # K1 clamps each stream's reads into its own block.
+            buf = iq_b[:, : 2 * (iq_b.shape[1] // 2)]
+            n_block = buf.shape[1] // 2
+        else:
+            buf = torch.stack([demodulate(iq_b[b], config) for b in range(n_streams)])
+            n_block = buf.shape[1]
+            front = lead if int(starts.min()) < lead else 0
+            back = max(int(starts.max()) + tail - n_block, 0)
+            if front or back:
+                # Repeat each block's first and last sample, as the
+                # single-stream kernel's index clamp does.
+                buf = torch.cat([buf[:, :1].repeat(1, front), buf,
+                                 buf[:, n_block - 1:].repeat(1, back)], dim=1)
+                n_block += front + back
         if n_streams * n_block > np.iinfo(np.int32).max:
             raise ValueError(
                 f"{n_streams} streams of {n_block} samples do not fit K1's int32 frame "

@@ -11,6 +11,8 @@ The JAX package is imported inside the parity tests, so that this module
 also loads where JAX is not installed: on the GPU machine the CUDA cases run
 with ``python -m pytest --noconftest tests/test_torch_fused_demod.py -m cuda``."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -216,17 +218,35 @@ def test_step_on_words_takes_fused_entry_and_equals_unfused(monkeypatch, dtype):
     assert torch.equal(sync, ref_sync) and torch.equal(score, ref_score)
 
 
-@pytest.mark.parametrize("case", ["invert", "complex64", "float64_words"])
+@pytest.mark.parametrize("case", ["invert"])
+def test_step_takes_fused_route_under_invert(monkeypatch, case):
+    """``invert`` on float32 words: the block maximum and the inversion in
+    K1's words entry, the same outputs as the inverted envelope through the
+    envelope entry, to the bit."""
+    calls = _spy(monkeypatch)
+    cfg = _config(invert=True)
+    iq = _words(cfg.block_samples, np.float32, seed=3)
+    step = poff.make_reconstruct_fn(cfg, device="cpu")
+    got = step(iq, np.zeros(SHAPE, np.float32), 0.5, 0.0)
+    assert calls == {"words": 1, "envelope": 0}
+    env = poff.demodulate(torch.from_numpy(iq), cfg)
+    ref = poff.make_reconstruct_fn(dataclasses.replace(cfg, input_format="envelope", invert=False),
+                                   device="cpu")(env, np.zeros(SHAPE, np.float32), 0.5, 0.0)
+    assert calls == {"words": 1, "envelope": 1}
+    assert got[1].shape == (3, *SHAPE) and bool(torch.isfinite(got[1]).all())
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["complex64", "float64_words"])
 def test_step_takes_unfused_route(monkeypatch, case):
     calls = _spy(monkeypatch)
     if case == "complex64":
         cfg = _config(input_format="complex64")
         iq = generate_iq(MODE, FS, cfg.block_samples, snr_db=18.0, seed=3).iq
     else:
-        cfg = _config(invert=(case == "invert"))
-        iq = _words(cfg.block_samples, np.float32, seed=3)
-        if case == "float64_words":
-            iq = iq.astype(np.float64)
+        cfg = _config()
+        iq = _words(cfg.block_samples, np.float32, seed=3).astype(np.float64)
     step = poff.make_reconstruct_fn(cfg, device="cpu")
     _, frames, _, _ = step(iq, np.zeros(SHAPE, np.float32), 0.5, 0.0)
     assert calls == {"words": 0, "envelope": 1}

@@ -267,34 +267,55 @@ def test_step_hands_stage1_to_the_words_entry_and_equals_the_passes(monkeypatch,
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("case", ["fm_batched", "invert_mxu3", "fm_complex64", "fm_gather"])
-def test_excepted_routes_keep_the_demod_as_a_pass(monkeypatch, case):
-    """The routes ``fuses_demod`` names: FM in the batched step (each
-    stream's output still equals its single-stream step's, to the bit),
-    ``invert``, complex input, a plain resampler."""
+@pytest.mark.parametrize("case", ["fm_batched", "invert_mxu3"])
+def test_invert_and_batched_fm_take_the_words_entry(monkeypatch, case):
+    """The two routes that demodulated as a pass until K1 took the block
+    maximum and each stream's own clamp: FM in the batched step (each
+    stream's output equals its single-stream step's, to the bit) and
+    ``invert`` (the step equals the inverted envelope's through K1, to the
+    bit).  One call of the words entry, with the stream count or the
+    inversion among its options, and none of the envelope entry."""
     calls = _spy(monkeypatch)
     if case == "fm_batched":
         cfg = _config(demod="fm", resampler="mxu3")
         words = np.stack([_words(cfg.block_samples, np.int16, seed=s, modulation="fm")
                           for s in (1, 2)])
-        assert not poff.fuses_demod(cfg, torch.from_numpy(words), batched=True)
+        assert poff.fuses_demod(cfg, torch.from_numpy(words))
         ema0 = np.zeros((2, *SHAPE), np.float32)
         out = poff.make_batched_reconstruct_fn(cfg, device="cpu")(words, ema0, 0.5)
-        assert [len(calls["words"]), len(calls["envelope"])] == [0, 1]
+        assert calls == {"words": [{"num_phases": 64, "demod": "fm", "bf16": True,
+                                    "streams": 2}], "envelope": []}
         single = poff.make_reconstruct_fn(cfg, device="cpu")
         for b in range(2):
             ema_s, frames, sync, score = single(words[b], ema0[b], 0.5)
             assert torch.equal(out[1][b], frames) and torch.equal(out[0][b], ema_s)
             assert torch.equal(out[2][b], sync) and torch.equal(out[3][b], score)
         return
+    cfg = _config(invert=True, resampler="mxu3")
+    iq = _words(cfg.block_samples, np.int16, seed=3)
+    assert poff.fuses_demod(cfg, torch.from_numpy(iq))
+    ema0 = np.zeros(SHAPE, np.float32)
+    got = poff.make_reconstruct_fn(cfg, device="cpu")(iq, ema0, 0.5)
+    assert calls == {"words": [{"num_phases": 64, "bf16": True, "invert": True}], "envelope": []}
+    env = poff.demodulate(torch.from_numpy(iq), cfg)
+    ref = poff.make_reconstruct_fn(dataclasses.replace(cfg, input_format="envelope", invert=False),
+                                   device="cpu")(env, ema0, 0.5)
+    assert len(calls["envelope"]) == 1
+    assert got[1].shape == (3, *SHAPE) and bool(torch.isfinite(got[1]).all())
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["fm_complex64", "fm_gather"])
+def test_excepted_routes_keep_the_demod_as_a_pass(monkeypatch, case):
+    """Routes ``fuses_demod`` names: complex input, a plain resampler."""
+    calls = _spy(monkeypatch)
     if case == "fm_complex64":
         cfg = _config(demod="fm", input_format="complex64")
         iq = tp.generate_iq(MODE, FS, cfg.block_samples, snr_db=18.0, seed=3, modulation="fm").iq
     else:
-        cfg = _config(invert=True, resampler="mxu3") if case == "invert_mxu3" \
-            else _config(demod="fm", resampler="gather")
+        cfg = _config(demod="fm", resampler="gather")
         iq = _words(cfg.block_samples, np.int16, seed=3)
-    if case != "fm_complex64":
         assert not poff.fuses_demod(cfg, torch.from_numpy(iq))
     _, frames, _, _ = poff.make_reconstruct_fn(cfg, device="cpu")(iq, np.zeros(SHAPE, np.float32),
                                                                   0.5)
@@ -305,15 +326,15 @@ def test_excepted_routes_keep_the_demod_as_a_pass(monkeypatch, case):
 def test_batched_step_rounds_in_the_words_entry(monkeypatch):
     """``mxu_batched`` on B streams of int16 words: one call of the words
     entry with the rounding for all B·F frames, each stream equal to its
-    single-stream step to the bit (the rounding is per sample, so the
-    repeated edge pairs round as the repeated samples do)."""
+    single-stream step to the bit (the rounding is per sample, and each
+    stream's reads are clamped into its own block)."""
     calls = _spy(monkeypatch)
     cfg = _config(resampler="mxu_batched", carry_phase=True)
     words = np.stack([_words(cfg.block_samples, np.int16, seed=s) for s in (1, 2, 3)])
     ema0 = np.zeros((3, *SHAPE), np.float32)
     phases = [0.0, 100.25, 20000.75]
     out = poff.make_batched_reconstruct_fn(cfg, device="cpu")(words, ema0, 0.5, phases)
-    assert calls == {"words": [{"num_phases": 64, "bf16": True}], "envelope": []}
+    assert calls == {"words": [{"num_phases": 64, "bf16": True, "streams": 3}], "envelope": []}
     single = poff.make_reconstruct_fn(cfg, device="cpu")
     for b in range(3):
         ema_s, frames, sync, _ = single(words[b], ema0[b], 0.5, phases[b])
