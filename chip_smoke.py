@@ -146,21 +146,26 @@ Phases, each of which fails the run if it fails:
     slice's FM step on int16 words, the runtime under ``mxu3``, FM and both,
     4 taps with ``invert``, complex input with 4 taps); the int16 FM load's
     arc tangent against ``torch.atan2`` on every sample of 2^26 random
-    quadruples of int16 words and of every edge quadruple, to the bit; the
-    int16 FM load at 5 to 8 rows a tile; with ``--parent DIR`` each int16 FM
+    quadruples of int16 words and of every edge quadruple, to the bit, and
+    the float32 FM load's on 2^26 samples at each of three scales (integer
+    valued, unit, random exponents) and every edge quadruple (zeros,
+    subnormals, infinities, NaN, overflowing products, the bounds of its
+    branchless domain); the int16 FM load at 5 to 8 rows a tile and the
+    float32 one at 4 to 6; with ``--parent DIR`` each int16 and float32 FM
     row at the slice's shapes and that checkout's bench line in turns with
     this one's;
 24. ``invert`` in K1's words load: the block maximum against ``torch.max``
     of the plain envelope to the bit (int16 and float32, AM and FM, 1 and 4
     streams, the int16 range's ends, an all-zero stream, NaN and infinities
-    in float32 words), timed beside its bound; every inverted load (AM, AM
-    rounded, FM, FM rounded; int16 and float32; 2 and 4 taps; with and
-    without residuals) equal to its plain version to the bit and timed; the
+    in float32 words), timed beside its bounds (bytes, instructions);
+    every inverted load (AM, AM rounded, FM, FM rounded; int16 and float32;
+    2 and 4 taps; with and without residuals) equal to its plain version to
+    the bit and timed; the
     slice's step under ``invert`` (2 taps, 4 taps, ``mxu3``) against the
     pass route: the same bits, 6 device events (the block maximum, K1, K2a,
     K2b, K3, the upload), wall clock and device time in turns; with
-    ``--parent DIR`` the block maximum's route and the inverted step in
-    turns with that checkout's.
+    ``--parent DIR`` the block maximum, each inverted load and the inverted
+    step in turns with that checkout's.
 
 Run ``python3 chip_smoke.py`` from the root of a checkout on a machine with
 a CUDA card; it ends with torch.profiler tables of three steps, with the
@@ -1710,7 +1715,10 @@ def kernels_device_ms(torch, fn, names, calls: int = 10, tries: int = 3) -> dict
     the kernels alone, without the host's time between launches.  The mean
     over the launches the profiler recorded: it drops a run's device events
     now and then, and a window that recorded none of a kernel is run again,
-    up to ``tries`` times; a kernel never seen reads 0."""
+    up to ``tries`` times.  A kernel never seen (late in a long process the
+    profiler may record no device event at all) reads the milliseconds a
+    call of ``fn`` takes between two CUDA events over ``calls`` calls, an
+    upper bound, and a line says so."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1728,6 +1736,10 @@ def kernels_device_ms(torch, fn, names, calls: int = 10, tries: int = 3) -> dict
             out[name] = sum(evt.self_device_time_total for evt in seen) / 1e3 / max(count, 1)
         if min(out.values()) > 0:
             break
+    for name in [n for n, ms in out.items() if ms <= 0]:
+        out[name] = time_back_to_back(torch, fn, calls)
+        print(f"[profiler] no device event of {name} in {tries} windows: its time is a call's "
+              f"between two CUDA events, {out[name]:.4f} ms")
     return out
 
 
@@ -2206,28 +2218,30 @@ def load_launches(words_entry, demod: str, bf16: bool) -> int:
     return sum(n for key, n in words_entry.launches_by_variant.items() if key[2:] == (demod, bf16))
 
 
-def int16_fm_vs_parent(torch, card: str, parent_rk, rk, rows: dict, bounds: dict) -> dict:
-    """Each int16 FM row of K1's words load against the parent checkout's
-    kernel at the same shapes, in turns (parent, this, this, parent): the
-    same bits, device time (torch.profiler) and back-to-back time of each,
-    beside the row's bound.  ``rows`` maps a label to a function of the
-    ``resample_kernel`` module that launches the row."""
+def fm_vs_parent(torch, card: str, parent_rk, rk, rows: dict, bounds: dict, tag: str,
+                 kernel: str = "tiles_kernel") -> dict:
+    """Each row of a load (``tag``: "int16 FM", "float32 FM", ...) against
+    the parent checkout's kernel at the same shapes, in turns (parent, this,
+    this, parent): the same bits (NaN where NaN), device time of ``kernel``
+    (torch.profiler) and back-to-back time of each, beside the row's bound.
+    ``rows`` maps a label to a function of the ``resample_kernel`` module
+    that launches the row."""
     out = {}
     for label, launch in rows.items():
         mods = {"parent": parent_rk, "this": rk}
         a, b = launch(parent_rk), launch(rk)
         torch.cuda.synchronize()
-        check(bool(torch.equal(a, b)), f"int16 FM, {label}: this kernel gives the parent's bits")
+        check(same_bits(torch, b, a), f"{tag}, {label}: this kernel gives the parent's bits")
         del a, b
         dev_ms = {"parent": [], "this": []}
         b2b = {"parent": [], "this": []}
         for who in ("parent", "this", "this", "parent"):
             fn = functools.partial(launch, mods[who])
-            dev_ms[who].append(kernels_device_ms(torch, fn, ("tiles_kernel",))["tiles_kernel"])
+            dev_ms[who].append(kernels_device_ms(torch, fn, (kernel,))[kernel])
             b2b[who].append(time_back_to_back(torch, fn))
         bound = bounds[label]
         out[label] = {"device_ms": dev_ms, "b2b_ms": b2b, "bound_ms": bound}
-        print(f"[int16 FM vs parent] {label}: the parent's bits; device ms parent "
+        print(f"[{tag} vs parent] {label}: the parent's bits; device ms parent "
               f"{dev_ms['parent'][0]:.4f} {dev_ms['parent'][1]:.4f}, this {dev_ms['this'][0]:.4f} "
               f"{dev_ms['this'][1]:.4f}; back to back parent {b2b['parent'][0]:.4f} "
               f"{b2b['parent'][1]:.4f}, this {b2b['this'][0]:.4f} {b2b['this'][1]:.4f} (turns "
@@ -2239,31 +2253,37 @@ def int16_fm_vs_parent(torch, card: str, parent_rk, rk, rows: dict, bounds: dict
     return out
 
 
-# Rows a tile of the int16 FM load's balanced walk timed around the wrapper's
-# (resample_kernel.ROWS_PER_TILE_FM).
-FM_TILE_ROWS = (5, 6, 7, 8)
+# Rows a tile of the FM loads' balanced walk timed around the wrapper's
+# (resample_kernel.ROWS_PER_TILE_FM), by the bytes of a staged sample: the
+# int16 load's, and the float32 load's from the strided walk's 4 up to the 6
+# that still leave the slice's plan three blocks an SM (the plan takes fewer
+# rows than it is set to where they would leave fewer: FM_MIN_BLOCKS).
+FM_TILE_ROWS = {4: (5, 6, 7, 8), 8: (4, 5, 6)}
 
 
-def fm_rows_sweep(torch, card: str, rk, label: str, launch, ref) -> dict:
-    """The int16 FM load at each of ``FM_TILE_ROWS`` rows a tile (it sets
-    ``rk.ROWS_PER_TILE_FM``; no option does): equal to ``ref`` to the bit,
-    its device time forwards then backwards, so that a drift of the card's
-    clocks shows between the two passes."""
-    default = rk.ROWS_PER_TILE_FM
-    times = {rows: [] for rows in FM_TILE_ROWS}
+def fm_rows_sweep(torch, card: str, rk, label: str, launch, ref, sample_bytes: int = 4) -> dict:
+    """An FM load at each of ``FM_TILE_ROWS[sample_bytes]`` rows a tile (it
+    sets ``rk.ROWS_PER_TILE_FM[sample_bytes]``; no option does): equal to
+    ``ref`` to the bit, its device time forwards then backwards, so that a
+    drift of the card's clocks shows between the two passes."""
+    what = {4: "int16", 8: "float32"}[sample_bytes]
+    default = rk.ROWS_PER_TILE_FM[sample_bytes]
+    options = FM_TILE_ROWS[sample_bytes]
+    times = {rows: [] for rows in options}
     try:
-        for rows in FM_TILE_ROWS + FM_TILE_ROWS[::-1]:
-            rk.ROWS_PER_TILE_FM = rows
+        for rows in options + options[::-1]:
+            rk.ROWS_PER_TILE_FM[sample_bytes] = rows
             if not times[rows]:
                 got = launch()
                 torch.cuda.synchronize()
-                check(bool(torch.equal(got, ref)),
-                      f"the int16 FM load, {label}, at {rows} rows a tile equals its plain version")
+                check(same_bits(torch, got, ref),
+                      f"the {what} FM load, {label}, at {rows} rows a tile equals its plain "
+                      "version")
                 del got
             times[rows].append(kernels_device_ms(torch, launch, ("tiles_kernel",))["tiles_kernel"])
     finally:
-        rk.ROWS_PER_TILE_FM = default
-    print(f"[int16 FM rows a tile] {label}: device ms " + "; ".join(
+        rk.ROWS_PER_TILE_FM[sample_bytes] = default
+    print(f"[{what} FM rows a tile] {label}: device ms " + "; ".join(
         f"{rows} rows{' (the wrapper' + chr(39) + 's)' if rows == default else ''} "
         f"{a:.4f} {b:.4f}" for rows, (a, b) in times.items())
         + f" (forwards, backwards), on {card}")
@@ -2287,6 +2307,39 @@ def fm_edge_words() -> np.ndarray:
                     axis=1).reshape(-1)
 
 
+# The float32 FM load's arc tangent: its scales (integer valued within the
+# int16 range, as the runtime uploads int16 captures; unit scale, as the
+# synthetic generator's; random exponents over the whole float32 range,
+# subnormals among them), and values whose every quadruple is an edge of the
+# arc tangent or of its domain (csrc/resample.cu atan2_in_domain: products
+# at 2^-60 and 2^60 and just beyond them).
+F32_SCALES = ("integer valued", "unit scale", "random exponents")
+F32_EDGE_VALUES = np.array(
+    [0.0, -0.0, 1e-45, -1e-45, 1e-40, np.finfo(np.float32).tiny, -np.finfo(np.float32).tiny,
+     1.0, -1.0, 3.0, 2.0 ** -30, -1.5 * 2.0 ** -30, 2.0 ** -30 * (1 - 2.0 ** -24), 2.0 ** 30,
+     -1.5 * 2.0 ** 30, 2.0 ** 30 * (1 + 2.0 ** -23), 2.0 ** 31, 1e19, -2.0 ** 64,
+     np.finfo(np.float32).max, -np.finfo(np.float32).max, np.inf, -np.inf, np.nan], np.float32)
+
+
+def f32_scale_words(scale: str, n_pairs: int, rng) -> np.ndarray:
+    """Interleaved float32 I/Q words of ``n_pairs`` pairs at ``scale``."""
+    if scale == "integer valued":
+        return rng.integers(-32768, 32768, 2 * n_pairs).astype(np.float32)
+    if scale == "unit scale":
+        return rng.uniform(-4.0, 4.0, 2 * n_pairs).astype(np.float32)
+    v = rng.integers(0, 1 << 32, 2 * n_pairs, dtype=np.uint64).astype(np.uint32).view(np.float32)
+    v[~np.isfinite(v)] = 1.0
+    return v
+
+
+def fm_f32_edge_words() -> np.ndarray:
+    """Interleaved float32 words, pair a then pair b for every two pairs of
+    ``F32_EDGE_VALUES``."""
+    pairs = np.array([(i, q) for i in F32_EDGE_VALUES for q in F32_EDGE_VALUES], np.float32)
+    return np.stack([np.repeat(pairs, len(pairs), axis=0), np.tile(pairs, (len(pairs), 1))],
+                    axis=1).reshape(-1)
+
+
 def phase_stage1(tp, torch, dev, card: str, words_i16, blocks, reset_counts, parent_root,
                  activities) -> dict:
     """Phase 23: stage 1 inside K1's words load.  Every load (AM, AM rounded
@@ -2297,8 +2350,10 @@ def phase_stage1(tp, torch, dev, card: str, words_i16, blocks, reset_counts, par
     block end, from an unaligned source, and at ``OTHER_SHAPES``; timed
     single, back to back and on the device beside its bound and its plain
     version.  The int16 FM load's arc tangent on every sample of 2^26
-    random and of the edge quadruples (``fm_int16_words``), and that load at
-    ``FM_TILE_ROWS`` rows a tile.  Then ``bench_config()``'s ``mxu3`` step
+    random and of the edge quadruples (``fm_int16_words``); the float32 FM
+    load's (``fm_float32_words``) on 2^26 samples at each of three scales
+    (integer valued, unit, random exponents) and every edge quadruple; both
+    FM loads at ``FM_TILE_ROWS`` rows a tile.  Then ``bench_config()``'s ``mxu3`` step
     and the slice's FM step, each against the same step with the demod and
     the rounding as passes (the route before): equal to the bit, wall clock
     and device time in turns, and the profiler's events a step (5: K1, K2a,
@@ -2306,9 +2361,9 @@ def phase_stage1(tp, torch, dev, card: str, words_i16, blocks, reset_counts, par
     are set to 0 before each main path that takes a new load (the bench
     line; the slice's FM step on int16 words; the runtime under ``mxu3``,
     FM, and FM under ``mxu3``; 4 taps with ``invert``) and read after.  With
-    ``parent_root`` each int16 FM row of that checkout (``int16_fm_vs_parent``)
-    and its bench line in turns with this one's (parent, this, this,
-    parent)."""
+    ``parent_root`` each int16 and float32 FM row of that checkout
+    (``fm_vs_parent``) and its bench line in turns with this one's (parent,
+    this, this, parent)."""
     from tempest_tpu_torch.bench import bench
     from tempest_tpu_torch.ops import resample_kernel as rk
     from tempest_tpu_torch.pipeline import offline as poff
@@ -2407,37 +2462,59 @@ def phase_stage1(tp, torch, dev, card: str, words_i16, blocks, reset_counts, par
     print(f"[stage 1 in K1] the int16 FM load's arc tangent on every sample: 2^{FM_SWEEP_LOG2} "
           f"random quadruples and {len(FM_EDGE_VALUES) ** 4} edge quadruples, "
           f"{sum(sweep.values())} differ from torch.atan2, on {card}")
+    # The float32 FM load's: atan2_fast where a warp's operands all lie in its
+    # domain, atan2f where not (exp/k1_atan2_f32.py prints the shares).
+    sweep_f32 = {}
+    for scale in F32_SCALES + ("edges",):
+        words = fm_f32_edge_words() if scale == "edges" else f32_scale_words(
+            scale, (1 << FM_SWEEP_LOG2) + 1, rng)
+        tw = torch.from_numpy(words).to(dev)
+        got, ref = rk.fm_float32_words(tw), rk.words_envelope_plain(tw, "fm")
+        torch.cuda.synchronize()
+        sweep_f32[scale] = 0 if same_bits(torch, got, ref) else int(
+            (got.view(torch.int32) != ref.view(torch.int32)).sum())
+        check(sweep_f32[scale] == 0 and got.numel() == words.size // 2,
+              f"the float32 FM arc tangent equals torch.atan2 on all {got.numel()} samples at "
+              f"{scale} ({sweep_f32[scale]} differ)")
+        del tw, got, ref, words
+    print(f"[stage 1 in K1] the float32 FM load's arc tangent on every sample: 2^{FM_SWEEP_LOG2} "
+          f"samples at each of {', '.join(F32_SCALES)} and {len(F32_EDGE_VALUES) ** 4} edge "
+          f"quadruples, {sum(sweep_f32.values())} differ from torch.atan2, on {card}")
 
-    # Each int16 FM row against the parent's kernel, in turns.
+    # Each int16 and float32 FM row against the parent's kernel, in turns.
     fm_parent = {}
     if parent_root is not None:
         import importlib
 
         parent_rk = importlib.import_module(
             f"{load_other(Path(parent_root)).__name__}.ops.resample_kernel")
-        wd = data["int16 words"]
-        rows, bounds = {}, {}
-        for taps, exact, bf16 in ((2, False, False), (2, True, False), (2, False, True),
-                                  (4, False, False), (4, False, True)):
-            label = (f"the slice, {taps} taps" + (", residuals" if exact else "")
-                     + (", rounded to bfloat16" if bf16 else ""))
-            rows[label] = functools.partial(
-                lambda mod, taps, res, bf16: mod.frames_to_screens_from_words(
-                    wd, starts, *raster, res, taps, demod="fm", bf16=bf16),
-                taps=taps, res=fracs if exact else None, bf16=bf16)
-            bounds[label] = measured["int16 words", "fm", bf16, taps, exact]["bound_ms"]
-        fm_parent = int16_fm_vs_parent(torch, card, parent_rk, rk, rows, bounds)
+        for name in ("int16 words", "float32 words"):
+            wd = data[name]
+            rows, bounds = {}, {}
+            for taps, exact, bf16 in ((2, False, False), (2, True, False), (2, False, True),
+                                      (4, False, False), (4, False, True)):
+                label = (f"the slice, {taps} taps" + (", residuals" if exact else "")
+                         + (", rounded to bfloat16" if bf16 else ""))
+                rows[label] = functools.partial(
+                    lambda mod, taps, res, bf16, wd: mod.frames_to_screens_from_words(
+                        wd, starts, *raster, res, taps, demod="fm", bf16=bf16),
+                    taps=taps, res=fracs if exact else None, bf16=bf16, wd=wd)
+                bounds[label] = measured[name, "fm", bf16, taps, exact]["bound_ms"]
+            tag = f"{name.split()[0]} FM"
+            fm_parent[tag] = fm_vs_parent(torch, card, parent_rk, rk, rows, bounds, tag)
 
-    # Rows a tile of its balanced walk, at the slice's shapes.
-    wd = data["int16 words"]
-    fm_env = rk.words_envelope_plain(wd, "fm")
+    # Rows a tile of their balanced walk, at the slice's shapes.
     fm_rows = {}
-    for taps in (2, 4):
-        fm_rows[taps] = fm_rows_sweep(
-            torch, card, rk, f"the slice, {taps} taps",
-            functools.partial(words_entry, wd, starts, *raster, None, taps, demod="fm"),
-            rk.frames_to_screens_plain(fm_env, starts, geom, None, taps))
-    del fm_env
+    for name in ("int16 words", "float32 words"):
+        wd = data[name]
+        sample_bytes = 4 if wd.dtype == torch.int16 else 8
+        fm_env = rk.words_envelope_plain(wd, "fm")
+        for taps in (2, 4):
+            fm_rows[name, taps] = fm_rows_sweep(
+                torch, card, rk, f"the slice, {taps} taps",
+                functools.partial(words_entry, wd, starts, *raster, None, taps, demod="fm"),
+                rk.frames_to_screens_plain(fm_env, starts, geom, None, taps), sample_bytes)
+        del fm_env
 
     # The two steps, words load against demod and rounding as passes, in turns.
     ema0 = torch.zeros(RENDER, dtype=torch.float32, device=dev)
@@ -2556,25 +2633,36 @@ def phase_stage1(tp, torch, dev, card: str, words_i16, blocks, reset_counts, par
                   f"turns parent this this parent, on {card}")
     print(f"[stage 1 in K1] bench line: {json.dumps(line)}")
     return {"measured": measured, "steps": steps, "launches": launches, "bench": line,
-            "bench_turns": turns, "fm_sweep": sweep, "fm_parent": fm_parent, "fm_rows": fm_rows}
+            "bench_turns": turns, "fm_sweep": sweep, "fm_sweep_f32": sweep_f32,
+            "fm_parent": fm_parent, "fm_rows": fm_rows}
+
+
+def max_bound_parts(n_samples: int, sample_bytes: int, word: int, streams: int = 1) -> dict:
+    """The block maximum's bounds apart, in ms: its bytes over the memory
+    rate, its float32 operations over their peak, its least instructions
+    (``resample_kernel.max_launch_instructions``) at the issue rate."""
+    from tempest_tpu_torch.ops.resample_kernel import max_launch_cost, max_launch_instructions
+    from tempest_tpu_torch.ops.sync_kernel import H100_ISSUE_PER_S
+    from tempest_tpu_torch.utils.roofline import H100_PEAKS
+
+    nbytes, flops, _ = max_launch_cost(n_samples, sample_bytes, word, streams)
+    return {"bytes": 1e3 * nbytes / H100_PEAKS["bytes_per_s"],
+            "flops": 1e3 * flops / H100_PEAKS["flops_per_s"],
+            "instructions": 1e3 * max_launch_instructions(n_samples, sample_bytes, word)
+            / H100_ISSUE_PER_S, "nbytes": nbytes}
 
 
 def max_bound(n_samples: int, sample_bytes: int, word: int, streams: int = 1
               ) -> tuple[float, str, int]:
     """The least milliseconds the card could take for one launch of the
     block maximum: the larger of its bytes over the memory rate and its
-    operations (float32 operations or instructions at the issue rate,
-    ``resample_kernel.max_launch_cost`` and ``max_launch_instructions``)
-    over their peaks.  Returns (ms, "bytes" or "operations", bytes)."""
-    from tempest_tpu_torch.ops.resample_kernel import max_launch_cost, max_launch_instructions
-    from tempest_tpu_torch.ops.sync_kernel import H100_ISSUE_PER_S
-    from tempest_tpu_torch.utils.roofline import H100_PEAKS
-
-    nbytes, flops, _ = max_launch_cost(n_samples, sample_bytes, word, streams)
-    by_bytes = 1e3 * nbytes / H100_PEAKS["bytes_per_s"]
-    ops = max(1e3 * flops / H100_PEAKS["flops_per_s"],
-              1e3 * max_launch_instructions(n_samples, sample_bytes, word) / H100_ISSUE_PER_S)
-    return max(by_bytes, ops), ("bytes" if by_bytes >= ops else "operations"), nbytes
+    operations (float32 operations or instructions at the issue rate) over
+    their peaks (``max_bound_parts``).  Returns (ms, "bytes" or
+    "operations", bytes)."""
+    parts = max_bound_parts(n_samples, sample_bytes, word, streams)
+    ops = max(parts["flops"], parts["instructions"])
+    return (max(parts["bytes"], ops), ("bytes" if parts["bytes"] >= ops else "operations"),
+            parts["nbytes"])
 
 
 def same_bits(torch, got, ref) -> bool:
@@ -2599,8 +2687,9 @@ def phase_invert(tp, torch, dev, card: str, words_i16, reset_counts, parent_root
     step under ``invert`` (2 taps, 4 taps, ``mxu3``) against the pass route,
     bits and device events, wall clock and device time in turns; the
     launches of its main paths from counts at 0.  With ``parent_root`` the
-    block maximum against that checkout's demod and ``torch.max``, and each
-    inverted step against that checkout's step, in turns."""
+    block maximum and each inverted load of 2 and 4 taps (neither rounded
+    nor with residuals) against that checkout's, and each inverted step
+    against that checkout's step, in turns."""
     from tempest_tpu_torch.ops import resample_kernel as rk
     from tempest_tpu_torch.pipeline import offline as poff
 
@@ -2674,32 +2763,29 @@ def phase_invert(tp, torch, dev, card: str, words_i16, reset_counts, parent_root
         call = functools.partial(rk.words_maxima, wd, demod)
         env = rk.words_envelope_plain(wd, demod)
         bound_ms, bound_by, nbytes = max_bound(block, sample_bytes, word)
+        parts = max_bound_parts(block, sample_bytes, word)
         m = dict(err=0.0, ms=time_call(torch, call), b2b_ms=time_back_to_back(torch, call),
                  device_ms=kernels_device_ms(torch, call, ("words_max_kernel",))[
                      "words_max_kernel"],
                  plain_ms=time_call(torch, functools.partial(rk.words_maxima_plain, wd, demod),
                                     calls=10),
                  torch_max_ms=time_call(torch, lambda: torch.max(env), calls=10),
-                 bound_ms=bound_ms, bound_by=bound_by)
+                 bound_ms=bound_ms, bound_by=bound_by, bytes_bound_ms=parts["bytes"],
+                 instruction_bound_ms=parts["instructions"])
         del env
         if parent is not None:
-            routes = {"parent": lambda: torch.max(parent_rk.words_envelope_plain(wd, demod)),
-                      "this": call}
-            turns = {"parent": [], "this": []}
-            for who in ("parent", "this", "this", "parent"):
-                bk = device_by_kernel(profiled(torch, lambda: [routes[who]() for _ in range(3)],
-                                               activities), 3)
-                turns[who].append((time_call(torch, routes[who], calls=10),
-                                   *step_device_ms(bk)))
-            m["turns"] = turns
-            for who, t in turns.items():
-                print(f"[invert] block maximum route, {name}, {demod}, {who}: "
-                      + " ".join(f"{ms:.4f} ms ({d:.4f} device in {e})" for ms, d, e in t)
-                      + f", turns parent this this parent, on {card}")
+            # The parent's block maximum (the same launch, before this
+            # checkout's FM loads), in turns.
+            m["turns"] = fm_vs_parent(
+                torch, card, parent_rk, rk,
+                {f"{name}, {demod.upper()}": lambda mod, wd=wd, demod=demod: mod.words_maxima(
+                    wd, demod)}, {f"{name}, {demod.upper()}": bound_ms}, "block maximum",
+                "words_max_kernel")
         maxima[name, demod] = m
         print(f"[invert] block maximum, {name}, {demod.upper()}, {block} samples: {m['ms']:.4f} ms "
               f"single, {m['b2b_ms']:.4f} back to back, {m['device_ms']:.4f} device; bound "
-              f"{bound_ms:.4f} ms by {bound_by} ({nbytes / 1e6:.1f} MB), share "
+              f"{bound_ms:.4f} ms by {bound_by} (bytes {parts['bytes']:.4f} ms for "
+              f"{nbytes / 1e6:.1f} MB, instructions {parts['instructions']:.4f} ms), share "
               f"{bound_ms / m['device_ms']:.3f} of device time; plain (demod and torch.max) "
               f"{m['plain_ms']:.4f} ms, torch.max of the envelope alone {m['torch_max_ms']:.4f}, "
               f"on {card}")
@@ -2716,9 +2802,13 @@ def phase_invert(tp, torch, dev, card: str, words_i16, reset_counts, parent_root
                     label = (f"{load_label(demod, bf16)} inverted, {name}, {taps} taps"
                              + (", residuals" if exact else ""))
 
-                    def call(wd=wd, res=res, taps=taps, demod=demod, bf16=bf16, starts=starts):
-                        return rk.frames_to_screens_from_words(wd, starts, *raster, res, taps,
-                                                               demod=demod, bf16=bf16, invert=True)
+                    def launch(mod, wd=wd, res=res, taps=taps, demod=demod, bf16=bf16,
+                               starts=starts):
+                        return mod.frames_to_screens_from_words(wd, starts, *raster, res, taps,
+                                                                demod=demod, bf16=bf16,
+                                                                invert=True)
+
+                    call = functools.partial(launch, rk)
 
                     got, ref = call(), rk.frames_to_screens_plain(env, starts, geom, res, taps)
                     torch.cuda.synchronize()
@@ -2754,6 +2844,13 @@ def phase_invert(tp, torch, dev, card: str, words_i16, reset_counts, parent_root
                                  res, taps), calls=3),
                              bound_ms=bound_ms, bound_by=bound_by)
                     measured[name, demod, bf16, taps, exact] = m
+                    if parent is not None and not (bf16 or exact):
+                        # Each inverted load of 2 and 4 taps against the
+                        # parent's K1 (its block maximum launched with it).
+                        m["turns"] = fm_vs_parent(
+                            torch, card, parent_rk, rk,
+                            {label: launch},
+                            {label: bound_ms}, "inverted load")
                     print(f"[invert] K1 {label}: equal to plain to the bit (edges, unaligned); "
                           f"{m['ms']:.4f} ms single, {m['b2b_ms']:.4f} back to back (with the "
                           f"block maximum), K1 {m['device_ms']:.4f} device; bound {bound_ms:.4f} "
@@ -3736,11 +3833,11 @@ def main(argv: list[str] | None = None) -> int:
             f"{load_other(Path(args.parent)).__name__}.ops.resample_kernel")
         label = (f"{small_frames} frames of {SMALL_MODE_NAME} at {SMALL_SAMPLE_RATE / 1e6:g} "
                  f"Msps, 4 taps")
-        int16_fm_vs_parent(
+        fm_vs_parent(
             torch, card, parent_rk, resample_kernel,
             {label: lambda mod: mod.frames_to_screens_from_words(
                 small_i16["fm"], small_starts, *small_raster, None, 4, demod="fm")},
-            {label: measured_small["FM int16 words"]["bound_ms"]})
+            {label: measured_small["FM int16 words"]["bound_ms"]}, "int16 FM")
     del small_env, small_i16
 
     # ---- 6. the fidelity runtime: exact cuts through K1's residuals, sync skipped
@@ -4101,6 +4198,10 @@ def main(argv: list[str] | None = None) -> int:
             "back_to_back_ms": m["b2b_ms"], "device_ms": m["device_ms"],
             "torch_max_of_envelope_ms": m["torch_max_ms"], "fm_ms": fm["ms"],
             "fm_device_ms": fm["device_ms"], "fm_bound_ms": fm["bound_ms"],
+            "bytes_bound_ms": m["bytes_bound_ms"],
+            "instruction_bound_ms": m["instruction_bound_ms"],
+            "fm_bytes_bound_ms": fm["bytes_bound_ms"],
+            "fm_instruction_bound_ms": fm["instruction_bound_ms"],
             "added_in": "invert in the words load"})
     for name, m, launches in (
             ("AM inverted (float32 words): the runtime with invert",

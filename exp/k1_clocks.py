@@ -133,6 +133,30 @@ F32_SPLIT = (
      "fm_sample<WORD>(a, b, idx + 1));\n", "a",
      "      dclk[0] += f1 - f0; dclk[2] += clock64() - f1;\n"),
 )
+# The same loop with the stream's first sample and maximum passed on (the
+# thirteenth slice's form).
+F32_SPLIT_STREAMS = (
+    ("      const long long idx = origin + 2LL * j;\n"
+     "      reinterpret_cast<float2*>(env)[j] = make_float2(\n", "b",
+     "      dclk[3] ^= __float_as_int(a.x) ^ __float_as_int(b.y) ^ "
+     "__float_as_int(before.x);\n      const long long f1 = clock64();\n"),
+    ("          fm_sample<WORD>(before, a, idx, first, m), "
+     "fm_sample<WORD>(a, b, idx + 1, first, m));\n", "a",
+     "      dclk[0] += f1 - f0; dclk[2] += clock64() - f1;\n"),
+)
+# The float32 FM loop as a thread a 16-byte word of two pairs in warp-wide
+# rounds (since the float32 load's redesign): the same split, its first
+# stamp at the top of a round.
+F32_WORDS = (
+    ("    for (int base = static_cast<int>(threadIdx.x) - lane; base < words; base += kThreads) {\n"
+     "      const int j = base + lane;\n", "a", "      const long long f0 = clock64();\n"),
+    ("      const float2 before = j == 0 ? carry : (in ? pairs[2 * j - 1] : "
+     "make_float2(0.0f, 0.0f));\n", "a",
+     "      dclk[3] ^= __float_as_int(p.x) ^ __float_as_int(p.w) ^ __float_as_int(before.x);\n"
+     "      const long long f1 = clock64();\n"),
+    ("        reinterpret_cast<float2*>(env)[j] = make_float2(v0, finish<WORD>(v.y, m));\n", "a",
+     "        dclk[0] += f1 - f0; dclk[2] += clock64() - f1;\n"),
+)
 FM_SPLITS = {
     # Rounds of kThreads int16 words from the run's end, a block barrier a
     # round (the design before the segments below).
@@ -157,6 +181,25 @@ FM_SPLITS = {
         ("                        finish<WORD>(fm_int16(q2, q3)));\n", "a",
          "        dclk[0] += d1 - d0; dclk[2] += clock64() - d1;\n"),
     ) + F32_SPLIT,
+    # int16 words a warp a segment, float32 pairs a thread (the thirteenth
+    # slice's form).
+    "segments, streams": (
+        ("      const int j = k + lane;\n", "a", "      const long long d0 = clock64();\n"),
+        ("      carry = rot;\n", "a",
+         "      dclk[3] ^= p.x ^ p.y ^ p.z ^ p.w ^ rot ^ __float_as_int(before.x);\n"
+         "      const long long d1 = clock64();\n"),
+        ("                        finish<WORD>(fm_int16(q2, q3), m));\n", "a",
+         "        dclk[0] += d1 - d0; dclk[2] += clock64() - d1;\n"),
+    ) + F32_SPLIT_STREAMS,
+    # int16 words a warp a segment, float32 words a thread a 16-byte word.
+    "segments, float32 words": (
+        ("      const int j = k + lane;\n", "a", "      const long long d0 = clock64();\n"),
+        ("      carry = rot;\n", "a",
+         "      dclk[3] ^= p.x ^ p.y ^ p.z ^ p.w ^ rot ^ __float_as_int(before.x);\n"
+         "      const long long d1 = clock64();\n"),
+        ("                        finish<WORD>(fm_int16(q2, q3), m));\n", "a",
+         "        dclk[0] += d1 - d0; dclk[2] += clock64() - d1;\n"),
+    ) + F32_WORDS,
 }
 # Where the float32 FM loop's first stamp goes (inside its loop, at its top).
 F32_LOOP = ("    for (int j = threadIdx.x; j < len / 2; j += kThreads) {\n"
@@ -252,8 +295,13 @@ PATCHES_4 = (
     ("      parity ^= 1u << b;\n    }\n", "a", "    const long long s2 = clock64();\n"),
     ("    // previous tile: its buffer takes the next tile's run.\n"
      "    __syncthreads();\n", "a", "    const long long s3 = clock64();\n"),
-    ("    float* const env = (@ == kIqF32) ? env_pairs : reinterpret_cast<float*>(stage);\n"
-     "    if (!cur.fast) {\n      load_run_clamped", "b", "    const long long s4 = clock64();\n"),
+    # The load's start: before the inversion's maximum was read there (the
+    # thirteenth slice), and since.
+    (tuple(f"    float* const env = ({base} == kIqF32) ? env_pairs : "
+           f"reinterpret_cast<float*>(stage);\n{m}    if (!cur.fast) {{\n      load_run_clamped"
+           for base in ("kBase<WORD>", "WORD")
+           for m in ("", "    const float m = stream_max<WORD, kStreams>(st, cur);\n")),
+     "b", "    const long long s4 = clock64();\n"),
     ("    float* const tile_out = out + (static_cast<long long>(cur.f) * g.h + cur.r0) * g.w;\n"
      "    while (row < cur.rows) {\n      const RowInfo4", "b",
      "    const long long s5 = clock64();\n"),
@@ -307,6 +355,7 @@ def build(src_path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(lib_path))
     lib.has_taps4 = "catmull_rom_tiles_kernel(const void*" in text
     lib.balanced = "kBalanced" in text  # int16 FM words take the balanced walk
+    lib.balanced_f32 = "constexpr bool kBalanced = kIsFm<WORD>;" in text  # and float32 ones
     lib.build_log = proc.stdout + proc.stderr
     argtypes, restype = _build.SIGNATURES["resample"]["tt_resample_frames"]
     lib.tt_resample_frames.argtypes = argtypes
@@ -353,9 +402,12 @@ def sass_summary(lib_path: str, out: Path | None) -> dict:
             for k, v in opcode_counts(listing).items()}
 
 
-# atan2f alone, as K1's float32 FM load calls it, and the int16 load's
-# atan2_int16 (its text taken from the source): each probe's SASS less its
-# loads, store and exit is what one arc tangent compiles to.
+# atan2f alone, as K1's float32 FM load called it before its redesign (and
+# calls it outside its branchless domain), and the int16 load's atan2_int16
+# (its text taken from the source): each probe's SASS less its loads, store
+# and exit is what one arc tangent compiles to.  Since the float32 load's
+# redesign also its two arc tangents of a word with the warp's vote
+# (fm_f32_word, a sample's (y, x) given), and the domain test alone.
 ATAN2_PROBES = r"""
 extern "C" __global__ void atan2f_probe(const float* y, const float* x, float* o) {
   o[0] = atan2f(y[0], x[0]);
@@ -363,6 +415,17 @@ extern "C" __global__ void atan2f_probe(const float* y, const float* x, float* o
 %s
 extern "C" __global__ void atan2_int16_probe(const float* y, const float* x, float* o) {
   o[0] = atan2_int16(y[0], x[0]);
+}
+"""
+F32_PROBES = r"""
+extern "C" __global__ void fm_f32_word_probe(const float* y, const float* x, float* o) {
+  const float2 v = fm_f32_word(make_float2(y[0], y[1]), make_float4(x[0], x[1], x[2], x[3]),
+                               0xffffffffu);
+  o[0] = v.x;
+  o[1] = v.y;
+}
+extern "C" __global__ void atan2_in_domain_probe(const float* y, const float* x, float* o) {
+  o[0] = atan2_in_domain(y[0], x[0], y[1], x[1]) ? 1.0f : 0.0f;
 }
 """
 # Opcodes of a probe that are not the arc tangent's: its argument loads, its
@@ -391,11 +454,18 @@ def probe_counts(body: list[str]) -> dict:
 
 
 def atan2_sass(src_text: str) -> dict:
-    """What ``atan2f`` and ``atan2_int16`` compile to for sm_90a."""
-    start = src_text.find("__device__ __forceinline__ float atan2_int16(")
-    if start < 0:
-        raise SystemExit("k1_clocks: the source has no atan2_int16")
-    function = src_text[start: src_text.index("\n}\n", start) + 3]
+    """What ``atan2f`` and ``atan2_int16`` (and, where the source has them,
+    ``fm_f32_word`` and ``atan2_in_domain``) compile to for sm_90a."""
+    start = src_text.find("__device__ __forceinline__ float atan2_fast(")
+    if start >= 0:
+        # atan2_fast through fm_f32_word: the arc tangents and their helpers.
+        last = src_text.index("__device__ __forceinline__ float2 fm_f32_word(", start)
+        function = src_text[start: src_text.index("\n}\n", last) + 3] + F32_PROBES
+    else:
+        start = src_text.find("__device__ __forceinline__ float atan2_int16(")
+        if start < 0:
+            raise SystemExit("k1_clocks: the source has no atan2_int16")
+        function = src_text[start: src_text.index("\n}\n", start) + 3]
     out_dir = ROOT / "tempest_tpu_torch" / "_build" / "exp"
     out_dir.mkdir(parents=True, exist_ok=True)
     cu = out_dir / "atan2_probes.cu"
@@ -432,17 +502,25 @@ def run_stamped(lib, stamps, dev, words, load, taps, starts, raster, geom) -> di
     n_frames = starts.shape[0]
     h, w = raster[3]
     sample_bytes = rk.word_code(data.dtype)[1] if kind != "envelope" else 4
+    # The balanced walk where the source has one: on int16 FM words, and
+    # since the float32 FM load's redesign on every FM word.
+    balanced = lib.balanced and (rk.balanced_walk(code) if lib.balanced_f32
+                                 else kind == "int16" and demod == "fm")
     rows, run_cap = rk.tile_plan(*raster, sample_bytes, sum(rk.line_reach(taps, False)), taps,
-                                 balanced=lib.balanced and rk.balanced_walk(code))
+                                 balanced=balanced)
     out = torch.empty((n_frames, h, w), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    # One stream and no maxima (since the thirteenth slice the launcher takes
+    # them after the tile plan; a checkout before it takes neither).
+    streams = (() if len(lib.tt_resample_frames.argtypes) < 21
+               else (None, env.shape[0], n_frames))
     for _ in range(3):
         stamps.zero_()
         rc = lib.tt_resample_frames(
             data.data_ptr(), env.shape[0], code, starts.data_ptr(), None, n_frames, taps,
             geom.line_start.data_ptr(), geom.line_frac.data_ptr(), geom.wr.data_ptr(),
             out.data_ptr(), h, w, geom.delta, geom.span + rk.line_reach(taps, False)[1],
-            rows, run_cap, stream)
+            rows, run_cap, *streams, stream)
         if rc != 0:
             raise SystemExit(f"launch failed with cudaError_t {rc}")
         torch.cuda.synchronize()

@@ -12,7 +12,9 @@ onto 600x800 screens at two geometries: one 36-frame block of 1920x1080 @
 the smoke's 0.2 s capture there, where its taps rule picks Catmull-Rom),
 and 36 frames of it; each on the envelope, and on int16 and float32 words
 under every load of K1's words entry (``LOADS``: AM, FM, each with and
-without the bfloat16 rounding; with residuals AM and FM).  At 11 frames of
+without the bfloat16 rounding, and each inverted by the block maximum; with
+residuals AM and FM).  The block maximum (``words_maxima``) alone on each
+geometry's words, int16 and float32, AM and FM.  At 11 frames of
 640x480 a launch is short enough that back to back measures the wrapper's
 host time: its device time is the kernel's.  2 frames of 1080p60 at 20
 Msps for the search over the 26 modes within 0.5 Hz of 60 Hz.  Last, the
@@ -23,7 +25,10 @@ builds its kernels there.  Needs a CUDA card:
 
     git archive <parent> tempest_tpu_torch | tar -x -C _checkout/parent
     python3 exp/k1_vs_parent.py --parent _checkout/parent [--out k1_vs_parent.json]
+                                [--only-int16-fm] [--match TEXT] [--rounds N]
 
+``--match TEXT`` times only the rows whose label holds TEXT (``--match FM``:
+the FM loads and the FM block maxima), ``--rounds`` sets the turns a row.
 Each row's turns run ``ROUNDS`` times (one side's turns spread by up to 1-2%,
 as much as the 2% a row is held to); the ratios printed are of the medians,
 and the last line names the rows more than 2% slower than the parent's in
@@ -56,9 +61,12 @@ CALLS = 10          # calls a profiler window
 BACK_TO_BACK = 50   # launches between two events
 ROUNDS = 3          # turns of parent, this, this, parent a row
 KERNELS = ("tiles_kernel",)   # K1's kernels, both designs
-# (demod, bfloat16 rounding) of each load of the words entry timed, with
-# rounded cuts and, with residuals, the loads without the rounding.
-LOADS = (("am", False), ("am", True), ("fm", False), ("fm", True))
+# (demod, bfloat16 rounding, inversion) of each load of the words entry
+# timed, with rounded cuts and, with residuals, the loads neither rounded
+# nor inverted.  An inverted launch is the block maximum's and K1's: the
+# device time is K1's, back to back both.
+LOADS = (("am", False, False), ("am", True, False), ("fm", False, False), ("fm", True, False),
+         ("am", False, True), ("fm", False, True))
 # (mode, sample rate, frames, the (taps, residuals) variants timed there).
 GEOMETRIES = {
     "1080p60, 20 Msps, 36 frames": ("1920x1080 @ 60Hz", 20e6, 36,
@@ -172,6 +180,10 @@ def sass_compare(parent_path: str, this_path: str) -> dict[str, str]:
     return out
 
 
+def listed(xs) -> str:
+    return " ".join(f"{x:.4f}" for x in xs)
+
+
 def ratio(times: dict) -> float:
     """This checkout's median over the parent's, less 1 (a profiler window
     that recorded no launch, NaN, left out)."""
@@ -184,6 +196,9 @@ def main() -> int:
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--only-int16-fm", action="store_true",
                     help="time the int16 FM loads alone (the SASS comparison still covers all)")
+    ap.add_argument("--match", default=None,
+                    help="time only the rows whose label holds this text")
+    ap.add_argument("--rounds", type=int, default=ROUNDS, help="turns a row")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -218,17 +233,20 @@ def main() -> int:
             if word == "envelope":
                 return mod.frames_to_screens(data[word], starts, *raster, res, taps)
             return mod.frames_to_screens_from_words(data[word], starts, *raster, res, taps,
-                                                    demod=load[0], bf16=load[1])
+                                                    demod=load[0], bf16=load[1], invert=load[2])
 
         for taps, exact in variants:
-            for word, load in [("envelope", ("am", False))] + [
+            for word, load in [("envelope", ("am", False, False))] + [
                     (w, ld) for w in ("int16 words", "float32 words") for ld in LOADS
-                    if not (exact and ld[1])]:
+                    if not (exact and (ld[1] or ld[2]))]:
                 if args.only_int16_fm and (word, load[0]) != ("int16 words", "fm"):
                     continue
                 label = (f"{where}: {word}"
-                         + (f", {load[0].upper()}{' bf16' * load[1]}" if word != "envelope"
-                            else "") + f", {taps} taps" + (", residuals" if exact else ""))
+                         + (f", {load[0].upper()}{' bf16' * load[1]}{' inverted' * load[2]}"
+                            if word != "envelope" else "")
+                         + f", {taps} taps" + (", residuals" if exact else ""))
+                if args.match is not None and args.match not in label:
+                    continue
                 a = call(ork, word, taps, exact, load)
                 b = call(rk, word, taps, exact, load)
                 env = (data["envelope"] if word == "envelope"
@@ -241,21 +259,46 @@ def main() -> int:
                 del a, b, ref, env
                 dev_ms = {"parent": [], "this": []}
                 b2b = {"parent": [], "this": []}
-                for who in ("parent", "this", "this", "parent") * ROUNDS:
+                for who in ("parent", "this", "this", "parent") * args.rounds:
                     fn = functools.partial(call, mods[who], word, taps, exact, load)
                     dev_ms[who].append(device_ms(fn))
                     b2b[who].append(back_to_back_ms(fn))
                 report["device_ms"][label] = dev_ms
                 report["back_to_back_ms"][label] = b2b
 
-                def listed(xs):
-                    return " ".join(f"{x:.4f}" for x in xs)
-
                 print(f"[K1 vs parent] {label}: parent, this and plain equal: {same}; device "
                       f"ms parent {listed(dev_ms['parent'])}, this {listed(dev_ms['this'])} "
                       f"({ratio(dev_ms):+.3f}); back to back parent {listed(b2b['parent'])}, "
                       f"this {listed(b2b['this'])} ({ratio(b2b):+.3f}) (turns parent, this, "
-                      f"this, parent, {ROUNDS} a row; medians), on {card}")
+                      f"this, parent, {args.rounds} a row; medians), on {card}")
+
+        # The block maximum alone on this geometry's words (one stream).
+        for word in ("int16 words", "float32 words"):
+            for demod in ("am", "fm"):
+                if args.only_int16_fm and (word, demod) != ("int16 words", "fm"):
+                    continue
+                label = f"{where}: block maximum, {word}, {demod.upper()}"
+                if args.match is not None and args.match not in label:
+                    continue
+                a = ork.words_maxima(data[word], demod)
+                b = rk.words_maxima(data[word], demod)
+                ref = rk.words_maxima_plain(data[word], demod)
+                torch.cuda.synchronize()
+                same = bool(torch.equal(a, b)) and bool(torch.equal(b, ref))
+                report["bits"][label] = same
+                dev_ms = {"parent": [], "this": []}
+                b2b = {"parent": [], "this": []}
+                for who in ("parent", "this", "this", "parent") * args.rounds:
+                    fn = functools.partial(mods[who].words_maxima, data[word], demod)
+                    dev_ms[who].append(device_ms(fn, ("words_max_kernel",)))
+                    b2b[who].append(back_to_back_ms(fn))
+                report["device_ms"][label] = dev_ms
+                report["back_to_back_ms"][label] = b2b
+                print(f"[K1 vs parent] {label}: parent, this and plain equal: {same}; device "
+                      f"ms parent {listed(dev_ms['parent'])}, this {listed(dev_ms['this'])} "
+                      f"({ratio(dev_ms):+.3f}); back to back parent {listed(b2b['parent'])}, "
+                      f"this {listed(b2b['this'])} ({ratio(b2b):+.3f}) (turns parent, this, "
+                      f"this, parent, {args.rounds} a row; medians), on {card}")
 
     # The mode search: parent (a launch per candidate) against this (one).
     cands = tp.candidate_modes(60.0, tol_hz=0.5)

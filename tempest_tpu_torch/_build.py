@@ -40,6 +40,7 @@ SIGNATURES = {
         "tt_resample_candidates": (
             [_P, _LL, _P, _I, _P, _I, _I, _P, _I, _I, _I, _P], ctypes.c_int),
         "tt_fm_int16": ([_P, _LL, _P, _P], ctypes.c_int),
+        "tt_fm_float32": ([_P, _LL, _P, _P], ctypes.c_int),
         "tt_words_max": ([_P, _LL, _I, _I, _I, _P, _P, _P, _P], ctypes.c_int),
     },
     "sync": {

@@ -105,6 +105,7 @@ __all__ = [
     "max_launch_cost",
     "max_launch_instructions",
     "fm_int16_words",
+    "fm_float32_words",
     "balanced_walk",
     "walk_tiles",
     "frames_to_screens_candidates",
@@ -130,11 +131,22 @@ __all__ = [
 # about as much (36 and 48 KB at 1080p60, 20 Msps), so that several blocks
 # share an SM.
 ROWS_PER_TILE = {4: 8, 8: 4}
-# Rows of a tile on the balanced walk (:func:`balanced_walk`, the int16 FM
-# load): 7 was the fastest of 5 to 8 at the slice, 2 and 4 taps, and within
-# the spread at 11 frames of 640x480 at 32 Msps, 4 taps (``chip_smoke.py``
-# phases 23 and 5; PERF.md, section 6).
-ROWS_PER_TILE_FM = 7
+# Rows of a tile on the balanced walk (:func:`balanced_walk`, the FM loads),
+# by the bytes of a staged sample.  int16: 7 was the fastest of 5 to 8 at the
+# slice, 2 and 4 taps, and within the spread at 11 frames of 640x480 at 32
+# Msps, 4 taps (``chip_smoke.py`` phases 23 and 5; PERF.md, section 6).
+# float32: 5, where the SM still holds FM_MIN_BLOCKS blocks of the plan's
+# shared memory, else fewer rows down to ROWS_PER_TILE's 4: at the slice 5
+# and 6 rows (three blocks an SM) were the fastest of 4 to 7, 2 and 4 taps,
+# 2-3% ahead of 4 (four blocks); at 11 frames of 640x480 at 32 Msps 4 rows
+# (two blocks) 20-30% ahead of 5 (one block) (``exp/k1_vs_parent.py``,
+# PERF.md, section 6).
+ROWS_PER_TILE_FM = {4: 7, 8: 5}
+FM_MIN_BLOCKS = 3
+# Shared memory of one SM (228 KB) and what each block of a launch reserves
+# besides its own (1 KB): how many blocks of a plan an SM holds.
+SM_SHARED_BYTES = 228 * 1024
+BLOCK_RESERVED_BYTES = 1024
 # A launch of fewer tiles than FILL_TILES_PER_SM for each of the card's SMs
 # (one frame of 600 rows is 75 tiles of 8 rows on 132 SMs) takes tiles of
 # fewer rows, halved down to one, until it has that many: every SM takes
@@ -344,7 +356,9 @@ def tile_plan(
 ) -> tuple[int, int]:
     """(rows of a tile, samples of a stage buffer) for staged samples of
     ``sample_bytes``: ``ROWS_PER_TILE`` rows (``ROWS_PER_TILE_FM`` with
-    ``balanced``) where a block's shared memory holds them.  A block has two
+    ``balanced``), by ``sample_bytes``, where a block's shared memory holds
+    them; on the balanced walk float32 words take fewer rows, down to
+    ``ROWS_PER_TILE[8]``, until an SM holds ``FM_MIN_BLOCKS`` blocks.  A block has two
     stage buffers of the run and, for 8-byte pairs, a buffer for the
     envelope they become (the 4-tap kernel adds a table of the columns'
     positions where the SM holds as many blocks with it as without).  A
@@ -354,19 +368,25 @@ def tile_plan(
     launch of fewer tiles than
     ``FILL_TILES_PER_SM · sms`` halves its rows further, down to one, until
     it has that many.  ``balanced``: the kernel's balanced walk
-    (:func:`balanced_walk`, the int16 FM load), whose tiles start at any row
+    (:func:`balanced_walk`, the FM loads), whose tiles start at any row
     and whose blocks share out the launch's rows whatever their count: the
     buffer holds the run from any row, and the rows are not halved to fill
     the card."""
     per_sample = 2 * sample_bytes + (4 if sample_bytes == 8 else 0)
     budget = MAX_SHARED_BYTES_4 if _check_taps(taps) == 4 else MAX_SHARED_BYTES
-    rows = ROWS_PER_TILE_FM if balanced else ROWS_PER_TILE[sample_bytes]
+    rows = (ROWS_PER_TILE_FM if balanced else ROWS_PER_TILE)[sample_bytes]
     while (rows > 1 and tile_run_cap(frame_len, y_t, x_t, out_shape, rows, reach, balanced)
            * per_sample > budget):
         rows //= 2
     if n_frames is not None and not balanced:
         while rows > 1 and n_frames * -(-int(out_shape[0]) // rows) < FILL_TILES_PER_SM * sms:
             rows //= 2
+    if balanced and sample_bytes == 8:
+        static = 227 * 1024 - budget   # the kernel's static shared memory
+        while rows > ROWS_PER_TILE[8] and SM_SHARED_BYTES // (
+                tile_run_cap(frame_len, y_t, x_t, out_shape, rows, reach, True) * per_sample
+                + static + BLOCK_RESERVED_BYTES) < FM_MIN_BLOCKS:
+            rows -= 1
     run_cap = tile_run_cap(frame_len, y_t, x_t, out_shape, rows, reach, balanced)
     if run_cap * per_sample > budget:
         raise ValueError(
@@ -468,8 +488,13 @@ DEMOD_INSTRUCTIONS = {4: 2 + 2 + 1 + 4, 8: 2 + 1 + 4}
 # instructions on a finite, non-zero input for sm_90a (a correctly rounded
 # division, a rational approximation whose reciprocal is a second one, the
 # tests for zeros and infinities), 49 with the convergence barriers its
-# branches take in K1's loop; the int16 load's atan2_int16 27, with no
-# branch (exp/k1_clocks.py; csrc/resample.cu).  The bound keeps this count.
+# branches take in K1's loop.  Both FM loads run atan2f's operations without
+# its branches (``csrc/resample.cu`` ``atan2_fast``, 27 instructions): the
+# int16 load always, the float32 load (and the block maximum's) where every
+# lane of a warp has operands inside the domain where those branches are
+# not taken, a test of both operands and a vote a 16-byte word more, and
+# atan2f itself where one has not (exp/k1_clocks.py).  The bound keeps this
+# count.
 ATAN2_INSTRUCTIONS = 2 + 2 + 9 + 3
 # A sample's FM discriminator: four products and two sums with the sample
 # before, the arc tangent; int16 words two conversions more.
@@ -543,13 +568,14 @@ def max_launch_instructions(n_samples: int, sample_bytes: int, word: int) -> flo
 
 def balanced_walk(word: int) -> bool:
     """Whether K1's blocks take the balanced walk on the word code ``word``
-    (``csrc/resample.cu`` ``kBalanced``): on int16 FM words.  There the
+    (``csrc/resample.cu`` ``kBalanced``): on FM words, int16 and float32
+    (the FM flag rides only on I/Q words).  There the
     launch's rows, frame after frame, are cut into as many ranges as it has
     blocks, ranges that differ by one row at most, and each block renders
     its range in tiles of at most the plan's rows that end at a frame's end
     (:func:`walk_tiles`); elsewhere block b takes tiles b, b + B, ...  of
     the plan's rows."""
-    return (word & 3) == _WORDS[torch.int16][0] and bool(word & _FM)
+    return bool(word & _FM)
 
 
 def walk_tiles(n_frames: int, h: int, rows_per_tile: int, blocks: int, block: int
@@ -596,8 +622,8 @@ def launch_plan(
 ) -> LaunchPlan:
     """The :class:`LaunchPlan` of a launch of the word code ``word`` (0 an
     envelope); ``rows_per_tile`` and ``fill`` are
-    ``ROWS_PER_TILE[sample_bytes]`` (``ROWS_PER_TILE_FM`` on the balanced
-    walk) and ``FILL_TILES_PER_SM`` as the caller reads them, so that a plan
+    ``ROWS_PER_TILE[sample_bytes]`` (``ROWS_PER_TILE_FM[sample_bytes]`` on the
+    balanced walk) and ``FILL_TILES_PER_SM`` as the caller reads them, so that a plan
     is made again where they change."""
     del rows_per_tile, fill  # read by tile_plan; part of the cache's key
     raster = (frame_len, y_t, x_t, out_shape)
@@ -613,7 +639,7 @@ def launch_plan(
 def _plan(n_samples: int, n_frames: int, sample_bytes: int, frame_len: int, y_t: int, x_t: int,
           out_shape, device: torch.device, num_phases: int | None, word: int, taps: int,
           exact: bool, streams: int = 1) -> LaunchPlan:
-    rows = ROWS_PER_TILE_FM if balanced_walk(word) else ROWS_PER_TILE[sample_bytes]
+    rows = (ROWS_PER_TILE_FM if balanced_walk(word) else ROWS_PER_TILE)[sample_bytes]
     return launch_plan(int(n_samples), int(n_frames), int(frame_len), int(y_t), int(x_t),
                        (int(out_shape[0]), int(out_shape[1])), device, num_phases, sample_bytes,
                        word, taps, exact, rows, FILL_TILES_PER_SM, streams)
@@ -942,6 +968,42 @@ def fm_int16_words(words: torch.Tensor) -> torch.Tensor:
 
 
 fm_int16_words.launches = 0
+
+
+def fm_float32_words(words: torch.Tensor) -> torch.Tensor:
+    """The FM discriminator of interleaved float32 I/Q words sample by
+    sample, as K1's float32 FM load computes it (a lane a 16-byte word of
+    two pairs, the warp's vote between ``atan2f``'s operations without its
+    branches and ``atan2f`` itself, ``csrc/resample.cu`` ``fm_f32_word``):
+    equal to ``words_envelope_plain(words, "fm")`` to the bit.  On a CUDA
+    tensor one launch of ``tt_fm_float32``; on the CPU the plain version.
+    No path of the port calls it: the card's tests, ``chip_smoke.py`` and
+    ``exp/k1_atan2_f32.py`` hold it against the plain version on every
+    sample of a block, where K1 shows only the samples its pixels read."""
+    if words.dtype != torch.float32 or words.dim() != 1:
+        raise TypeError(
+            f"fm_float32_words takes 1-D float32 words, got {words.dtype} {words.dim()}-D")
+    if words.device.type == "cpu":
+        return words_envelope_plain(words, "fm")
+    if words.device.type != "cuda" or not words.is_contiguous() or words.data_ptr() % 8:
+        raise ValueError("fm_float32_words takes contiguous CUDA or CPU words, on CUDA "
+                         "8-byte aligned")
+    from .. import _build
+
+    n = words.shape[0] // 2
+    out = torch.empty(n, dtype=torch.float32, device=words.device)
+    if n == 0:
+        return out
+    with _current(words.device):
+        rc = _build.load_library("resample").tt_fm_float32(
+            words.data_ptr(), n, out.data_ptr(), _stream(words.device))
+    if rc != 0:
+        raise RuntimeError(f"tt_fm_float32 failed with cudaError_t {rc}")
+    fm_float32_words.launches += 1
+    return out
+
+
+fm_float32_words.launches = 0
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,4 +1,4 @@
-"""K1's balanced walk over its tiles, the int16 FM load's (``csrc/resample.cu``
+"""K1's balanced walk over its tiles, the FM loads' (``csrc/resample.cu``
 ``walk_start``, ``walk_tile``, ``walk_next``; ``ops/resample_kernel.py``
 ``balanced_walk``, ``walk_tiles``): the launch's rows, frame after frame,
 cut into one range a block, ranges that differ by one row at most, each
@@ -41,11 +41,14 @@ def cuda_device():
 
 
 def test_only_int16_fm_words_take_the_balanced_walk():
-    codes = {(dtype, demod, bf16): rk.word_code(dtype, demod, bf16)[0]
+    """FM words take the balanced walk, int16 and (since the float32 FM
+    load's redesign) float32, rounded and inverted or not; AM words and the
+    envelope the strided one."""
+    codes = {(dtype, demod, bf16, invert): rk.word_code(dtype, demod, bf16, invert)[0]
              for dtype in (torch.int16, torch.float32) for demod in ("am", "fm")
-             for bf16 in (False, True)}
-    for (dtype, demod, _), code in codes.items():
-        assert rk.balanced_walk(code) == (dtype == torch.int16 and demod == "fm")
+             for bf16 in (False, True) for invert in (False, True)}
+    for (dtype, demod, _, _), code in codes.items():
+        assert rk.balanced_walk(code) == (demod == "fm")
     assert not rk.balanced_walk(0)   # the envelope
 
 
@@ -56,6 +59,11 @@ def test_only_int16_fm_words_take_the_balanced_walk():
     (1, 600, 8, 660),     # fewer rows than blocks: some blocks have none
     (3, 7, 4, 5),         # ranges across several frames
     (2, 48, 8, 13),       # a few more tiles than blocks
+    # float32 words: their plan's rows, two to four blocks an SM.
+    (36, 600, rk.ROWS_PER_TILE_FM[8], 264),   # the slice: 81.8 rows a block
+    (36, 600, rk.ROWS_PER_TILE_FM[8], 528),
+    (11, 600, rk.ROWS_PER_TILE_FM[8], 396),   # 640x480 at 32 Msps
+    (1, 600, rk.ROWS_PER_TILE_FM[8], 528),
 ])
 def test_the_walk_renders_every_row_once_in_even_shares(n_frames, h, rows, blocks):
     """Every (frame, row) in exactly one tile of one block; a tile of at most
@@ -78,20 +86,37 @@ def test_the_walk_renders_every_row_once_in_even_shares(n_frames, h, rows, block
     assert max(shares) == -(-total // blocks)
 
 
+@pytest.mark.parametrize("sample_bytes", [4, 8], ids=["int16", "float32"])
 @pytest.mark.parametrize("geometry", list(GEOMETRIES))
 @pytest.mark.parametrize("taps", [2, 4])
-def test_the_balanced_plan_holds_the_run_from_any_row(geometry, taps):
+def test_the_balanced_plan_holds_the_run_from_any_row(geometry, taps, sample_bytes):
     """The stage buffer of the balanced walk holds the run of the plan's rows
     from every row, by a plain reckoning over the line tables, and the plan
     keeps its rows where the strided plan would halve them to fill the
-    card."""
+    card; int16 and float32 words, each with its rows a tile (float32 fewer
+    where the SM would hold too few blocks)."""
     name, fs = GEOMETRIES[geometry]
     mode = ALL_VIDEO_MODES[name]
     frame_len = int(np.floor(fs / mode.refresh))
     raster = (frame_len, mode.height, mode.width, (600, 800))
     reach = sum(rk.line_reach(taps, True))
-    rows, cap = rk.tile_plan(*raster, 4, reach, taps, balanced=True)
-    assert rows == rk.ROWS_PER_TILE_FM
+    rows, cap = rk.tile_plan(*raster, sample_bytes, reach, taps, balanced=True)
+    if sample_bytes == 4:
+        assert rows == rk.ROWS_PER_TILE_FM[4]
+    else:
+        # float32: ROWS_PER_TILE_FM's rows where an SM holds FM_MIN_BLOCKS
+        # blocks of the plan's shared memory (stages and envelope, 20 bytes a
+        # sample, and the kernel's static tables), else fewer: 5 rows at the
+        # slice, 4 at 640x480 at 32 Msps, where 5 would leave one block an SM.
+        static = 768 if taps == 2 else 2 * 768 + 16
+
+        def blocks(r):
+            need = rk.tile_run_cap(*raster, r, reach, True) * 20 + static
+            return rk.SM_SHARED_BYTES // (need + rk.BLOCK_RESERVED_BYTES)
+
+        assert rows == {"1080p60_20Msps": 5, "640x480_32Msps": 4}[geometry]
+        assert blocks(rows) >= rk.FM_MIN_BLOCKS or rows == rk.ROWS_PER_TILE[8]
+        assert rows == rk.ROWS_PER_TILE_FM[8] or blocks(rows + 1) < rk.FM_MIN_BLOCKS
     geom = rk.screen_geometry(*raster, torch.device("cpu"))
     starts = geom.line_start.numpy().astype(np.int64)
     need = max(int(starts[min(r + rows, 600) - 1, 1] + geom.span - starts[r, 0]) + reach
@@ -100,14 +125,15 @@ def test_the_balanced_plan_holds_the_run_from_any_row(geometry, taps):
     assert cap == rk.tile_run_cap(*raster, rows, reach, True)
     assert cap >= rk.tile_run_cap(*raster, rows, reach)
     # One frame on a card of 132 SMs: the strided plan halves its rows.
-    assert rk.tile_plan(*raster, 4, reach, taps, 1, 132, balanced=True)[0] == rows
-    assert rk.tile_plan(*raster, 4, reach, taps, 1, 132)[0] < rows
+    assert rk.tile_plan(*raster, sample_bytes, reach, taps, 1, 132, balanced=True)[0] == rows
+    assert rk.tile_plan(*raster, sample_bytes, reach, taps, 1, 132)[0] < rows
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int16, torch.float32], ids=["int16", "float32"])
 @pytest.mark.parametrize("taps", [2, 4])
 @pytest.mark.parametrize("n_frames", [1, 2, 14])
-def test_the_walk_on_the_card_renders_every_row(cuda_device, n_frames, taps):
+def test_the_walk_on_the_card_renders_every_row(cuda_device, n_frames, taps, dtype):
     """640x480 at 32 Msps: one frame (600 rows, fewer than the card's
     blocks), two frames, and 14 frames (8,400 rows: 21-22 a block at 3
     blocks an SM on 132 SMs, a few more than three tiles of 7 rows), the
@@ -119,7 +145,8 @@ def test_the_walk_on_the_card_renders_every_row(cuda_device, n_frames, taps):
     frame_len = int(np.floor(spf))
     n = int(np.ceil((n_frames + 1) * spf))
     rng = np.random.default_rng(9)
-    words = torch.from_numpy(rng.integers(-32768, 32768, 2 * n).astype(np.int16)).to(cuda_device)
+    words = torch.from_numpy(rng.integers(-32768, 32768, 2 * n).astype(np.int16)).to(
+        cuda_device, dtype)
     starts = torch.from_numpy(poff.carry_phase_starts(0.0, spf, n_frames)).to(cuda_device)
     raster = (frame_len, mode.height, mode.width, (600, 800))
     del_me = torch.full((n_frames, 600, 800), float("nan"), device=cuda_device)
