@@ -19,6 +19,8 @@ import threading
 
 import numpy as np
 
+from ..utils.profiling import annotate
+
 __all__ = ["load_host_core", "native_available", "NativeRing"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -116,7 +118,8 @@ class NativeRing:
             out = np.empty(self.block_size, np.complex64)
         view = self._as_float_view(out)
         t_ms = -1.0 if timeout is None else timeout * 1e3
-        ok = self._lib.ring_take(self._handle, _fptr(view), t_ms)
+        with annotate("ring.take"):
+            ok = self._lib.ring_take(self._handle, _fptr(view), t_ms)
         return out if ok else None
 
     def _as_float_view(self, a: np.ndarray) -> np.ndarray:

@@ -53,6 +53,7 @@ import functools
 
 import torch
 
+from ..utils.profiling import count
 from ..utils.roofline import report_launch
 from .framesync import _align_frame_plain, _align_frame_subpixel_plain, _interp_weights
 
@@ -264,6 +265,7 @@ def _launch(frames, s_y, s_x, ema, alpha, align, n_streams):
             units, stream)
     if rc != 0:
         raise RuntimeError(f"K3 launch failed with cudaError_t {rc}")
+    count("launches.k3")
     report_launch(*launch_cost(n, h, w, n_streams, align, taps > 0, fold))
     return (frames if aligned is None else aligned), ema_out
 

@@ -89,6 +89,7 @@ import functools
 import numpy as np
 import torch
 
+from ..utils.profiling import count
 from ..utils.roofline import report_launch
 from .demod import am_envelope_from_iq, fm_demod_from_iq, invert_envelope
 from .resample import RENDER_SIZE, _screen_geometry, round_to_bfloat16
@@ -703,6 +704,7 @@ def _launch(
         )
     if rc != 0:
         raise RuntimeError(f"K1 launch failed with cudaError_t {rc}")
+    count("launches.k1")
     report_launch(*plan.cost)
     return out
 
@@ -870,6 +872,7 @@ def words_maxima(words: torch.Tensor, demod: str = "am", streams: int = 1) -> to
                               out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"the block maximum's launch failed with cudaError_t {rc}")
+    count("launches.words_max")
     report_launch(*max_launch_cost(n, sample_bytes, code, streams))
     words_maxima.launches += 1
     return out
@@ -1082,6 +1085,7 @@ def frame_to_screen(
         rc = launch(address, sig.data_ptr(), n, res, out.data_ptr(), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"K1 launch of one frame failed with cudaError_t {rc}")
+    count("launches.k1")
     report_launch(*plan.cost)
     frame_to_screen.launches += 1
     return out
@@ -1239,6 +1243,7 @@ def frames_to_screens_candidates(
     if rc != 0:
         raise RuntimeError(f"K1 launch over {len(rasters)} candidates failed with "
                            f"cudaError_t {rc}")
+    count("launches.k1")
     report_launch(*candidates_launch_cost(env.shape[0], n_frames, table))
     frames_to_screens_candidates.launches += 1
     return out

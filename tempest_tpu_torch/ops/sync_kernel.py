@@ -48,6 +48,7 @@ import functools
 
 import torch
 
+from ..utils.profiling import count
 from ..utils.roofline import report_launch
 from .framesync import (
     _profiles,
@@ -284,6 +285,7 @@ def _launch(frames: torch.Tensor, y_min_frac: float, x_min_frac: float, method: 
               else lib.tt_blanking_sync_timed(*args, clocks.data_ptr()))
     if rc != 0:
         raise RuntimeError(f"K2 launch failed with cudaError_t {rc}")
+    count("launches.k2", 2)  # K2a and K2b
     # One report a kernel: K2a reads the screens and adds every pixel twice,
     # K2b does the rest of launch_cost's count.
     nbytes, flops = launch_cost(n_frames, h, w, y_min_frac, x_min_frac, subpixel)

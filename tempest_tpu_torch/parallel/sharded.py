@@ -77,6 +77,7 @@ from ..pipeline.offline import (
     make_reconstruct_fn,
 )
 from ..utils.device import as_tensor
+from ..utils.profiling import annotate, count, enabled
 from ..video.modes import VideoMode
 from .mesh import Mesh, block_sharding, replicated
 
@@ -358,17 +359,23 @@ def sharded_streaming_reconstruct_fn(config: ReconstructionConfig, mesh: Mesh, s
         phases = np.asarray(phases, np.float64)
         # Only what the windows read goes to the devices: the span, or its
         # first block_need samples when the span holds the whole window.
-        spans = block_sharding(mesh, axis).place(rows[:, : u * min(S, block_need)])
-        halos = mesh.comm.from_next([p[: u * overlap] for p in spans], axis)
+        with annotate("mesh.place"):
+            spans = block_sharding(mesh, axis).place(rows[:, : u * min(S, block_need)])
+        if enabled():
+            count("mesh.place.bytes", sum(p.nbytes for p in spans))
+        with annotate("mesh.halo"):
+            halos = mesh.comm.from_next([p[: u * overlap] for p in spans], axis)
         outs = []
         for (k, dev), span, halo in zip(mesh.shards(), spans, halos):
-            d = mesh.coord(k, axis)
-            if d == n_shards - 1:
-                halo = as_tensor(tail, dev)
-            ext = span[:window] if block_need <= S else torch.cat([span, halo])[:window]
-            outs.append(steps[dev](ext, torch.zeros(config.render_size, device=dev), alpha,
-                                   float(phases[d])))
-        return _time_shard_outputs(mesh, axis, outs, ema, alpha, config.n_frames)
+            with annotate("mesh.shard"):
+                d = mesh.coord(k, axis)
+                if d == n_shards - 1:
+                    halo = as_tensor(tail, dev)
+                ext = span[:window] if block_need <= S else torch.cat([span, halo])[:window]
+                outs.append(steps[dev](ext, torch.zeros(config.render_size, device=dev), alpha,
+                                       float(phases[d])))
+        with annotate("mesh.combine"):
+            return _time_shard_outputs(mesh, axis, outs, ema, alpha, config.n_frames)
 
     step.n_shards = n_shards
     step.n_frames = config.n_frames

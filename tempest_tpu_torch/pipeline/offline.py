@@ -69,6 +69,7 @@ device).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import typing
 
 import numpy as np
@@ -114,6 +115,7 @@ from ..ops.resample_kernel import (
 from ..ops.scan import _words, scan_band, scan_centers
 from ..utils.device import as_tensor as _as_tensor
 from ..utils.device import resolve_device
+from ..utils.profiling import annotate, count, enabled
 from ..video.modes import VideoMode, candidate_modes, find_closest_mode, find_configuration
 
 __all__ = [
@@ -653,11 +655,15 @@ def _upload_cuts(starts: np.ndarray, fracs: np.ndarray | None, device: torch.dev
     upload: the residuals' bits ride behind the starts in one int32 buffer,
     and both are views of it."""
     if fracs is None:
-        return torch.from_numpy(np.asarray(starts, np.int32)).to(device), None
+        host = np.asarray(starts, np.int32)
+    else:
+        host = np.concatenate([np.asarray(starts, np.int32),
+                               np.asarray(fracs, np.float32).view(np.int32)])
+    count("step.upload_cuts.bytes", host.nbytes)
+    buf = torch.from_numpy(host).to(device)
+    if fracs is None:
+        return buf, None
     n = len(starts)
-    buf = torch.from_numpy(np.concatenate([np.asarray(starts, np.int32),
-                                           np.asarray(fracs, np.float32).view(np.int32)]))
-    buf = buf.to(device)
     return buf[:n], buf[n:].view(torch.float32)
 
 
@@ -678,21 +684,29 @@ def make_reconstruct_fn(config: ReconstructionConfig, device: torch.device | str
     def _body(iq, ema, alpha, starts: np.ndarray, fracs: np.ndarray | None):
         iq = _as_tensor(iq, device)
         ema = _as_tensor(ema, device).to(torch.float32)
-        fstarts, frac_offsets = _upload_cuts(starts, fracs, device)
-        from_words = fuses_demod(config, iq)
-        return _process_and_fold(
-            iq if from_words else demodulate(iq, config), fstarts, config, frame_len, ema, alpha,
-            from_words=from_words, frac_offsets=frac_offsets)
+        with annotate("step.upload_cuts"):
+            fstarts, frac_offsets = _upload_cuts(starts, fracs, device)
+        with annotate("step.launch"):
+            from_words = fuses_demod(config, iq)
+            return _process_and_fold(
+                iq if from_words else demodulate(iq, config), fstarts, config, frame_len, ema,
+                alpha, from_words=from_words, frac_offsets=frac_offsets)
 
     if config.carry_phase:
 
         def step(iq, ema, alpha, phase):
-            return _body(iq, ema, alpha, *cuts(float(phase)))
+            with annotate("step"):
+                with annotate("step.cuts"):
+                    cut = cuts(float(phase))
+                return _body(iq, ema, alpha, *cut)
 
     else:
 
         def step(iq, ema, alpha):
-            return _body(iq, ema, alpha, *cuts())
+            with annotate("step"):
+                with annotate("step.cuts"):
+                    cut = cuts()
+                return _body(iq, ema, alpha, *cut)
 
     return step
 
@@ -775,42 +789,53 @@ def make_batched_reconstruct_fn(config: ReconstructionConfig, fuse: bool | None 
         if stream_cuts[0][1] is not None:
             fracs = np.stack([c[1] for c in stream_cuts]).astype(np.float32).reshape(-1)
         front = 0
-        if from_words:
-            # K1 clamps each stream's reads into its own block.
-            buf = iq_b[:, : 2 * (iq_b.shape[1] // 2)]
-            n_block = buf.shape[1] // 2
-        else:
-            buf = torch.stack([demodulate(iq_b[b], config) for b in range(n_streams)])
-            n_block = buf.shape[1]
-            front = lead if int(starts.min()) < lead else 0
-            back = max(int(starts.max()) + tail - n_block, 0)
-            if front or back:
-                # Repeat each block's first and last sample, as the
-                # single-stream kernel's index clamp does.
-                buf = torch.cat([buf[:, :1].repeat(1, front), buf,
-                                 buf[:, n_block - 1:].repeat(1, back)], dim=1)
-                n_block += front + back
+        # The streams' layout sets the cuts' offsets, so it comes before the
+        # cuts' upload, under a span of its own; the chain's launches after.
+        with annotate("step.layout"):
+            if from_words:
+                # K1 clamps each stream's reads into its own block.
+                buf = iq_b[:, : 2 * (iq_b.shape[1] // 2)]
+                n_block = buf.shape[1] // 2
+            else:
+                buf = torch.stack([demodulate(iq_b[b], config) for b in range(n_streams)])
+                n_block = buf.shape[1]
+                front = lead if int(starts.min()) < lead else 0
+                back = max(int(starts.max()) + tail - n_block, 0)
+                if front or back:
+                    # Repeat each block's first and last sample, as the
+                    # single-stream kernel's index clamp does.
+                    buf = torch.cat([buf[:, :1].repeat(1, front), buf,
+                                     buf[:, n_block - 1:].repeat(1, back)], dim=1)
+                    n_block += front + back
         if n_streams * n_block > np.iinfo(np.int32).max:
             raise ValueError(
                 f"{n_streams} streams of {n_block} samples do not fit K1's int32 frame "
                 "starts: serve them in smaller batches")
         offsets = np.arange(n_streams, dtype=np.int64)[:, None] * n_block + front
-        fstarts, frac_offsets = _upload_cuts((starts + offsets).reshape(-1), fracs, device)
-        ema_out, frames, sync, score = _process_and_fold(
-            buf.reshape(-1), fstarts, config, frame_len, ema_b, alpha, n_streams,
-            from_words=from_words, frac_offsets=frac_offsets)
+        with annotate("step.upload_cuts"):
+            fstarts, frac_offsets = _upload_cuts((starts + offsets).reshape(-1), fracs, device)
+        with annotate("step.launch"):
+            ema_out, frames, sync, score = _process_and_fold(
+                buf.reshape(-1), fstarts, config, frame_len, ema_b, alpha, n_streams,
+                from_words=from_words, frac_offsets=frac_offsets)
         return (ema_out, frames.reshape(n_streams, n_frames, h, w),
                 sync.reshape(n_streams, n_frames, 2), score.reshape(n_streams, n_frames))
 
     if config.carry_phase:
 
         def step(iq_b, ema_b, alpha, phases):
-            return _body(iq_b, ema_b, alpha, [cuts(float(p)) for p in np.asarray(phases)])
+            with annotate("step"):
+                with annotate("step.cuts"):
+                    stream_cuts = [cuts(float(p)) for p in np.asarray(phases)]
+                return _body(iq_b, ema_b, alpha, stream_cuts)
 
     else:
 
         def step(iq_b, ema_b, alpha):
-            return _body(iq_b, ema_b, alpha, [cuts()] * len(iq_b))
+            with annotate("step"):
+                with annotate("step.cuts"):
+                    stream_cuts = [cuts()] * len(iq_b)
+                return _body(iq_b, ema_b, alpha, stream_cuts)
 
     return step
 
@@ -849,13 +874,19 @@ def reconstruct_frames(
         n *= 2  # raw I/Q words, two per complex sample
     if iq.shape[-1] < n:
         raise ValueError(f"need {n} samples for {config.n_frames} frames, got {iq.shape[-1]}")
-    ema_out, frames, sync, score = step(iq[..., :n], ema0, alpha)
-    return Reconstruction(
-        image=ema_out.cpu().numpy(),
-        frames=frames.cpu().numpy(),
-        sync=sync.cpu().numpy(),
-        score=score.cpu().numpy(),
-    )
+    with annotate("offline.stage2"):
+        ema_out, frames, sync, score = step(iq[..., :n], ema0, alpha)
+    with annotate("offline.readback"):
+        recon = Reconstruction(
+            image=ema_out.cpu().numpy(),
+            frames=frames.cpu().numpy(),
+            sync=sync.cpu().numpy(),
+            score=score.cpu().numpy(),
+        )
+    if enabled():
+        count("offline.readback.bytes", recon.image.nbytes + recon.frames.nbytes
+              + recon.sync.nbytes + recon.score.nbytes)
+    return recon
 
 
 def auto_reconstruct(
@@ -895,62 +926,75 @@ def auto_reconstruct(
     within ``search_tol_hz`` of the measured refresh by sync contrast
     (``parallel.sharded.mode_search_static``) and keeps the winner — a
     safety net when the line-count estimate is ambiguous at low SNR."""
-    device = resolve_device(device)
-    if isinstance(iq, np.ndarray) and np.iscomplexobj(iq):
-        iq = np.ascontiguousarray(iq, np.complex64).view(np.float32)
-    sig = _as_tensor(iq, device)
-    # Real input is interleaved I/Q words: two words per complex sample.
-    interleaved = not sig.is_complex()
-    n_complex = sig.shape[0] // 2 if interleaved else sig.shape[0]
-    timing_sig, envelope = sig, False
-    if demod == "fm":
-        # One discriminator pass feeds the timing estimation; the
-        # reconstruction step demodulates its own block again
-        # (ReconstructionConfig.demod="fm"), which is negligible offline.
-        timing_sig, envelope = (fm_demod_from_iq(sig) if interleaved else fm_demod(sig)), True
-    if pick_line_peak is not None:
-        timing, evidence = timing_evidence(timing_sig, fs, corr_seconds, rate_min, rate_max,
-                                           envelope=envelope)
-        timing = _pick_line_peak_fn(timing, evidence, pick_line_peak)
-    else:
-        timing = estimate_timing(timing_sig, fs, corr_seconds, rate_min, rate_max,
-                                 envelope=envelope)
-    if alpha == "auto":
-        alpha = timing.suggested_alpha
-    if refine_with_search:
-        from ..parallel.sharded import mode_search_static
-
-        cands = candidate_modes(timing.refresh_hz, tol_hz=search_tol_hz)
-        if len(cands) > 1:
-            # The search scores an envelope: the discriminator's output, or
-            # the AM envelope of the words (a raw real array would be scored
-            # as an envelope that is demodulated already).
-            if envelope:
-                env = timing_sig
+    with annotate("offline.auto", request=next(_AUTO_CALLS)):
+        device = resolve_device(device)
+        if isinstance(iq, np.ndarray) and np.iscomplexobj(iq):
+            iq = np.ascontiguousarray(iq, np.complex64).view(np.float32)
+        with annotate("offline.upload"):
+            sig = _as_tensor(iq, device)
+        if isinstance(iq, np.ndarray):
+            count("offline.upload.bytes", iq.nbytes)
+        # Real input is interleaved I/Q words: two words per complex sample.
+        interleaved = not sig.is_complex()
+        n_complex = sig.shape[0] // 2 if interleaved else sig.shape[0]
+        # Stage 1 ends with the mode on the host.
+        with annotate("offline.stage1"):
+            timing_sig, envelope = sig, False
+            if demod == "fm":
+                # One discriminator pass feeds the timing estimation; the
+                # reconstruction step demodulates its own block again
+                # (ReconstructionConfig.demod="fm"), which is negligible offline.
+                timing_sig, envelope = ((fm_demod_from_iq(sig) if interleaved else fm_demod(sig)),
+                                        True)
+            if pick_line_peak is not None:
+                timing, evidence = timing_evidence(timing_sig, fs, corr_seconds, rate_min,
+                                                   rate_max, envelope=envelope)
+                timing = _pick_line_peak_fn(timing, evidence, pick_line_peak)
             else:
-                env = am_envelope_from_iq(sig) if interleaved else am_demod(sig)
-            res = mode_search_static(env, fs, timing.refresh_hz, cands, device=device)
-            best = res.best_mode
-            timing = dataclasses.replace(
-                timing, mode_name=res.names[res.best_index],
-                mode=VideoMode(best.width, best.height, timing.refresh_hz))
-    spf = fs / timing.mode.refresh
-    if n_frames is None:
-        n_frames = max(int((n_complex - 1) / spf), 1)
-    # Interpolation-order rule of the JAX package: Catmull-Rom only when the
-    # envelope is NOT undersampled relative to the raster (≥ 1 sample per
-    # raster pixel); below that it preserves alias energy that linear's
-    # stronger roll-off suppresses.
-    taps = 4 if spf / timing.mode.pixels_per_frame >= 1.0 else 2
-    config = ReconstructionConfig(
-        sample_rate=fs, mode=timing.mode, n_frames=n_frames, invert=invert,
-        align_subpixel=align_subpixel, interp_taps=taps, demod=demod,
-    )
-    recon = reconstruct_frames(sig, config, alpha=alpha, device=device)
-    if restore:
-        recon.image_raw = recon.image
-        recon.image = restore_image(recon.image, config, nsr=restore_nsr, device=device)
-    return timing, recon
+                timing = estimate_timing(timing_sig, fs, corr_seconds, rate_min, rate_max,
+                                         envelope=envelope)
+            if alpha == "auto":
+                alpha = timing.suggested_alpha
+            if refine_with_search:
+                from ..parallel.sharded import mode_search_static
+
+                cands = candidate_modes(timing.refresh_hz, tol_hz=search_tol_hz)
+                if len(cands) > 1:
+                    # The search scores an envelope: the discriminator's
+                    # output, or the AM envelope of the words (a raw real
+                    # array would be scored as an envelope that is
+                    # demodulated already).
+                    if envelope:
+                        env = timing_sig
+                    else:
+                        env = am_envelope_from_iq(sig) if interleaved else am_demod(sig)
+                    res = mode_search_static(env, fs, timing.refresh_hz, cands, device=device)
+                    best = res.best_mode
+                    timing = dataclasses.replace(
+                        timing, mode_name=res.names[res.best_index],
+                        mode=VideoMode(best.width, best.height, timing.refresh_hz))
+        spf = fs / timing.mode.refresh
+        if n_frames is None:
+            n_frames = max(int((n_complex - 1) / spf), 1)
+        # Interpolation-order rule of the JAX package: Catmull-Rom only when
+        # the envelope is NOT undersampled relative to the raster (≥ 1
+        # sample per raster pixel); below that it preserves alias energy
+        # that linear's stronger roll-off suppresses.
+        taps = 4 if spf / timing.mode.pixels_per_frame >= 1.0 else 2
+        config = ReconstructionConfig(
+            sample_rate=fs, mode=timing.mode, n_frames=n_frames, invert=invert,
+            align_subpixel=align_subpixel, interp_taps=taps, demod=demod,
+        )
+        recon = reconstruct_frames(sig, config, alpha=alpha, device=device)
+        if restore:
+            with annotate("offline.restore"):
+                recon.image_raw = recon.image
+                recon.image = restore_image(recon.image, config, nsr=restore_nsr, device=device)
+        return timing, recon
+
+
+# Running number of ``auto_reconstruct`` calls: the request id of their spans.
+_AUTO_CALLS = itertools.count()
 
 
 # ------------------------------------------------- multi-harmonic entries

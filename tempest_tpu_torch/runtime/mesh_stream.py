@@ -47,6 +47,7 @@ import torch
 from ..ops.scan import _channel_geometry
 from ..parallel.mesh import Mesh, ProcessGroupCollectives
 from ..parallel.sharded import sharded_streaming_combine_front, sharded_streaming_reconstruct_fn
+from ..utils.profiling import annotate
 from ..video.modes import VideoMode
 from .sources import SampleSource
 from .stream import FrameSink, StreamingRuntime
@@ -86,7 +87,8 @@ class MeshStreamingRuntime(StreamingRuntime):
     ) -> None:
         self.mesh = mesh
         self._mesh_axis = axis
-        # (payload, absolute position, the combine weights of that block)
+        # (payload, absolute position, the combine weights of that block,
+        # its production sequence)
         self._pending: tuple | None = None
         self._mesh_front = None
         self.dispatched = 0          # blocks dispatched by the last process_blocks
@@ -169,62 +171,55 @@ class MeshStreamingRuntime(StreamingRuntime):
         spf_chain = self._spf * self._phase_scale
         dispatched = 0
         while dispatched < n_blocks:
-            buf = np.empty(block, np.complex64)
-            if self.ring.take(buf) is None:
-                if self._producer_error is not None:
-                    raise RuntimeError("sample source failed") from self._producer_error
-                break
-            seq = getattr(self.ring, "last_seq", -1)
-            if seq >= 0:
-                abs_this = self._abs_base + seq * block
-            elif self._pending is not None:
-                abs_this = self._pending[1] + block
-            else:
-                abs_this = self.abs_pos
-            weights = None
-            if self._mesh_front is not None:
-                # Fuse THIS block's carriers now; the envelope stays on the
-                # device as the pending payload (its head is also the tail
-                # of the block dispatched below).
-                payload, w, pol, mass = self._mesh_front(
-                    torch.from_numpy(buf.view(np.float32)).to(self.device))
-                weights = (w, pol, mass)
-            else:
-                payload = buf
-            if self._pending is not None:
-                prev, ppos, prev_weights = self._pending
-                # Phases stay float64 on the host, as the single-device
-                # runtime computes them block by block.
-                if self._mesh_front is not None:
-                    rows = prev[: n_shards * S].reshape(n_shards, S)
-                    tail = payload[:ov]
-                    ph0 = ((-ppos) % self._spf) * self._phase_scale
-                    phases = [(ph0 - d * S) % spf_chain for d in range(n_shards)]
+            # A block's span is the dispatch of the pending block, under its
+            # sequence, and the take of the next.
+            with annotate("runtime.block") as span:
+                buf = np.empty(block, np.complex64)
+                if self.ring.take(buf) is None:
+                    if self._producer_error is not None:
+                        raise RuntimeError("sample source failed") from self._producer_error
+                    break
+                seq = getattr(self.ring, "last_seq", -1)
+                if seq >= 0:
+                    abs_this = self._abs_base + seq * block
+                elif self._pending is not None:
+                    abs_this = self._pending[1] + block
                 else:
-                    rows = prev.view(np.float32).reshape(n_shards, 2 * S)
-                    tail = np.ascontiguousarray(buf[:ov]).view(np.float32)
-                    phases = [(-(ppos + d * S)) % self._spf for d in range(n_shards)]
-                ema, frames, sync, score = step(rows, tail, ema, self.alpha, phases)
-                # The weights of the block whose envelope was just dispatched.
-                self.combine_weights = prev_weights
-                self.abs_pos = ppos + block
-                self.frames_out += frames.shape[0]
-                dispatched += 1
-                if sink is not None:
-                    info = {
-                        "sync": sync.cpu().numpy(),
-                        "score": score.cpu().numpy(),
-                        "mode": self._mode,
-                        "frames_out": self.frames_out,
-                    }
-                    if self.corr_spark:
-                        info["spark"] = self.corr_spark
-                    if emit_every_frame:
-                        for f in frames.cpu().numpy():
-                            sink(f, info)
+                    abs_this = self.abs_pos
+                weights = None
+                if self._mesh_front is not None:
+                    # Fuse THIS block's carriers now; the envelope stays on
+                    # the device as the pending payload (its head is also
+                    # the tail of the block dispatched below).
+                    payload, w, pol, mass = self._mesh_front(
+                        torch.from_numpy(buf.view(np.float32)).to(self.device))
+                    weights = (w, pol, mass)
+                else:
+                    payload = buf
+                if self._pending is not None:
+                    prev, ppos, prev_weights, span.request = self._pending
+                    # Phases stay float64 on the host, as the single-device
+                    # runtime computes them block by block.
+                    if self._mesh_front is not None:
+                        rows = prev[: n_shards * S].reshape(n_shards, S)
+                        tail = payload[:ov]
+                        ph0 = ((-ppos) % self._spf) * self._phase_scale
+                        phases = [(ph0 - d * S) % spf_chain for d in range(n_shards)]
                     else:
-                        sink(ema.cpu().numpy(), info)
-            self._pending = (payload, abs_this, weights)
+                        rows = prev.view(np.float32).reshape(n_shards, 2 * S)
+                        tail = np.ascontiguousarray(buf[:ov]).view(np.float32)
+                        phases = [(-(ppos + d * S)) % self._spf for d in range(n_shards)]
+                    with annotate("runtime.dispatch"):
+                        ema, frames, sync, score = step(rows, tail, ema, self.alpha, phases)
+                    # The weights of the block whose envelope was just
+                    # dispatched.
+                    self.combine_weights = prev_weights
+                    self.abs_pos = ppos + block
+                    self.frames_out += frames.shape[0]
+                    dispatched += 1
+                    if sink is not None:
+                        self._sink(sink, ema, frames, sync, score, emit_every_frame)
+                self._pending = (payload, abs_this, weights, seq)
         self.ema = ema
         self.dispatched = dispatched
         self.dispatched_total += dispatched

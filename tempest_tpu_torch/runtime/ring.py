@@ -26,6 +26,8 @@ import time
 
 import numpy as np
 
+from ..utils.profiling import annotate
+
 __all__ = ["RateMeter", "RingBuffer"]
 
 
@@ -89,47 +91,73 @@ class RingBuffer:
     # ------------------------------------------------------------- producer
     def put(self, block: np.ndarray) -> None:
         """Copy one block in; overwrite the oldest unread block when full
-        (reference ``circ_put!``, ``AtomicAbstractSDRs.jl:161-172``)."""
+        (reference ``circ_put!``, ``AtomicAbstractSDRs.jl:161-172``).  Its
+        span ``ring.put`` holds ``ring.put.wait`` (the lock) and
+        ``ring.put.copy``."""
         if block.shape[0] != self.block_size:
             raise ValueError(
                 f"block has {block.shape[0]} samples, ring expects {self.block_size}"
             )
-        with self._nonempty:
-            np.copyto(self._arena[self._write], block, casting="same_kind")
-            self._write = (self._write + 1) % self.depth
-            if self._count == self.depth:
-                self._overflows += 1  # oldest block silently overwritten
-            else:
-                self._count += 1
-            self._produced += 1
-            self._nonempty.notify()
+        with annotate("ring.put"):
+            with annotate("ring.put.wait"):
+                self._lock.acquire()
+            try:
+                with annotate("ring.put.copy"):
+                    np.copyto(self._arena[self._write], block, casting="same_kind")
+                self._write = (self._write + 1) % self.depth
+                if self._count == self.depth:
+                    self._overflows += 1  # oldest block silently overwritten
+                else:
+                    self._count += 1
+                self._produced += 1
+                self._nonempty.notify()
+            finally:
+                self._lock.release()
         self.producer.tick(self.block_size)
 
     # ------------------------------------------------------------- consumer
     def take(self, out: np.ndarray | None = None, timeout: float | None = None):
         """Copy the oldest unread block out; blocks until available.
         Returns the array, or None if the ring was closed while waiting
-        (reference ``circ_take!``, ``AtomicAbstractSDRs.jl:178-190``)."""
-        with self._nonempty:
-            ok = self._nonempty.wait_for(
-                lambda: self._count > 0 or self._closed, timeout
-            )
-            if not ok or (self._count == 0 and self._closed):
-                return None
-            read = (self._write - self._count) % self.depth
-            if out is None:
-                out = np.empty(self.block_size, np.complex64)
-            np.copyto(out, self._arena[read])
-            # Unread blocks are always the most recent `count` puts (overwrite
-            # drops the oldest), so the delivered block's production sequence
-            # is produced - count.  Consumers use this to keep their absolute
-            # stream position (and hence the carry phase) honest across
-            # overflow drops — blind `pos += block_size` accounting shears the
-            # frame grid by block_size % spf per dropped block.
-            self.last_seq = self._produced - self._count
-            self._count -= 1
+        (reference ``circ_take!``, ``AtomicAbstractSDRs.jl:178-190``).  Its
+        span ``ring.take``, under the block's sequence, holds
+        ``ring.take.wait`` (the lock and the wait for a block) and
+        ``ring.take.copy``."""
+        with annotate("ring.take") as span:
+            with annotate("ring.take.wait"):
+                ok = self._wait_ready(timeout)
+            try:
+                if not ok or (self._count == 0 and self._closed):
+                    return None
+                read = (self._write - self._count) % self.depth
+                if out is None:
+                    out = np.empty(self.block_size, np.complex64)
+                with annotate("ring.take.copy"):
+                    np.copyto(out, self._arena[read])
+                # Unread blocks are always the most recent `count` puts
+                # (overwrite drops the oldest), so the delivered block's
+                # production sequence is produced - count.  Consumers use this
+                # to keep their absolute stream position (and hence the carry
+                # phase) honest across overflow drops — blind `pos +=
+                # block_size` accounting shears the frame grid by block_size %
+                # spf per dropped block.
+                self.last_seq = span.request = self._produced - self._count
+                self._count -= 1
+            finally:
+                self._lock.release()
         self.consumer.tick(self.block_size)
         return out
+
+    def _wait_ready(self, timeout: float | None) -> bool:
+        """Take the lock and wait until a block is there or the ring is
+        closed (False when ``timeout`` ran out first); returns holding the
+        lock."""
+        self._lock.acquire()
+        try:
+            return self._nonempty.wait_for(lambda: self._count > 0 or self._closed, timeout)
+        except BaseException:
+            self._lock.release()
+            raise
 
     # -------------------------------------------------------------- control
     def close(self) -> None:

@@ -48,6 +48,7 @@ from ..pipeline.offline import (
 )
 from ..render.plots import sparkline
 from ..utils.device import resolve_device
+from ..utils.profiling import annotate, count, enabled, summary
 from ..video.modes import VideoMode, find_closest_mode
 from .ring import RingBuffer
 from .sources import SampleSource
@@ -436,50 +437,70 @@ class StreamingRuntime:
         a host array; the device copy stays on ``self.ema``."""
         ema = self.ema
         for _ in range(n_blocks):
-            # A FRESH host buffer per block.  The copy below is a blocking
-            # one from pageable memory; if it ever becomes non_blocking from
-            # pinned memory, a reused buffer could be overwritten by the next
-            # ring.take while its copy is still in flight.
-            buf = np.empty(self.source.block_size, np.complex64)
-            if self.ring.take(buf) is None:
-                if self._producer_error is not None:
-                    raise RuntimeError("sample source failed") from self._producer_error
-                break
-            self._resync_abs_pos()
-            # Fractional offset of the next absolute frame boundary (frames
-            # tick at multiples of spf from stream start) inside this block.
-            phase = (-self.abs_pos) % self._spf
-            words = buf[: self._upload_samples].view(np.float32)
-            iq = torch.from_numpy(words).to(self.device)
-            if self._combine_front is not None:
-                # Channelise + MRC-fuse on the device; the envelope feeds the
-                # chain at the channel rate without a host round trip.  The
-                # phase is scaled to channel samples BEFORE the step takes
-                # its frame starts and residuals from it.
-                env, w, pol, mass = self._combine_front(iq)
-                self.combine_weights = (w, pol, mass)
-                ema, frames, sync, score = self._step(
-                    env, ema, self.alpha, phase * self._phase_scale)
-            else:
-                ema, frames, sync, score = self._step(iq, ema, self.alpha, phase)
-            self.abs_pos += self.source.block_size
-            self.frames_out += frames.shape[0]
-            if sink is not None:
-                info = {
-                    "sync": sync.cpu().numpy(),
-                    "score": score.cpu().numpy(),
-                    "mode": self._mode,
-                    "frames_out": self.frames_out,
-                }
-                if self.corr_spark:
-                    info["spark"] = self.corr_spark
-                if emit_every_frame:
-                    for f in frames.cpu().numpy():
-                        sink(f, info)
-                else:
-                    sink(ema.cpu().numpy(), info)
+            with annotate("runtime.block") as span:
+                # A FRESH host buffer per block.  The copy below is a
+                # blocking one from pageable memory; if it ever becomes
+                # non_blocking from pinned memory, a reused buffer could be
+                # overwritten by the next ring.take while its copy is still
+                # in flight.
+                buf = np.empty(self.source.block_size, np.complex64)
+                if self.ring.take(buf) is None:
+                    if self._producer_error is not None:
+                        raise RuntimeError("sample source failed") from self._producer_error
+                    break
+                if enabled():
+                    span.request = self.ring.last_seq
+                self._resync_abs_pos()
+                # Fractional offset of the next absolute frame boundary
+                # (frames tick at multiples of spf from stream start) inside
+                # this block.
+                phase = (-self.abs_pos) % self._spf
+                words = buf[: self._upload_samples].view(np.float32)
+                with annotate("runtime.upload"):
+                    iq = torch.from_numpy(words).to(self.device)
+                count("runtime.upload.bytes", words.nbytes)
+                with annotate("runtime.step"):
+                    if self._combine_front is not None:
+                        # Channelise + MRC-fuse on the device; the envelope
+                        # feeds the chain at the channel rate without a host
+                        # round trip.  The phase is scaled to channel samples
+                        # BEFORE the step takes its frame starts and residuals
+                        # from it.
+                        env, w, pol, mass = self._combine_front(iq)
+                        self.combine_weights = (w, pol, mass)
+                        ema, frames, sync, score = self._step(
+                            env, ema, self.alpha, phase * self._phase_scale)
+                    else:
+                        ema, frames, sync, score = self._step(iq, ema, self.alpha, phase)
+                self.abs_pos += self.source.block_size
+                self.frames_out += frames.shape[0]
+                if sink is not None:
+                    self._sink(sink, ema, frames, sync, score, emit_every_frame)
         self.ema = ema
         return ema.cpu().numpy()
+
+    def _sink(self, sink: FrameSink, ema, frames, sync, score, emit_every_frame: bool) -> None:
+        """A block's outputs to the host and the sink: the EMA image, or
+        with ``emit_every_frame`` each frame, with the block's info."""
+        with annotate("runtime.sink"):
+            info = {
+                "sync": sync.cpu().numpy(),
+                "score": score.cpu().numpy(),
+                "mode": self._mode,
+                "frames_out": self.frames_out,
+            }
+            if self.corr_spark:
+                info["spark"] = self.corr_spark
+            if emit_every_frame:
+                images = frames.cpu().numpy()
+                for f in images:
+                    sink(f, info)
+            else:
+                images = ema.cpu().numpy()
+                sink(images, info)
+        if enabled():
+            count("runtime.sink.bytes",
+                  info["sync"].nbytes + info["score"].nbytes + images.nbytes)
 
     # ------------------------------------------------------------- tasks
     def _gather_window(self, seconds: float) -> np.ndarray:
@@ -737,8 +758,10 @@ class StreamingRuntime:
     # --------------------------------------------------- failure detection
     def health(self) -> dict:
         """Liveness/health snapshot: producer thread state, ring
-        backlog/overflow, source error, throughput, and the combine front's
-        carriers and last weights."""
+        backlog/overflow, source error, throughput, the combine front's
+        carriers and last weights, and while the tracer is on
+        (``utils.profiling``) its ``summary()`` over the spans and counts it
+        keeps."""
         if hasattr(self.ring, "producer"):
             _, prod_msps = self.ring.producer.rates()
             _, cons_msps = self.ring.consumer.rates()
@@ -772,6 +795,7 @@ class StreamingRuntime:
             "realtime_factor": round(
                 cons_msps * 1e6 / self.source.sample_rate, 3
             ) if self.source.sample_rate else None,
+            "trace": summary() if enabled() else None,
         }
 
     def summary(self) -> str:

@@ -1,6 +1,7 @@
 """The port's jax-free host modules are byte copies of the JAX package's, and
 importing the port pulls in no jax."""
 
+import ast
 import difflib
 import subprocess
 import sys
@@ -24,18 +25,46 @@ COPIES = [
 ]
 
 
+# Copies whose named functions the port rewrote to record its spans
+# (``utils.profiling``), with the import that takes them: the rest of the
+# file is the original's, line for line.  The port's ring keeps the
+# original's semantics (``tests/test_torch_tracing.py`` runs the JAX
+# package's ring cases on it).
+TRACED = {
+    "runtime/ring.py": ({"put", "take", "_wait_ready"},
+                        "from ..utils.profiling import annotate"),
+}
+
+
+def _outside(text: str, names: set, extra: str) -> list[str]:
+    """The non-blank lines of ``text`` outside the functions ``names``,
+    without the line ``extra``."""
+    inside = set()
+    for node in ast.walk(ast.parse(text)):
+        if isinstance(node, ast.FunctionDef) and node.name in names:
+            inside.update(range(node.lineno - 1, node.end_lineno))
+    return [l for i, l in enumerate(text.splitlines())
+            if i not in inside and l.strip() and l != extra]
+
+
 @pytest.mark.parametrize("rel", COPIES)
 def test_copy_is_byte_identical(rel):
     original = (ROOT / "tempest_tpu" / rel).read_bytes()
     copy = (ROOT / "tempest_tpu_torch" / rel).read_bytes()
+    if rel in TRACED:
+        names, extra = TRACED[rel]
+        assert (_outside(copy.decode(), names, extra)
+                == _outside(original.decode(), names, extra)), rel
+        return
     assert copy == original, f"tempest_tpu_torch/{rel} differs from tempest_tpu/{rel}"
 
 
 def test_native_loader_differs_only_in_where_it_builds():
-    """``native/__init__.py`` is the original but for one thing: the library
-    is built under the package's git-ignored ``_build/`` instead of beside
-    the sources (the path, the directory's creation, and the three docstring
-    lines that name the place and the package)."""
+    """``native/__init__.py`` is the original but for two things: the
+    library is built under the package's git-ignored ``_build/`` instead of
+    beside the sources (the path, the directory's creation, and the three
+    docstring lines that name the place and the package), and the ring's
+    take is the program's span ``ring.take``."""
     original = (ROOT / "tempest_tpu/native/__init__.py").read_text().splitlines()
     copy = (ROOT / "tempest_tpu_torch/native/__init__.py").read_text().splitlines()
     diff = [l for l in difflib.unified_diff(original, copy, lineterm="", n=0)
@@ -46,11 +75,16 @@ def test_native_loader_differs_only_in_where_it_builds():
         "+through ctypes.  If no",
         "-implementations (``tempest_tpu.runtime.ring``) — same semantics, GIL held.",
         "+implementations (``tempest_tpu_torch.runtime.ring``) — same semantics, GIL held.",
+        "+from ..utils.profiling import annotate",
+        "+",
         '-_LIB = os.path.join(_HERE, "libhost_core.so")',
         '+_LIB = os.path.join(os.path.dirname(_HERE), "_build", "libhost_core.so")',
         "+    os.makedirs(os.path.dirname(_LIB), exist_ok=True)",
         "-    ``tempest_tpu.runtime.ring.RingBuffer`` (put/take/close/overflows).\"\"\"",
         "+    ``tempest_tpu_torch.runtime.ring.RingBuffer`` (put/take/close/overflows).\"\"\"",
+        "-        ok = self._lib.ring_take(self._handle, _fptr(view), t_ms)",
+        '+        with annotate("ring.take"):',
+        "+            ok = self._lib.ring_take(self._handle, _fptr(view), t_ms)",
     ]
 
 
