@@ -875,18 +875,34 @@ def reconstruct_frames(
     if iq.shape[-1] < n:
         raise ValueError(f"need {n} samples for {config.n_frames} frames, got {iq.shape[-1]}")
     with annotate("offline.stage2"):
-        ema_out, frames, sync, score = step(iq[..., :n], ema0, alpha)
+        outs = step(iq[..., :n], ema0, alpha)
     with annotate("offline.readback"):
-        recon = Reconstruction(
-            image=ema_out.cpu().numpy(),
-            frames=frames.cpu().numpy(),
-            sync=sync.cpu().numpy(),
-            score=score.cpu().numpy(),
-        )
+        arrays, pinned = _read_back(outs)
+        recon = Reconstruction(*arrays)  # image (the EMA), frames, sync, score
     if enabled():
-        count("offline.readback.bytes", recon.image.nbytes + recon.frames.nbytes
-              + recon.sync.nbytes + recon.score.nbytes)
+        count("offline.readback.bytes", sum(a.nbytes for a in arrays))
+        count("offline.readback.pinned.bytes", pinned)
     return recon
+
+
+def _read_back(tensors) -> tuple[list[np.ndarray], int]:
+    """``tensors`` (all on one device) as host arrays, and the bytes read
+    into pinned memory.
+
+    From the card each tensor is copied into a pinned tensor of PyTorch's
+    caching host allocator, all on the current stream with one
+    synchronisation after them, and its array is a view that keeps the
+    tensor: the block goes back to the allocator's cache when the caller
+    drops the array, and one the caller still holds is never handed out
+    again.  On the CPU the arrays are views of the tensors themselves."""
+    device = tensors[0].device
+    if device.type != "cuda":
+        return [t.cpu().numpy() for t in tensors], 0
+    host = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors]
+    for h, t in zip(host, tensors):
+        h.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(device).synchronize()
+    return [h.numpy() for h in host], sum(h.nbytes for h in host)
 
 
 def auto_reconstruct(

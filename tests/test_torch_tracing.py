@@ -244,6 +244,7 @@ def test_auto_reconstruct_stages_and_bytes():
     assert counters["offline.upload.bytes"] == 2 * cap.nbytes
     readback = sum(a.nbytes for a in (recon.image_raw, recon.frames, recon.sync, recon.score))
     assert counters["offline.readback.bytes"] == 2 * readback
+    assert counters["offline.readback.pinned.bytes"] == 0  # the CPU: views, no pinned copy
 
 
 @pytest.mark.parametrize("ranges", ["fast", "record_function"])
