@@ -11,6 +11,7 @@ cell, configuration, entry or metric is a new file and no edit:
   (``prepare``, ``measure``, ``collect``, ``verify``);
 * ``metrics/<metric>.py``: one metric's reader, ``read(run) -> float | None``;
 * ``limits/<cell>.json``: the limit of each number a cell's check compares;
+* ``small/<cell>.json``: the cell's size and window for the CPU tests;
 * ``layers.json``: which device operations belong to which layer, and which
   functions of the port a traced run wraps in spans.
 """
@@ -22,7 +23,7 @@ import importlib.util
 import json
 from pathlib import Path
 
-__all__ = ["HERE", "Cell", "Benchmark", "load", "load_json", "load_module"]
+__all__ = ["HERE", "Cell", "Benchmark", "load", "load_json", "load_module", "small"]
 
 HERE = Path(__file__).resolve().parent
 
@@ -102,6 +103,16 @@ def load(root: Path | None = None) -> Benchmark:
     package's folder)."""
     root = Path(root) if root is not None else HERE.parent
     return Benchmark(root, load_json(root / "BENCHMARK.json"))
+
+
+def small(name: str) -> dict:
+    """The CPU tests' small size of cell ``name``: ``{"config": {...},
+    "traffic": {...}, "seconds": s}``, overrides of its configuration's and
+    traffic's entries (``Benchmark.cell``'s ``overrides``) and the window."""
+    path = HERE / "small" / f"{name}.json"
+    if not path.is_file():
+        raise FileNotFoundError(f"no small size of cell {name!r}: no file {path}")
+    return load_json(path)
 
 
 def metric_reader(name: str):

@@ -16,22 +16,10 @@ import torch
 from portbench import registry
 from portbench.run import run_cell
 
-# Small sizes of each cell for the CPU: a lower rate (the same modes and
-# chains), fewer blocks, smaller screens where the entry point takes them.
-SMALL = {
-    "live1080-resident": {"config": {"sample_rate": 2e6, "render_size": [60, 80]},
-                          "traffic": {"warm_steps": 2, "n_frames": 6, "loop_blocks": 3,
-                                      "traced_steps": 4}},
-    "capture640-auto": {"config": {"sample_rate": 2e6, "seconds": 0.3},
-                        "traffic": {"warm_calls": 1, "traced_calls": 1}},
-    "live1080-mesh4": {"config": {"sample_rate": 2e6, "render_size": [60, 80]},
-                       "traffic": {"loop_blocks": 2, "warm_blocks": 3, "traced_blocks": 3}},
-}
-# Window seconds here: long enough for a few blocks of the mesh's four CPU
-# shards on a loaded machine.
-SECONDS = {"live1080-mesh4": 3.0}
 SEED = 2**33 + 12345
 KEYS = {"correct", "attempted", "failed", "metrics", "device", "checks"}
+# Traffic keys that the harness reads itself (``run.py``), in any cell.
+HARNESS_TRAFFIC = {"torch_threads"}
 
 
 def cells() -> list[str]:
@@ -40,19 +28,25 @@ def cells() -> list[str]:
     return [w["name"] for w in registry.load().spec["workloads"]]
 
 
-def small(name: str) -> dict:
-    return SMALL[name]
-
-
 def run(name: str, seed: int, trace: bool = False, **kw):
-    """One run of ``name`` on the CPU at its small size."""
-    return run_cell(name, seed, SECONDS.get(name, 0.5), trace, device="cpu",
-                    overrides=small(name), **kw)
+    """One run of ``name`` on the CPU at its small size and window
+    (``small/<cell>.json``)."""
+    s = registry.small(name)
+    return run_cell(name, seed, s["seconds"], trace, device="cpu", overrides=s, **kw)
 
 
 @pytest.mark.parametrize("name", cells())
 def test_every_cell_has_a_small_size_here(name):
-    assert name in SMALL
+    """``small/<cell>.json`` is there, and each key it overrides is a key of
+    the cell's configuration or traffic file (or one the harness reads): a
+    misspelt key would otherwise leave the full size in place unseen."""
+    s = registry.small(name)
+    assert set(s) == {"config", "traffic", "seconds"}, sorted(s)
+    cell = registry.load().cell(name)
+    assert set(s["config"]) <= set(cell.config), set(s["config"]) - set(cell.config)
+    traffic = set(cell.traffic) | HARNESS_TRAFFIC
+    assert set(s["traffic"]) <= traffic, set(s["traffic"]) - traffic
+    assert s["seconds"] > 0
 
 
 @pytest.mark.parametrize("name", cells())

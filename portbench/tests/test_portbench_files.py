@@ -52,6 +52,7 @@ def test_names_units_and_files():
         traffic = registry.load_json(registry.HERE / "traffic" / f"{w['traffic']}.json")
         assert (registry.HERE / "entries" / f"{traffic['entry']}.py").is_file()
         assert (registry.HERE / "limits" / f"{w['name']}.json").is_file()
+        assert (registry.HERE / "small" / f"{w['name']}.json").is_file()
 
 
 def test_every_cell_reports_setup_and_another_metric_and_a_layer_metric():
@@ -66,10 +67,10 @@ def test_every_cell_reports_setup_and_another_metric_and_a_layer_metric():
 
 def test_a_run_loads_no_jax_and_no_jax_package():
     loaded = _modules_after(
+        "from portbench import registry\n"
         "from portbench.run import run_cell\n"
-        "from portbench.tests.test_portbench_cells import SMALL\n"
         "run_cell('live1080-resident', 7, 0.3, False, device='cpu', "
-        "overrides=SMALL['live1080-resident'])")
+        "overrides=registry.small('live1080-resident'))")
     assert "tempest_tpu_torch" in loaded
     assert not loaded & FORBIDDEN
 
