@@ -652,8 +652,10 @@ def phase_offline_wideband(tp, torch, dev, card: str, reset_counts):
     ifft_ms = wall_ms(torch, lambda: torch.fft.ifft(chans, dim=1))
     envs = pscan._demod_rows(chans, "am")
     score_ms = wall_ms(torch, lambda: pscan._comb_contrast(envs, fs_chan, 0.1, 50.0, 90.0))
-    floor_ms = wall_ms(torch, lambda: pscan._noise_floor(fs_chan, m_chan, 0.1, 50.0, 90.0,
-                                                         device=dev))
+    # Measured afresh each time: a repeated geometry's floor is a lookup.
+    floor_ms = wall_ms(torch, lambda: (pscan._measured_floor.cache_clear(),
+                                       pscan._noise_floor(fs_chan, m_chan, 0.1, 50.0, 90.0,
+                                                          device=dev)))
     draws_ms = wall_ms(torch, lambda: pscan.noise_floor_draws(m_chan), calls=1)
     print(f"[scan_band] {scan_ms:.2f} ms for {len(centers)} channels, words on the card "
           f"(upload of {host_words.nbytes / 1e6:.1f} MB: {upload_ms:.2f} ms); its parts: "

@@ -43,9 +43,11 @@ import typing
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate, count
 from .demod import fm_demod_rows
 from .scan import (
     _channel_geometry,
+    _channel_part,
     _channelize_complex,
     _comb_score,
     _words,
@@ -245,13 +247,16 @@ def _combine_on_device(iq, fs, centers_hz, chan_bw, corr_seconds, rate_min, rate
     ``(envelope tensor, CombineResult fields without the envelope)``.  The
     capture is channelised once; the two-pass ``"auto"`` fuses the same
     demodulated channels twice."""
-    words = _words(iq, device)
+    words = _words(_channel_part(iq), device)
     centers = np.atleast_1d(np.asarray(centers_hz, np.float64))
     _, _, fs_chan = _channel_geometry(int(words.shape[0]) // 2, fs, chan_bw)
-    amp = _channel_envelopes(words, float(fs), centers, float(chan_bw), demod, excise_db)
+    count("combine.carriers", len(centers))
+    with annotate("combine.channels"):
+        amp = _channel_envelopes(words, float(fs), centers, float(chan_bw), demod, excise_db)
     args = (amp, float(fs_chan), float(corr_seconds), float(rate_min), float(rate_max),
             weighting)
-    env, w, pol, mass_db, fv = _fuse(*args, None if refresh_hz == "auto" else refresh_hz)
+    with annotate("combine.fuse"):
+        env, w, pol, mass_db, fv = _fuse(*args, None if refresh_hz == "auto" else refresh_hz)
     if refresh_hz == "auto" and weighting == "mrc":
         # Pass 1 keeps the honest per-channel diagnostics (mass, refresh);
         # pass 2 re-weights at the anchor's refresh, quantised to an integer
@@ -260,7 +265,8 @@ def _combine_on_device(iq, fs, centers_hz, chan_bw, corr_seconds, rate_min, rate
         # lags.
         fv_anchor = float(fv[torch.argmax(mass_db)])
         fv_anchor = fs_chan / round(fs_chan / fv_anchor)
-        env, w, pol, _, _ = _fuse(*args, fv_anchor)
+        with annotate("combine.fuse"):
+            env, w, pol, _, _ = _fuse(*args, fv_anchor)
     fields = dict(
         fs_channel=float(fs_chan),
         centers_hz=centers,

@@ -41,11 +41,13 @@ dwell frequencies and scores each dwell with ``carrier_score``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 from ..utils.device import as_tensor
+from ..utils.profiling import annotate, count
 from .autocorr import _lerp, _median, _widen_peaks, autocorrelation, estimate_refresh
 from .demod import am_power_from_iq, fm_demod_rows
 
@@ -178,9 +180,39 @@ def _noise_floor(fs, n_env: int, corr_seconds, rate_min, rate_max,
     Deterministic and channel-independent: ONE floor per sweep geometry.
     ``draws`` is the number of surrogates (drawn by
     :func:`noise_floor_draws`), or the normals themselves as a
-    (draws, 2, n_env) tensor."""
-    z = draws if isinstance(draws, torch.Tensor) else noise_floor_draws(n_env, draws)
-    z = as_tensor(z.to(torch.float32), device if device is not None else z.device)
+    (draws, 2, n_env) tensor.
+
+    Drawn from a fixed seed, the floor is a function of its arguments: a
+    count of draws is measured once per geometry and device in a process
+    (:func:`_measured_floor`) and returned as a new host tensor after that,
+    so a sweep repeated on one geometry no longer draws and uploads the
+    8·n_env normals again."""
+    if not isinstance(draws, torch.Tensor):
+        dev = torch.device(device if device is not None else "cpu")
+        return torch.tensor(_measured_floor(float(fs), int(n_env), float(corr_seconds),
+                                            float(rate_min), float(rate_max), int(harmonics),
+                                            int(draws), str(demod), dev))
+    return _floor_of_draws(draws, fs, corr_seconds, rate_min, rate_max, harmonics, demod, device)
+
+
+@functools.lru_cache(maxsize=16)
+def _measured_floor(fs: float, n_env: int, corr_seconds: float, rate_min: float,
+                    rate_max: float, harmonics: int, draws: int, demod: str,
+                    device: torch.device) -> float:
+    """:func:`_noise_floor` of ``draws`` surrogates from
+    :func:`noise_floor_draws`, measured on the first call of each geometry
+    and device; ``_measured_floor.cache_clear()`` forgets them."""
+    z = noise_floor_draws(n_env, draws)
+    count("scan.floor.draws", z.numel())
+    return float(_floor_of_draws(z, fs, corr_seconds, rate_min, rate_max, harmonics, demod,
+                                 device))
+
+
+def _floor_of_draws(draws: torch.Tensor, fs, corr_seconds, rate_min, rate_max, harmonics,
+                    demod, device) -> torch.Tensor:
+    """The largest prominence of the surrogates made of ``draws``
+    (draws, 2, n_env), scored on ``device`` (``None``: where they lie)."""
+    z = as_tensor(draws.to(torch.float32), device if device is not None else draws.device)
     if demod == "fm":
         env = fm_demod_rows(torch.complex(z[:, 0, :], z[:, 1, :]))
     else:
@@ -281,6 +313,17 @@ def _selection_prominence(lin, fs, rate_min, rate_max, harmonics, offset_db=None
     mass_db = _db(comb - med, offset_db)
     prominence = mass_db - _db(mad, offset_db)
     return mass_db, prominence, fv
+
+
+def _channel_part(iq):
+    """The part of a capture (interleaved words, or complex samples) that
+    the channeliser reads, its first N complex samples (N: the capture's FFT
+    length, :func:`_channel_geometry`): a host capture uploads that part
+    alone, since the rest never enters a channel."""
+    is_complex = iq.is_complex() if isinstance(iq, torch.Tensor) else np.iscomplexobj(iq)
+    n = int(iq.shape[0]) if is_complex else int(iq.shape[0]) // 2
+    n_fft = _fft_pow2_len(n)
+    return iq[:n_fft] if is_complex else iq[: 2 * n_fft]
 
 
 def _words(iq, device) -> torch.Tensor:
@@ -387,8 +430,12 @@ def _channelize_complex(
     inverse FFT (see :func:`_excise_spikes`)."""
     n_c = iq_words.shape[0] // 2
     N, M, fs_chan = _channel_geometry(n_c, fs, chan_bw)
-    bands = _band_slices(_spectrum(iq_words, N), _band_starts(centers_hz, fs, N, M), M)
-    return _channels_from_bands(bands, N, excise_db), fs_chan
+    with annotate("scan.spectrum"):
+        spec = _spectrum(iq_words, N)
+    with annotate("scan.channels"):
+        bands = _band_slices(spec, _band_starts(centers_hz, fs, N, M), M)
+        del spec
+        return _channels_from_bands(bands, N, excise_db), fs_chan
 
 
 def _spectrum(iq_words: torch.Tensor, n_fft: int) -> torch.Tensor:
@@ -508,20 +555,29 @@ def scan_band(
     over the carrier peak, dB — :func:`_excise_spikes`); AM only.
     """
     check_excise_demod(demod, excise_db)
-    words = _words(iq_words, device)
-    centers = np.atleast_1d(np.asarray(centers_hz, np.float64))
-    chans, fs_chan = _channelize_complex(
-        words, float(fs), centers, float(chan_bw),
-        excise_db=None if excise_db is None else float(excise_db))
-    scores, proms, fvs = _comb_contrast(_demod_rows(chans, demod), fs_chan,
-                                        float(corr_seconds), float(rate_min), float(rate_max))
-    floor = _noise_floor(fs_chan, chans.shape[1], float(corr_seconds), float(rate_min),
-                         float(rate_max), demod=demod, device=words.device)
+    with annotate("scan.band"):
+        words = _words(_channel_part(iq_words), device)
+        centers = np.atleast_1d(np.asarray(centers_hz, np.float64))
+        count("scan.channels", len(centers))
+        count("scan.fft.points", _fft_pow2_len(words.shape[0] // 2))
+        chans, fs_chan = _channelize_complex(
+            words, float(fs), centers, float(chan_bw),
+            excise_db=None if excise_db is None else float(excise_db))
+        # The scores and the floor each end on the host.
+        with annotate("scan.score"):
+            scores, proms, fvs = (
+                t.cpu().numpy().astype(np.float64)
+                for t in _comb_contrast(_demod_rows(chans, demod), fs_chan, float(corr_seconds),
+                                        float(rate_min), float(rate_max)))
+        with annotate("scan.floor"):
+            floor = float(_noise_floor(fs_chan, chans.shape[1], float(corr_seconds),
+                                       float(rate_min), float(rate_max), demod=demod,
+                                       device=words.device))
     return ScanResult(
         centers_hz=centers,
-        scores_db=scores.cpu().numpy().astype(np.float64),
-        prominence_db=proms.cpu().numpy().astype(np.float64),
-        refresh_hz=fvs.cpu().numpy().astype(np.float64),
+        scores_db=scores,
+        prominence_db=proms,
+        refresh_hz=fvs,
         fs_channel=fs_chan,
-        floor_db=np.full(len(centers), float(floor)),
+        floor_db=np.full(len(centers), floor),
     )

@@ -112,7 +112,7 @@ from ..ops.resample_kernel import (
     frames_to_screens_from_words,
     line_reach,
 )
-from ..ops.scan import _words, scan_band, scan_centers
+from ..ops.scan import _channel_part, _words, scan_band, scan_centers
 from ..utils.device import as_tensor as _as_tensor
 from ..utils.device import resolve_device
 from ..utils.profiling import annotate, count, enabled
@@ -1045,8 +1045,10 @@ def combined_reconstruct(
     (same screen, different harmonic) contributes its best channel.
     Returns ``(timing, reconstruction, combine_result)``.
 
-    The capture goes to the device once and stays there through the scan,
-    the fusion and the reconstruction; the fused envelope reaches K1's
+    The part of the capture that the channeliser reads (its first N
+    complex samples, N the largest power of two it holds) goes to the
+    device once and stays there through the scan, the fusion and the
+    reconstruction; the fused envelope reaches K1's
     envelope entry as a device tensor, and ``combine_result.envelope`` is
     its host copy.
 
@@ -1059,20 +1061,32 @@ def combined_reconstruct(
     RECOVERS a hit channel where the robust MRC alone can only refuse to
     weight it.  See ``ops.scan._excise_spikes`` for why the carrier-relative
     criterion cannot touch the emission's own comb."""
-    words = _words(iq, resolve_device(device))
-    if centers_hz is None:
-        screens = discover_screens(words, fs, chan_bw, corr_seconds, rate_min, rate_max,
-                                   min_margin_db, demod=demod)
-        if not screens:
-            raise ValueError(
-                "no emissions detected in the band; pass centers_hz "
-                "explicitly or lower min_margin_db")
-        centers_hz = [e["best_channel_hz"] for e in screens[0]]
-    env, fields = _combine_on_device(words, fs, centers_hz, chan_bw, corr_seconds, rate_min,
-                                     rate_max, weighting, "auto", demod, excise_db, None)
-    comb = CombineResult(envelope=env.cpu().numpy().astype(np.float32), **fields)
-    return _reconstruct_from_combine(comb, env, n_frames, alpha, invert, corr_seconds,
-                                     rate_min, rate_max, restore, restore_nsr, mode)
+    with annotate("offline.combined", request=next(_COMBINED_CALLS)):
+        with annotate("offline.upload"):
+            part = _channel_part(iq)
+            words = _words(part, resolve_device(device))
+        if isinstance(part, np.ndarray):
+            count("offline.upload.bytes", part.nbytes)
+        if centers_hz is None:
+            screens = discover_screens(words, fs, chan_bw, corr_seconds, rate_min, rate_max,
+                                       min_margin_db, demod=demod)
+            if not screens:
+                raise ValueError(
+                    "no emissions detected in the band; pass centers_hz "
+                    "explicitly or lower min_margin_db")
+            centers_hz = [e["best_channel_hz"] for e in screens[0]]
+        with annotate("offline.combine"):
+            env, fields = _combine_on_device(words, fs, centers_hz, chan_bw, corr_seconds,
+                                             rate_min, rate_max, weighting, "auto", demod,
+                                             excise_db, None)
+            comb = CombineResult(envelope=env.cpu().numpy().astype(np.float32), **fields)
+        count("offline.combine.envelope.bytes", comb.envelope.nbytes)
+        return _reconstruct_from_combine(comb, env, n_frames, alpha, invert, corr_seconds,
+                                         rate_min, rate_max, restore, restore_nsr, mode)
+
+
+# Running number of ``combined_reconstruct`` calls: the request id of their spans.
+_COMBINED_CALLS = itertools.count()
 
 
 def _reconstruct_from_combine(comb, envelope, n_frames, alpha, invert, corr_seconds, rate_min,
@@ -1083,12 +1097,14 @@ def _reconstruct_from_combine(comb, envelope, n_frames, alpha, invert, corr_seco
     ``mode`` overrides the detected video mode (the manual-mode path of the
     plain chain, for captures too degraded to auto-detect)."""
     device = envelope.device
-    timing = estimate_timing(envelope, comb.fs_channel, corr_seconds, rate_min, rate_max,
-                             envelope=True)
-    if mode is not None:
-        name = (find_configuration(mode)
-                or f"{mode.width}x{mode.height} @ {mode.refresh:g}Hz")
-        timing = dataclasses.replace(timing, mode=mode, mode_name=name)
+    # Stage 1 ends with the mode on the host.
+    with annotate("offline.stage1"):
+        timing = estimate_timing(envelope, comb.fs_channel, corr_seconds, rate_min, rate_max,
+                                 envelope=True)
+        if mode is not None:
+            name = (find_configuration(mode)
+                    or f"{mode.width}x{mode.height} @ {mode.refresh:g}Hz")
+            timing = dataclasses.replace(timing, mode=mode, mode_name=name)
     if alpha == "auto":
         alpha = timing.suggested_alpha
     spf = comb.fs_channel / timing.mode.refresh
@@ -1103,8 +1119,9 @@ def _reconstruct_from_combine(comb, envelope, n_frames, alpha, invert, corr_seco
     )
     recon = reconstruct_frames(envelope, config, alpha=alpha, device=device)
     if restore:
-        recon.image_raw = recon.image
-        recon.image = restore_image(recon.image, config, nsr=restore_nsr, device=device)
+        with annotate("offline.restore"):
+            recon.image_raw = recon.image
+            recon.image = restore_image(recon.image, config, nsr=restore_nsr, device=device)
     return timing, recon, comb
 
 
@@ -1181,8 +1198,9 @@ def reconstruct_all_emissions(
     multi-harmonic ``combined_reconstruct`` per screen.  Returns a list of
     ``(timing, reconstruction, combine_result)`` ordered by emission
     strength — two monitors in one capture give two images, each fused
-    from all of that monitor's harmonics.  The capture is uploaded once."""
-    words = _words(iq, resolve_device(device))
+    from all of that monitor's harmonics.  The part of the capture that the
+    channeliser reads is uploaded once."""
+    words = _words(_channel_part(iq), resolve_device(device))
     screens = discover_screens(words, fs, chan_bw, corr_seconds, rate_min, rate_max,
                                min_margin_db, refresh_group_hz, demod=demod)
     out = []

@@ -605,7 +605,7 @@ class StreamingRuntime:
         Detection is CALIBRATED like the offline sweep: the measured noise
         selection floor of the dwell's own window geometry (white-noise
         surrogates through the identical estimator at the per-block length,
-        ``ops.scan._noise_floor``) is computed once per scan, so a dwell's
+        ``ops.scan._noise_floor``) is measured once per geometry, so a dwell's
         margin-over-floor is comparable with an offline ``scan_band`` of
         the same geometry.
 

@@ -255,6 +255,32 @@ def test_combined_reconstruct_matches_jax(capture, single_carrier, discover):
     assert abs(gain_p - gain_j) < 0.2, (gain_p, gain_j)
 
 
+def test_combined_reconstruct_of_int16_words_is_that_of_their_float32(capture):
+    """A recording's host int16 words (as an SDR writes them) give the
+    carriers, polarity, weights, mode and images that the same words as
+    float32 give: the scan and the fusion cast the words they read to
+    float32 on the device, so the two runs differ at most by float32
+    rounding."""
+    words = np.ascontiguousarray(capture.iq).view(np.float32) * 4096.0
+    assert np.abs(words).max() < 32767
+    w16 = np.round(words).astype(np.int16)
+    t16, r16, c16 = poff.combined_reconstruct(w16, FS, None, chan_bw=BW, alpha=0.7,
+                                              device="cpu")
+    t32, r32, c32 = poff.combined_reconstruct(w16.astype(np.float32), FS, None, chan_bw=BW,
+                                              alpha=0.7, device="cpu")
+    assert t16.mode_name == t32.mode_name == "640x480 @ 60Hz"
+    assert t16.refresh_hz == t32.refresh_hz
+    np.testing.assert_array_equal(c16.centers_hz, c32.centers_hz)
+    assert len(c16.centers_hz) == 2
+    np.testing.assert_array_equal(c16.polarity, c32.polarity)
+    np.testing.assert_allclose(c16.weights, c32.weights, rtol=1e-6, atol=0)
+    np.testing.assert_allclose(c16.envelope, c32.envelope, rtol=0,
+                               atol=1e-6 * np.abs(c32.envelope).max())
+    for a, b in ((r16.image, r32.image), (r16.image_raw, r32.image_raw)):
+        assert a.shape == b.shape == (600, 800)
+        assert np.abs(a - b).max() <= 1e-6 * (b.max() - b.min())
+
+
 def test_combine_manual_mode_override_and_no_emission(capture):
     """An explicit ``mode`` replaces the detected one and keeps the fusion;
     discovery on noise raises as the JAX entry does."""

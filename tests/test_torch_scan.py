@@ -237,12 +237,58 @@ def test_noise_floor_of_the_ports_own_draws():
     ref = float(jscan._noise_floor(fs_chan, n_env, 0.05, 50.0, 90.0))
     got = float(pscan._noise_floor(fs_chan, n_env, 0.05, 50.0, 90.0, device="cpu"))
     assert abs(got - ref) < 3.0 and 4.0 < got < 14.0, (got, ref)
+    pscan._measured_floor.cache_clear()  # measure it again, not the memo
     assert got == float(pscan._noise_floor(fs_chan, n_env, 0.05, 50.0, 90.0, device="cpu"))
     short = float(pscan._noise_floor(fs_chan, 1 << 15, 0.008, 50.0, 90.0, device="cpu"))
     assert short > got + 1.0, (short, got)
     draws = pscan.noise_floor_draws(64)
     assert draws.shape == (4, 2, 64) and draws.device.type == "cpu"
     torch.testing.assert_close(draws, pscan.noise_floor_draws(64), rtol=0, atol=0)
+
+
+def test_noise_floor_is_measured_once_per_geometry(monkeypatch):
+    """A count of draws is drawn and scored on the first call of a geometry
+    alone; later calls return that floor, which is the floor of the same
+    draws scored afresh.  Another geometry or demodulation draws anew."""
+    n_env, fs_chan = 1 << 15, 2e6
+    original, drawn = pscan.noise_floor_draws, []
+
+    def counted(n, draws=4):
+        drawn.append(n)
+        return original(n, draws)
+
+    pscan._measured_floor.cache_clear()
+    monkeypatch.setattr(pscan, "noise_floor_draws", counted)
+    first = pscan._noise_floor(fs_chan, n_env, 0.05, 50.0, 90.0, device="cpu")
+    again = pscan._noise_floor(fs_chan, n_env, 0.05, 50.0, 90.0, device=torch.device("cpu"))
+    assert drawn == [n_env] and float(again) == float(first)
+    fresh = pscan._noise_floor(fs_chan, n_env, 0.05, 50.0, 90.0,
+                               draws=original(n_env))
+    assert float(fresh) == float(first)
+    pscan._noise_floor(fs_chan, n_env, 0.05, 50.0, 90.0, demod="fm", device="cpu")
+    pscan._noise_floor(fs_chan, n_env // 2, 0.05, 50.0, 90.0, device="cpu")
+    assert drawn == [n_env, n_env, n_env // 2]
+    pscan._measured_floor.cache_clear()
+    assert float(pscan._noise_floor(fs_chan, n_env, 0.05, 50.0, 90.0)) == float(first)
+    assert drawn == [n_env, n_env, n_env // 2, n_env]
+
+
+@pytest.mark.parametrize("form", ["words", "complex"])
+def test_the_channel_part_is_all_the_scan_reads(capture, centers, form):
+    """``_channel_part`` keeps the first N complex samples (N the capture's
+    FFT length), and the band scan of that part is the scan of the whole."""
+    iq = np.asarray(capture, np.complex64)[: 2_345_678]
+    n_fft = pscan._fft_pow2_len(len(iq))
+    whole = iq.view(np.float32) if form == "words" else iq
+    part = pscan._channel_part(whole)
+    assert part.shape[0] == (2 * n_fft if form == "words" else n_fft)
+    assert np.shares_memory(part, whole)
+    assert pscan._channel_part(torch.from_numpy(whole)).shape == part.shape
+    a = pscan.scan_band(whole, FS, centers, chan_bw=BW, corr_seconds=0.05, device="cpu")
+    b = pscan.scan_band(part, FS, centers, chan_bw=BW, corr_seconds=0.05, device="cpu")
+    for field in ("scores_db", "prominence_db", "refresh_hz", "floor_db"):
+        np.testing.assert_array_equal(getattr(a, field), getattr(b, field))
+    assert a.fs_channel == b.fs_channel
 
 
 def test_carrier_score_matches_jax(capture):

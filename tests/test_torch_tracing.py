@@ -24,10 +24,12 @@ import torch
 import tempest_tpu_torch as tp
 from tempest_tpu_torch import _build
 from tempest_tpu_torch.ops import align_kernel, resample_kernel, sync_kernel
+from tempest_tpu_torch.ops import scan as pscan
 from tempest_tpu_torch.parallel.mesh import make_mesh
 from tempest_tpu_torch.pipeline.offline import (
     ReconstructionConfig,
     auto_reconstruct,
+    combined_reconstruct,
     make_batched_reconstruct_fn,
     make_reconstruct_fn,
 )
@@ -41,6 +43,7 @@ MODE = tp.ALL_VIDEO_MODES["640x480 @ 60Hz"]
 FS = 2e6
 SHAPE = (60, 80)
 BLOCK = int(FS * 0.25)
+WIDE_FS, WIDE_BW = 8e6, 2e6
 STEP_SPANS = {"step", "step.cuts", "step.upload_cuts", "step.launch"}
 
 
@@ -103,6 +106,15 @@ def _capture():
                       np.complex64)
 
 
+def _wide_capture():
+    """Two harmonics of one screen, the weaker inverted, in 0.3 s at 8 Msps:
+    the smallest capture in which the band scan finds both."""
+    cap = tp.generate_iq_harmonics(MODE, WIDE_FS, int(WIDE_FS * 0.3), [-2.4e6, 1.8e6],
+                                   amplitudes=[1.0, 0.7], depths=[0.8, -0.8], snr_db=6.0,
+                                   seed=5)
+    return np.asarray(cap.iq, np.complex64)
+
+
 def _blocks(count, seed=12):
     iq = tp.generate_iq(MODE, FS, count * BLOCK, snr_db=20.0, seed=seed).iq
     return np.asarray(iq, np.complex64).reshape(count, BLOCK)
@@ -135,7 +147,7 @@ def _by_name(recs):
 
 # ----------------------------------------------------------------- off
 @pytest.mark.parametrize("path", ["step", "batched_step", "ring", "auto_reconstruct",
-                                  "runtime", "mesh_runtime"])
+                                  "combined_reconstruct", "runtime", "mesh_runtime"])
 def test_off_records_nothing_and_opens_no_range(path, monkeypatch):
     _no_ranges(monkeypatch)
     assert not profiling.enabled()
@@ -149,6 +161,9 @@ def test_off_records_nothing_and_opens_no_range(path, monkeypatch):
         assert ring.take()[0] == 1
     elif path == "auto_reconstruct":
         auto_reconstruct(_capture(), FS, device="cpu")
+    elif path == "combined_reconstruct":
+        combined_reconstruct(_wide_capture(), WIDE_FS, None, chan_bw=WIDE_BW, alpha=0.7,
+                             device="cpu")
     else:
         _stream(_runtime(mesh=path == "mesh_runtime"), _blocks(2), sink=lambda img, info: None)
     assert profiling.records() == []
@@ -245,6 +260,59 @@ def test_auto_reconstruct_stages_and_bytes():
     readback = sum(a.nbytes for a in (recon.image_raw, recon.frames, recon.sync, recon.score))
     assert counters["offline.readback.bytes"] == 2 * readback
     assert counters["offline.readback.pinned.bytes"] == 0  # the CPU: views, no pinned copy
+
+
+def test_combined_reconstruct_stages_and_counters():
+    """One ``offline.combined`` a call, its stages nested in it in order,
+    the band scan's and the fusion's parts in theirs, and the counters of
+    the geometry, the draws and the bytes."""
+    pscan._measured_floor.cache_clear()  # the first call measures the floor
+    profiling.enable()
+    cap = _wide_capture()
+    out = [combined_reconstruct(cap, WIDE_FS, None, chan_bw=WIDE_BW, alpha=0.7, device="cpu")
+           for _ in range(2)]
+    recs = _by_name(profiling.records())
+    calls = recs["offline.combined"]
+    assert len(calls) == 2 and calls[1].request == calls[0].request + 1
+    assert all(r.parent == -1 for r in calls)
+    call_ids = [c.id for c in calls]
+    for name in ("offline.upload", "scan.band", "offline.combine", "offline.stage1",
+                 "offline.stage2", "offline.readback", "offline.restore"):
+        assert [r.parent for r in recs[name]] == call_ids, name
+        assert [r.request for r in recs[name]] == [c.request for c in calls], name
+    scans = [r.id for r in recs["scan.band"]]
+    for name in ("scan.score", "scan.floor"):
+        assert [r.parent for r in recs[name]] == scans, name
+    combines = [r.id for r in recs["offline.combine"]]
+    assert [r.parent for r in recs["combine.channels"]] == combines
+    # The capture's FFT and the channels: once in the scan, once for the fusion.
+    channelised = sorted(scans + [r.id for r in recs["combine.channels"]])
+    for name in ("scan.spectrum", "scan.channels"):
+        assert sorted(r.parent for r in recs[name]) == channelised, name
+    assert [r.parent for r in recs["combine.fuse"]] == [c for c in combines for _ in (0, 1)]
+    stage2 = {r.id for r in recs["offline.stage2"]}
+    assert {r.parent for r in recs["step"]} == stage2
+    order = ["offline.upload", "scan.band", "offline.combine", "offline.stage1",
+             "offline.stage2", "offline.readback", "offline.restore"]
+    firsts = [recs[name][0].t0 for name in order]
+    assert firsts == sorted(firsts)
+    n_fft, m_chan, fs_chan = pscan._channel_geometry(len(cap), WIDE_FS, WIDE_BW)
+    centers = pscan.scan_centers(WIDE_FS, WIDE_BW / 2, WIDE_BW / 2)
+    comb = out[0][2]
+    counters = profiling.summary()["counters"]
+    assert fs_chan == comb.fs_channel
+    assert counters["scan.channels"] == 2 * len(centers)
+    assert counters["scan.fft.points"] == 2 * n_fft
+    # The floor's normals are drawn once for the geometry; the second call reuses the floor.
+    assert counters["scan.floor.draws"] == 4 * 2 * m_chan
+    assert counters["combine.carriers"] == 2 * len(comb.centers_hz)
+    assert counters["offline.combine.envelope.bytes"] == 2 * comb.envelope.nbytes
+    # Uploaded: the first n_fft samples, all that the channeliser reads.
+    assert n_fft < len(cap)
+    assert counters["offline.upload.bytes"] == 2 * cap[:n_fft].nbytes
+    readback = sum(a.nbytes for a in (out[0][1].image_raw, out[0][1].frames, out[0][1].sync,
+                                      out[0][1].score))
+    assert counters["offline.readback.bytes"] == 2 * readback
 
 
 @pytest.mark.parametrize("ranges", ["fast", "record_function"])
