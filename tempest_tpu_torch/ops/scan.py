@@ -46,7 +46,7 @@ import functools
 import numpy as np
 import torch
 
-from ..utils.device import as_tensor
+from ..utils.device import as_tensor, staged_upload
 from ..utils.profiling import annotate, count
 from .autocorr import _lerp, _median, _widen_peaks, autocorrelation, estimate_refresh
 from .demod import am_power_from_iq, fm_demod_rows
@@ -328,10 +328,14 @@ def _channel_part(iq):
 
 def _words(iq, device) -> torch.Tensor:
     """Interleaved float32 I/Q words on the device: host complex input is
-    viewed as words (the upload stays real), a complex tensor likewise."""
-    if isinstance(iq, np.ndarray) and np.iscomplexobj(iq):
-        iq = np.ascontiguousarray(iq, np.complex64).view(np.float32)
-    iq = as_tensor(iq, device)
+    viewed as words (the upload stays real), a complex tensor likewise.  A
+    host array goes up through :func:`staged_upload`."""
+    if isinstance(iq, np.ndarray):
+        if np.iscomplexobj(iq):
+            iq = np.ascontiguousarray(iq, np.complex64).view(np.float32)
+        iq = staged_upload(iq, device)
+    else:
+        iq = as_tensor(iq, device)
     if iq.is_complex():
         iq = torch.view_as_real(iq.to(torch.complex64).contiguous()).reshape(-1)
     return iq

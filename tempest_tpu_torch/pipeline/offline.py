@@ -114,7 +114,7 @@ from ..ops.resample_kernel import (
 )
 from ..ops.scan import _channel_part, _words, scan_band, scan_centers
 from ..utils.device import as_tensor as _as_tensor
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, staged_upload
 from ..utils.profiling import annotate, count, enabled
 from ..video.modes import VideoMode, candidate_modes, find_closest_mode, find_configuration
 
@@ -947,7 +947,10 @@ def auto_reconstruct(
         if isinstance(iq, np.ndarray) and np.iscomplexobj(iq):
             iq = np.ascontiguousarray(iq, np.complex64).view(np.float32)
         with annotate("offline.upload"):
-            sig = _as_tensor(iq, device)
+            if isinstance(iq, np.ndarray):
+                sig = staged_upload(iq, device)
+            else:
+                sig = _as_tensor(iq, device)
         if isinstance(iq, np.ndarray):
             count("offline.upload.bytes", iq.nbytes)
         # Real input is interleaved I/Q words: two words per complex sample.
