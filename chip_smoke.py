@@ -175,6 +175,7 @@ demod fused and as a separate pass.  The last line of standard output is
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -596,14 +597,12 @@ def hold_envelope_entry(tp, torch, env, starts, fracs, raster, label: str) -> No
           and rel < K1_REL_TOL, f"K1's envelope entry, {label}, agrees with its plain version")
 
 
-def phase_offline_wideband(tp, torch, dev, card: str, reset_counts):
+def phase_offline_wideband(tp, torch, dev, card: str, seen):
     """Phase 9: wideband capture -> carriers -> fused image, offline, at the
     size of the JAX package's combining fixture.  Returns the launch counts
     of K1's envelope entry over the path, and the capture (fixture (e))."""
     from tempest_tpu_torch.ops import combine as pcomb
     from tempest_tpu_torch.ops import scan as pscan
-    from tempest_tpu_torch.ops.resample_kernel import frames_to_screens, \
-        frames_to_screens_from_words
     from tempest_tpu_torch.pipeline import offline as poff
 
     mode = tp.ALL_VIDEO_MODES[SMALL_MODE_NAME]
@@ -680,16 +679,16 @@ def phase_offline_wideband(tp, torch, dev, card: str, reset_counts):
 
     # The main path: discovery, fusion, reconstruction through K1.
     truth = tp.downgrade_image(torch.from_numpy(cap.frame)).numpy()
-    reset_counts()
+    seen.clear()
     timing, recon, comb = tp.combined_reconstruct(words, fs, None, chan_bw=CHAN_BW,
                                                   alpha=WIDE_ALPHA, min_margin_db=WIDE_MARGIN_DB)
-    launches = frames_to_screens.launches_by_variant[2, False]
-    check(launches == 1 and frames_to_screens.launches == 1
-          and frames_to_screens_from_words.launches == 0,
+    launches = seen["k1", 2, False]
+    check(launches == 1 and k1_launches(seen, "envelope") == 1
+          and k1_launches(seen, "words") == 0,
           f"combined_reconstruct went through K1's envelope entry once ({launches})")
     _, single, _ = tp.combined_reconstruct(words, fs, [WIDE_CARRIERS[0]], chan_bw=CHAN_BW,
                                            alpha=WIDE_ALPHA)
-    check(frames_to_screens.launches == 2, "one more launch for one more reconstruction")
+    check(k1_launches(seen, "envelope") == 2, "one more launch for one more reconstruction")
     p3, _ = tp.aligned_psnr(truth, recon.image)
     p1, _ = tp.aligned_psnr(truth, single.image)
     print(f"[combined_reconstruct] {timing.mode_name}, refresh {timing.refresh_hz:.6f} Hz, carriers "
@@ -766,15 +765,13 @@ def run_combine_runtime(tp, blocks, mode, device, centers, **options):
     return ema, rt, seconds
 
 
-def phase_live_wideband(tp, torch, dev, card: str, reset_counts, profile_activities) -> dict:
+def phase_live_wideband(tp, torch, dev, card: str, seen, profile_activities) -> dict:
     """Phase 10: live multi-harmonic combining at the main path's size.
     Returns the launch counts of K1's envelope entry, default and fidelity."""
     import tempfile
 
     from torch.profiler import profile
 
-    from tempest_tpu_torch.ops.resample_kernel import frames_to_screens, \
-        frames_to_screens_from_words
     from tempest_tpu_torch.pipeline import offline as poff
 
     mode = tp.ALL_VIDEO_MODES[MODE_NAME]
@@ -791,17 +788,17 @@ def phase_live_wideband(tp, torch, dev, card: str, reset_counts, profile_activit
     emas = {}
     for chain, options, variant in (("default", {}, (2, False)),
                                     ("fidelity", {"fidelity": True}, (2, True))):
-        reset_counts()
+        seen.clear()
         ema, rt, seconds = run_combine_runtime(tp, blocks, mode, dev, LIVE_CARRIERS, **options)
         n_fft, m_chan, fs_chan = rt._combine_geometry
-        launches[chain] = frames_to_screens.launches_by_variant[variant]
+        launches[chain] = seen["k1", *variant]
         check((n_fft, m_chan, fs_chan) == (1 << 23, 1 << 21, 5e6)
               and rt.config.input_format == "envelope",
               "the live combine geometry: N = 2^23, M = 2^21, 5 Msps at the channel")
-        check(launches[chain] == N_BLOCKS and frames_to_screens.launches == N_BLOCKS
-              and frames_to_screens_from_words.launches == 0,
+        check(launches[chain] == N_BLOCKS and k1_launches(seen, "envelope") == N_BLOCKS
+              and k1_launches(seen, "words") == 0,
               f"K1's envelope entry launched once a block, {chain} chain "
-              f"({dict(frames_to_screens.launches_by_variant)})")
+              f"({dict(seen)})")
         weights = rt.health()["combine"]["weights"]
         single, _, _ = run_combine_runtime(tp, blocks, mode, dev, LIVE_CARRIERS[:1], **options)
         p2, _ = tp.aligned_psnr(truth, ema)
@@ -987,15 +984,14 @@ def read_png(path) -> np.ndarray:
     return raw[:, 1:]
 
 
-def phase_batched(tp, torch, dev, card: str, words: np.ndarray, reset_counts,
+def phase_batched(tp, torch, dev, card: str, words: np.ndarray, seen,
                   profile_activities, parent_root=None) -> dict:
     """Phase 12: batched serving at full width.  ``words`` is the capture's
     int16 words; stream b is the block that starts 2/3 of a block after
     stream b-1's.  Returns what the kernels line reports of K1 at 144 frames,
     under AM (static and exact cuts), FM and ``invert``."""
     from tempest_tpu_torch.ops.resample_kernel import (
-        frames_to_screens, frames_to_screens_from_words, frames_to_screens_plain,
-        screen_geometry, words_envelope_plain, words_maxima)
+        frames_to_screens_plain, screen_geometry, words_envelope_plain)
     from tempest_tpu_torch.ops.sync_kernel import blanking_sync
     from tempest_tpu_torch.pipeline import offline as poff
 
@@ -1044,15 +1040,15 @@ def phase_batched(tp, torch, dev, card: str, words: np.ndarray, reset_counts,
                   f"of {N_FRAMES} and of {N_STREAMS * N_FRAMES}")
         del raw_frames, raw_ema, screens, whole
         step(iq_b, ema_b, ALPHA, *phases)          # warm: allocator, FFT plans
-        reset_counts()
+        seen.clear()
         ema_out, frames, sync, score = step(iq_b, ema_b, ALPHA, *phases)
         torch.cuda.synchronize()
         variant = (2, cfg.subsample_align, "am", False)
-        launches = frames_to_screens_from_words.launches_by_variant[variant]
-        check(launches == 1 and frames_to_screens_from_words.launches == 1
-              and frames_to_screens.launches == 0,
+        launches = seen["k1", *variant]
+        check(launches == 1 and k1_launches(seen, "words") == 1
+              and k1_launches(seen, "envelope") == 0,
               f"batched step, {label}: exactly one K1 launch for {N_STREAMS * N_FRAMES} frames "
-              f"({dict(frames_to_screens_from_words.launches_by_variant)})")
+              f"({dict(seen)})")
         check(frames.shape == (N_STREAMS, N_FRAMES, h, w) and sync.shape == (N_STREAMS, N_FRAMES, 2)
               and score.shape == (N_STREAMS, N_FRAMES) and ema_out.shape == (N_STREAMS, h, w)
               and bool(torch.isfinite(ema_out).all()) and frames.device.type == "cuda",
@@ -1144,17 +1140,17 @@ def phase_batched(tp, torch, dev, card: str, words: np.ndarray, reset_counts,
         step = tp.make_batched_reconstruct_fn(cfg)
         single = tp.make_reconstruct_fn(cfg)
         step(iq_b, ema_b, ALPHA)                   # warm
-        reset_counts()
+        seen.clear()
         got = step(iq_b, ema_b, ALPHA)
         torch.cuda.synchronize()
         key = (2, False, cfg.demod, False) + (("invert",) if cfg.invert else ())
-        launches = frames_to_screens_from_words.launches_by_variant[key]
-        maxima = words_maxima.launches
-        check(launches == 1 == frames_to_screens_from_words.launches
-              and frames_to_screens.launches == 0 and maxima == (1 if cfg.invert else 0),
+        launches = seen["k1", *key]
+        maxima = seen["words_max"]
+        check(launches == 1 == k1_launches(seen, "words")
+              and k1_launches(seen, "envelope") == 0 and maxima == (1 if cfg.invert else 0),
               f"batched step, {label}: one K1 words launch for {N_STREAMS * N_FRAMES} frames "
-              f"and {maxima} block maximum ({dict(frames_to_screens_from_words.launches_by_variant)}"
-              f", envelope {frames_to_screens.launches})")
+              f"and {maxima} block maximum ({dict(seen)}"
+              f", envelope {k1_launches(seen, 'envelope')})")
         for b in range(N_STREAMS):
             one = single(iq_b[b], ema_b[b], ALPHA)
             check(all(bool(torch.equal(x[b], y)) for x, y in zip(got, one)),
@@ -1257,7 +1253,7 @@ def batched_k1(tp, torch, dev, card: str, cfg, iq_b, raster, label: str) -> dict
     return m
 
 
-def phase_search(tp, torch, dev, card: str, words_f32, reset_counts) -> dict:
+def phase_search(tp, torch, dev, card: str, words_f32, seen) -> dict:
     """Phase 13: the static mode search on the slice's capture.  Returns the
     candidate launch's numbers."""
     from tempest_tpu_torch.ops.resample import round_to_bfloat16
@@ -1273,13 +1269,13 @@ def phase_search(tp, torch, dev, card: str, words_f32, reset_counts) -> dict:
     need = int(np.round((SEARCH_FRAMES - 1) * spf)) + frame_len + 1
     z = torch.view_as_complex(words_f32[: 2 * need].reshape(-1, 2))
     tp.mode_search_static(z, SAMPLE_RATE, 60.0, cands)          # warm
-    reset_counts()
+    seen.clear()
     res = tp.mode_search_static(z, SAMPLE_RATE, 60.0, cands)
-    launches = frames_to_screens_candidates.launches
-    check(launches == 1 and frames_to_screens.launches == 0
-          and frames_to_screens_from_words.launches == 0,
+    launches = k1_launches(seen, "candidates")
+    check(launches == 1 and k1_launches(seen, "envelope") == 0
+          and k1_launches(seen, "words") == 0,
           f"the search launched K1 once over its {len(cands)} candidates ({launches} candidate "
-          f"launches, {frames_to_screens.launches} single)")
+          f"launches, {k1_launches(seen, 'envelope')} single)")
     order = np.argsort(res.scores)[::-1]
     print(f"[search] {len(cands)} candidate modes within {SEARCH_TOL_HZ} Hz of 60 Hz, "
           f"{SEARCH_FRAMES} frames at {SEARCH_SCORE_SIZE[0]}x{SEARCH_SCORE_SIZE[1]}, "
@@ -1415,7 +1411,7 @@ def phase_search(tp, torch, dev, card: str, words_f32, reset_counts) -> dict:
           f"(wall clock, median of 3, envelope and scoring included), on {card}")
     cand["search_ms"] = whole_ms
 
-    reset_counts()
+    seen.clear()
     auto_words = words_f32[: 2 * slice_config(tp).block_samples]
     timing, recon = tp.auto_reconstruct(auto_words, SAMPLE_RATE, alpha=ALPHA,
                                         refine_with_search=True, search_tol_hz=SEARCH_TOL_HZ)
@@ -1423,10 +1419,10 @@ def phase_search(tp, torch, dev, card: str, words_f32, reset_counts) -> dict:
           and bool(np.isfinite(recon.image).all()),
           "auto_reconstruct(refine_with_search=True) names the mode")
     n_cands = len(tp.candidate_modes(timing.refresh_hz, tol_hz=SEARCH_TOL_HZ))
-    check(frames_to_screens_candidates.launches == 1 and frames_to_screens.launches == 0
-          and frames_to_screens_from_words.launches == 1,
+    check(k1_launches(seen, "candidates") == 1 and k1_launches(seen, "envelope") == 0
+          and k1_launches(seen, "words") == 1,
           f"refine_with_search: one K1 launch over the {n_cands} candidates "
-          f"({frames_to_screens_candidates.launches}, {frames_to_screens.launches} single), one "
+          f"({k1_launches(seen, 'candidates')}, {k1_launches(seen, 'envelope')} single), one "
           f"for the reconstruction")
     refine_ms = wall_ms(torch, lambda: tp.auto_reconstruct(
         auto_words, SAMPLE_RATE, alpha=ALPHA, refine_with_search=True,
@@ -1439,11 +1435,10 @@ def phase_search(tp, torch, dev, card: str, words_f32, reset_counts) -> dict:
     return cand
 
 
-def phase_resamplers(tp, torch, dev, card: str, words_i16, truth, reset_counts) -> dict:
+def phase_resamplers(tp, torch, dev, card: str, words_i16, truth, seen) -> dict:
     """Phase 14: every ``resampler=`` name on the 36-frame capture."""
     from tempest_tpu_torch.ops.resample_kernel import (
-        frames_to_screens, frames_to_screens_from_words, frames_to_screens_plain,
-        screen_geometry)
+        frames_to_screens, frames_to_screens_plain, screen_geometry)
     from tempest_tpu_torch.pipeline import offline as poff
 
     mode = tp.ALL_VIDEO_MODES[MODE_NAME]
@@ -1462,17 +1457,17 @@ def phase_resamplers(tp, torch, dev, card: str, words_i16, truth, reset_counts) 
         cfg = dataclasses.replace(base, resampler=name)
         raw = tp.make_reconstruct_fn(dataclasses.replace(cfg, do_align=False))
         step = tp.make_reconstruct_fn(cfg)
-        reset_counts()
+        seen.clear()
         screens[name] = raw(block, ema0, ALPHA)[1]
-        k1_launches = frames_to_screens.launches + frames_to_screens_from_words.launches
+        k1 = k1_launches(seen, "envelope") + k1_launches(seen, "words")
         how = poff.RESAMPLERS[name]
-        check(k1_launches == (1 if how.route == "k1" else 0),
+        check(k1 == (1 if how.route == "k1" else 0),
               f"resampler={name}: {'one K1 launch a block' if how.route == 'k1' else 'no K1 launch'}")
         if how.bf16_envelope:
-            check(load_launches(frames_to_screens_from_words, "am", True) == 1
-                  and frames_to_screens.launches == 0,
+            check(load_launches(seen, "am", True) == 1
+                  and k1_launches(seen, "envelope") == 0,
                   f"resampler={name}: K1's words load rounds to bfloat16, no demod or rounding "
-                  f"pass ({dict(frames_to_screens_from_words.launches_by_variant)})")
+                  f"pass ({dict(seen)})")
         rec = tp.reconstruct_frames(block, cfg, alpha=ALPHA)
         db, _ = tp.aligned_psnr(truth, rec.image)
         ms = time_call(torch, lambda: step(block, ema0, ALPHA), calls=5)
@@ -1502,12 +1497,12 @@ def phase_resamplers(tp, torch, dev, card: str, words_i16, truth, reset_counts) 
 
     # The quantised table on the envelope entry: an mxu name on complex input,
     # whose demod (torch.abs) stays a pass.
-    reset_counts()
+    seen.clear()
     tp.make_reconstruct_fn(dataclasses.replace(base, resampler="mxu3", input_format="complex64",
                                                do_align=False))(
         block.to(torch.float32).view(torch.complex64), ema0, ALPHA)
-    envelope_quantised = frames_to_screens.launches
-    check(envelope_quantised == 1 and frames_to_screens_from_words.launches == 0,
+    envelope_quantised = k1_launches(seen, "envelope")
+    check(envelope_quantised == 1 and k1_launches(seen, "words") == 0,
           f"resampler=mxu3 on complex input: one envelope-entry launch ({envelope_quantised})")
 
     # K1 with the quantised table, at the slice's shapes, against its plain version.
@@ -1542,7 +1537,7 @@ def phase_resamplers(tp, torch, dev, card: str, words_i16, truth, reset_counts) 
     return out
 
 
-def phase_cli_and_web(tp, torch, dev, card: str, reset_counts) -> None:
+def phase_cli_and_web(tp, torch, dev, card: str, seen) -> None:
     """Phase 15: the command line, in process, on the card; then the web view."""
     import contextlib
     import io
@@ -1551,8 +1546,6 @@ def phase_cli_and_web(tp, torch, dev, card: str, reset_counts) -> None:
     import urllib.request
 
     from tempest_tpu_torch.app.cli import main as cli_main
-    from tempest_tpu_torch.ops.resample_kernel import frames_to_screens, \
-        frames_to_screens_candidates, frames_to_screens_from_words
 
     fs = f"{SAMPLE_RATE:g}"
     with tempfile.TemporaryDirectory() as tmp:
@@ -1592,7 +1585,7 @@ def phase_cli_and_web(tp, torch, dev, card: str, reset_counts) -> None:
                   "stream --mesh": f"'n_shards': {MESH_SHARDS}",
                   "search --dynamic": " 1. " + MODE_NAME}
         for name, argv, pngs in commands:
-            reset_counts()
+            seen.clear()
             buf = io.StringIO()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(buf):
@@ -1607,8 +1600,8 @@ def phase_cli_and_web(tp, torch, dev, card: str, reset_counts) -> None:
                 # The band plot of a few channels may be one flat line.
                 check(img.size > 0 and (png.name == "band.png" or int(img.max()) > int(img.min())),
                       f"{png.name} shows an image")
-            k1 = frames_to_screens.launches + frames_to_screens_from_words.launches
-            k1_cands = frames_to_screens_candidates.launches
+            k1 = k1_launches(seen, "envelope") + k1_launches(seen, "words")
+            k1_cands = k1_launches(seen, "candidates")
             if name.startswith("search"):
                 shards = MESH_SHARDS if name == "search --dynamic" else 1
                 check(k1_cands == shards and k1 == 0,
@@ -1912,7 +1905,7 @@ def host_profile(torch, fn, calls: int = HOST_PROFILE_CALLS, top: int = 8) -> tu
     return total_us, rows[:top]
 
 
-def phase_frame_to_screen(tp, torch, dev, card: str, one, parent_root) -> dict:
+def phase_frame_to_screen(tp, torch, dev, card: str, one, parent_root, seen) -> dict:
     """K1's single-frame launch: one 1080p60 frame at 20 Msps (333,333
     samples of the capture's envelope) onto the screen.  Equal to its plain
     version to the bit at 600x800 and every ``OTHER_SHAPES``, with and without
@@ -1937,8 +1930,7 @@ def phase_frame_to_screen(tp, torch, dev, card: str, one, parent_root) -> dict:
     def call(shape=RENDER, offset=None, taps=2, f2s=rk.frame_to_screen):
         return f2s(one, mode.height, mode.width, shape, offset, taps)
 
-    rk.frame_to_screen.launches = 0
-    before = rk.frames_to_screens.launches
+    seen.clear()
     calls, err = 0, 0.0
     for shape in shapes:
         for offset in (None, VARIANT_OFFSET):
@@ -1953,9 +1945,9 @@ def phase_frame_to_screen(tp, torch, dev, card: str, one, parent_root) -> dict:
                 check(got.shape == shape and bool(torch.equal(got, ref)),
                       f"frame_to_screen at {shape}, offset {offset}, {taps} taps equals its "
                       "plain version to the bit")
-    check(rk.frame_to_screen.launches == calls and rk.frames_to_screens.launches == before,
-          f"frame_to_screen launched its own kernel once a call ({rk.frame_to_screen.launches} "
-          f"over {calls} calls; envelope entry {rk.frames_to_screens.launches - before})")
+    check(k1_launches(seen, "frame") == calls == seen["k1"],
+          f"frame_to_screen launched its own kernel once a call ({k1_launches(seen, 'frame')} "
+          f"over {calls} calls; K1 in all {seen['k1']})")
     print(f"[K1 frame_to_screen] {len(shapes)} shapes x offset or none x 2 or 4 taps: equal to "
           f"the plain version to the bit, {calls} launches over {calls} calls")
 
@@ -2040,7 +2032,7 @@ def phase_frame_to_screen(tp, torch, dev, card: str, one, parent_root) -> dict:
     return out
 
 
-def phase_entry_points(tp, torch, dev, card: str, reset_counts) -> dict:
+def phase_entry_points(tp, torch, dev, card: str, seen) -> dict:
     """Phase 22: the port's counterparts of the repo's ``bench.py``,
     ``bench_all.py`` and ``__graft_entry__.py`` on the card: the bench line
     (its keys, a positive rate), every ``bench_all`` line in the JAX script's
@@ -2053,7 +2045,6 @@ def phase_entry_points(tp, torch, dev, card: str, reset_counts) -> dict:
 
     from tempest_tpu_torch.bench import bench, bench_all, graft_entry
     from tempest_tpu_torch.native import native_available
-    from tempest_tpu_torch.ops import resample_kernel as rk
 
     t0 = time.perf_counter()
     line, ema = bench.run(bench.bench_config(), bench.ITERS, dev)
@@ -2066,11 +2057,11 @@ def phase_entry_points(tp, torch, dev, card: str, reset_counts) -> dict:
     bench_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    reset_counts()
+    seen.clear()
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
         results = bench_all.main([])
-    f2s_launches = rk.frame_to_screen.launches
+    f2s_launches = k1_launches(seen, "frame")
     bench_all_s = time.perf_counter() - t0
     lines = [json.loads(text) for text in printed.getvalue().splitlines()]
     for got in lines:
@@ -2214,10 +2205,25 @@ def load_label(demod: str, bf16: bool) -> str:
     return {"am": "AM", "fm": "FM"}[demod] + (" rounded to bfloat16" if bf16 else "")
 
 
-def load_launches(words_entry, demod: str, bf16: bool) -> int:
-    """Launches of K1's words entry under one load, whatever their taps and
-    residuals."""
-    return sum(n for key, n in words_entry.launches_by_variant.items() if key[2:] == (demod, bf16))
+def load_launches(seen, demod: str, bf16: bool) -> int:
+    """Launches of K1's words entry in ``seen`` under one load, whatever
+    their taps and residuals."""
+    return sum(n for key, n in seen.items()
+               if isinstance(key, tuple) and key[0] == "k1" and key[3:] == (demod, bf16))
+
+
+def k1_launches(seen, entry: str) -> int:
+    """K1's launches in ``seen`` (a count of ``_build.count_launches``) from
+    one of its entries, told apart by the load that ends the variant:
+    "envelope" (``frames_to_screens``), "words"
+    (``frames_to_screens_from_words``), "frame" (``frame_to_screen``) or
+    "candidates" (``frames_to_screens_candidates``)."""
+    def entry_of(load: tuple) -> str:
+        return ("envelope" if not load else load[0] if load[0] in ("frame", "candidates")
+                else "words")
+
+    return sum(n for key, n in seen.items()
+               if isinstance(key, tuple) and key[0] == "k1" and entry_of(key[3:]) == entry)
 
 
 def fm_vs_parent(torch, card: str, parent_rk, rk, rows: dict, bounds: dict, tag: str,
@@ -2342,7 +2348,7 @@ def fm_f32_edge_words() -> np.ndarray:
                     axis=1).reshape(-1)
 
 
-def phase_stage1(tp, torch, dev, card: str, words_i16, blocks, reset_counts, parent_root,
+def phase_stage1(tp, torch, dev, card: str, words_i16, blocks, seen, parent_root,
                  activities) -> dict:
     """Phase 23: stage 1 inside K1's words load.  Every load (AM, AM rounded
     to bfloat16, FM, FM rounded) on int16 and float32 words, 2 and 4 taps,
@@ -2562,24 +2568,24 @@ def phase_stage1(tp, torch, dev, card: str, words_i16, blocks, reset_counts, par
         steps[what] = out
 
     # The main paths that take a new load, each from counts at 0.
-    reset_counts()
+    seen.clear()
     line, ema = bench.run(bench.bench_config(), bench.ITERS, dev)
     torch.cuda.synchronize()
-    launches = {"bench": load_launches(words_entry, "am", True)}
-    check(launches["bench"] > 0 and words_entry.launches == launches["bench"]
-          and rk.frames_to_screens.launches == 0 and bool(torch.isfinite(ema).all()),
+    launches = {"bench": load_launches(seen, "am", True)}
+    check(launches["bench"] > 0 and k1_launches(seen, "words") == launches["bench"]
+          and k1_launches(seen, "envelope") == 0 and bool(torch.isfinite(ema).all()),
           f"the bench chain went through the words load with the rounding "
-          f"({dict(words_entry.launches_by_variant)}, envelope {rk.frames_to_screens.launches})")
+          f"({dict(seen)}, envelope {k1_launches(seen, 'envelope')})")
     # The slice's FM step on int16 words as an SDR delivers them.
-    reset_counts()
+    seen.clear()
     out = tp.make_reconstruct_fn(dataclasses.replace(cfg, demod="fm"), dev)(
         data["int16 words"], ema0, ALPHA, 0.0)
     torch.cuda.synchronize()
-    launches["fm step int16"] = load_launches(words_entry, "fm", False)
-    check(launches["fm step int16"] == 1 == words_entry.launches
-          and rk.frames_to_screens.launches == 0 and bool(torch.isfinite(out[0]).all()),
+    launches["fm step int16"] = load_launches(seen, "fm", False)
+    check(launches["fm step int16"] == 1 == k1_launches(seen, "words")
+          and k1_launches(seen, "envelope") == 0 and bool(torch.isfinite(out[0]).all()),
           f"the slice's FM step on int16 words is one launch of the int16 FM load "
-          f"({dict(words_entry.launches_by_variant)})")
+          f"({dict(seen)})")
     del out
     for key, options in (("runtime mxu3", {"config_overrides": {"resampler": "mxu3"}}),
                          ("runtime fm", {"config_overrides": {"demod": "fm"}}),
@@ -2587,33 +2593,32 @@ def phase_stage1(tp, torch, dev, card: str, words_i16, blocks, reset_counts, par
                           {"config_overrides": {"demod": "fm", "resampler": "mxu3"}}),
                          ("runtime invert 4 taps",
                           {"invert": True, "config_overrides": {"interp_taps": 4}})):
-        reset_counts()
+        seen.clear()
         ema_rt, _, _, _ = run_runtime(tp, blocks[:2], mode, dev, **options)
         load = (options["config_overrides"].get("demod", "am"),
                 options["config_overrides"].get("resampler") == "mxu3")
         if "invert" in options:
             # The block maximum, then K1's words load with the inversion.
-            launches[key] = words_entry.launches_by_variant[4, False, "am", False, "invert"]
-            launches["runtime invert 4 taps, block maximum"] = rk.words_maxima.launches
-            ok = launches[key] == 2 == words_entry.launches == rk.words_maxima.launches
+            launches[key] = seen["k1", 4, False, "am", False, "invert"]
+            launches["runtime invert 4 taps, block maximum"] = seen["words_max"]
+            ok = launches[key] == 2 == k1_launches(seen, "words") == seen["words_max"]
         else:
-            launches[key] = load_launches(words_entry, *load)
-            ok = launches[key] == 2 == words_entry.launches
-        check(ok and rk.frames_to_screens.launches == 0 and bool(np.isfinite(ema_rt).all()),
+            launches[key] = load_launches(seen, *load)
+            ok = launches[key] == 2 == k1_launches(seen, "words")
+        check(ok and k1_launches(seen, "envelope") == 0 and bool(np.isfinite(ema_rt).all()),
               f"{key}: 2 blocks, one K1 launch a block through the words load "
-              f"({dict(words_entry.launches_by_variant)}, envelope "
-              f"{dict(rk.frames_to_screens.launches_by_variant)})")
+              f"({dict(seen)})")
     # 4 taps on an envelope: complex input, whose demod (torch.abs) stays a pass.
-    reset_counts()
+    seen.clear()
     complex_cfg = dataclasses.replace(cfg, input_format="complex64", interp_taps=4)
     out = tp.make_reconstruct_fn(complex_cfg, dev)(
         data["float32 words"].view(torch.complex64), ema0, ALPHA, 0.0)
     torch.cuda.synchronize()
-    launches["complex 4 taps"] = rk.frames_to_screens.launches_by_variant[4, False]
-    check(launches["complex 4 taps"] == 1 == rk.frames_to_screens.launches
-          and words_entry.launches == 0 and bool(torch.isfinite(out[0]).all()),
+    launches["complex 4 taps"] = seen["k1", 4, False]
+    check(launches["complex 4 taps"] == 1 == k1_launches(seen, "envelope")
+          and k1_launches(seen, "words") == 0 and bool(torch.isfinite(out[0]).all()),
           f"complex input with 4 taps: one launch of the envelope entry "
-          f"({dict(rk.frames_to_screens.launches_by_variant)})")
+          f"({dict(seen)})")
     del out
     print(f"[stage 1 in K1] launches on the main paths: {launches}")
 
@@ -2678,7 +2683,7 @@ def same_bits(torch, got, ref) -> bool:
 INVERTED_STEPS = (("2 taps", {}), ("4 taps", {"interp_taps": 4}), ("mxu3", {"resampler": "mxu3"}))
 
 
-def phase_invert(tp, torch, dev, card: str, words_i16, reset_counts, parent_root,
+def phase_invert(tp, torch, dev, card: str, words_i16, seen, parent_root,
                  activities) -> dict:
     """Phase 24: ``invert`` inside K1's words load.  The block maximum
     (``words_maxima``) against ``torch.max`` of the plain envelope to the
@@ -2917,17 +2922,17 @@ def phase_invert(tp, torch, dev, card: str, words_i16, reset_counts, parent_root
     launches = {}
     for label, options in INVERTED_STEPS[::2]:
         step_cfg = dataclasses.replace(cfg, invert=True, **options)
-        reset_counts()
+        seen.clear()
         out = tp.make_reconstruct_fn(step_cfg, dev)(capture, ema0, ALPHA, 0.0)
         torch.cuda.synchronize()
         key = (2, False, "am", step_cfg.resampler == "mxu3", "invert")
-        launches[label] = rk.frames_to_screens_from_words.launches_by_variant[key]
-        launches[label + ", block maximum"] = rk.words_maxima.launches
-        check(launches[label] == 1 == rk.frames_to_screens_from_words.launches
-              == rk.words_maxima.launches and rk.frames_to_screens.launches == 0
+        launches[label] = seen["k1", *key]
+        launches[label + ", block maximum"] = seen["words_max"]
+        check(launches[label] == 1 == k1_launches(seen, "words")
+              == seen["words_max"] and k1_launches(seen, "envelope") == 0
               and bool(torch.isfinite(out[0]).all()),
               f"the slice's step under invert, {label}: one block maximum and one inverted K1 "
-              f"words launch ({dict(rk.frames_to_screens_from_words.launches_by_variant)})")
+              f"words launch ({dict(seen)})")
         del out
     print(f"[invert] launches on the main paths: {launches}")
     return {"maxima": maxima, "measured": measured, "steps": steps, "launches": launches}
@@ -3002,7 +3007,7 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def phase_mesh_one_card(tp, torch, dev, card: str, reset_counts, loop, truth, activities) -> dict:
+def phase_mesh_one_card(tp, torch, dev, card: str, seen, loop, truth, activities) -> dict:
     """Phase 17 (m): the mesh runtime, four shards on one card, over two
     dispatches of the slice's capture replayed in a loop, default and
     fidelity chains, held to the bit against the single-device runtime on
@@ -3012,10 +3017,6 @@ def phase_mesh_one_card(tp, torch, dev, card: str, reset_counts, loop, truth, ac
     import torch.distributed as dist
     from torch.profiler import profile
 
-    from tempest_tpu_torch.ops.align_kernel import align_fold
-    from tempest_tpu_torch.ops.resample_kernel import frames_to_screens, \
-        frames_to_screens_from_words
-    from tempest_tpu_torch.ops.sync_kernel import blanking_sync
     from tempest_tpu_torch.parallel import distributed
     from tempest_tpu_torch.parallel.mesh import ProcessGroupCollectives
     from tempest_tpu_torch.runtime.stream import frames_per_window
@@ -3032,20 +3033,20 @@ def phase_mesh_one_card(tp, torch, dev, card: str, reset_counts, loop, truth, ac
     for chain, options, bar in (("default", {}, PSNR_BAR_DB),
                                 ("fidelity", {"fidelity": True}, FIDELITY_PSNR_BAR_DB)):
         variant = (2, chain == "fidelity", "am", False)
-        reset_counts()
+        seen.clear()
         ema1, frames1, sync1, emas1, s1, srt = run_stream(
             tp, tp.StreamingRuntime, LoopSource(loop, S, n_spans), mode, n_spans, **options)
-        single_launches = frames_to_screens_from_words.launches_by_variant[variant]
-        reset_counts()
+        single_launches = seen["k1", *variant]
+        seen.clear()
         mesh.comm.reset()
         ema, frames, sync, _, seconds, rt = run_stream(
             tp, tp.MeshStreamingRuntime, LoopSource(loop, block, MESH_DISPATCHES + 1), mode,
             MESH_DISPATCHES, mesh, **options)
-        launches = frames_to_screens_from_words.launches_by_variant[variant]
-        k2_k3 = (blanking_sync.launches, align_fold.launches)
+        launches = seen["k1", *variant]
+        k2_k3 = (seen["k2"], seen["k3"])
         traffic = dict(mesh.comm.nbytes)
-        check(launches == n_spans and frames_to_screens_from_words.launches == n_spans
-              and frames_to_screens.launches == 0,
+        check(launches == n_spans and k1_launches(seen, "words") == n_spans
+              and k1_launches(seen, "envelope") == 0,
               f"K1's fused entry launched once a shard a dispatch ({launches} for {n_spans})")
         check(k2_k3 == ((0 if chain == "fidelity" else 2 * n_spans), n_spans),
               f"K2 twice and K3 once a shard a dispatch, K2 not with fidelity ({k2_k3})")
@@ -3108,10 +3109,10 @@ def phase_mesh_one_card(tp, torch, dev, card: str, reset_counts, loop, truth, ac
         gmesh = distributed.global_mesh()
         check(isinstance(gmesh.comm, ProcessGroupCollectives) and gmesh.devices == [dev]
               and dist.get_backend() == "nccl", "a one-rank NCCL mesh on the card")
-        reset_counts()
+        seen.clear()
         ema_g, _, _, _, seconds, _ = run_stream(tp, tp.MeshStreamingRuntime, LoopSource(loop, S, 3),
                                                 mode, 2, gmesh)
-        launches = frames_to_screens_from_words.launches_by_variant[2, False, "am", False]
+        launches = seen["k1", 2, False, "am", False]
         equal = bool(np.array_equal(ema_g, out["reference"]["default"][1]))
         print(f"[mesh, NCCL] one rank, {launches} dispatches of one span: EMA equal to the "
               f"single-device runtime's after 2 blocks: {equal}; collectives "
@@ -3122,14 +3123,12 @@ def phase_mesh_one_card(tp, torch, dev, card: str, reset_counts, loop, truth, ac
     return out
 
 
-def phase_mesh_candidates_and_carriers(tp, torch, dev, card: str, reset_counts, words_f32,
+def phase_mesh_candidates_and_carriers(tp, torch, dev, card: str, seen, words_f32,
                                        wide) -> dict:
     """Phase 18 (n): the sharded mode search over the 26 candidates of phase
     13 and the carrier shards on fixture (e), four shards on one card, held
     against the single-device functions.  Returns K1's launch counts."""
     from tempest_tpu_torch.ops.combine import combine_core
-    from tempest_tpu_torch.ops.resample_kernel import frames_to_screens, \
-        frames_to_screens_candidates, frames_to_screens_from_words
     from tempest_tpu_torch.ops.scan import _channel_geometry, scan_centers
 
     mesh = tp.make_mesh(devices=[dev] * MESH_SHARDS)
@@ -3139,13 +3138,13 @@ def phase_mesh_candidates_and_carriers(tp, torch, dev, card: str, reset_counts, 
     z = torch.view_as_complex(words_f32[: 2 * need].reshape(-1, 2))
     static = tp.mode_search_static(z, SAMPLE_RATE, 60.0, cands)
     tp.sharded_mode_search(z, SAMPLE_RATE, 60.0, cands, mesh)            # warm
-    reset_counts()
+    seen.clear()
     res = tp.sharded_mode_search(z, SAMPLE_RATE, 60.0, cands, mesh)
-    launches = {"search": frames_to_screens_candidates.launches}
-    check(launches["search"] == MESH_SHARDS and frames_to_screens.launches == 0
-          and frames_to_screens_from_words.launches == 0,
+    launches = {"search": k1_launches(seen, "candidates")}
+    check(launches["search"] == MESH_SHARDS and k1_launches(seen, "envelope") == 0
+          and k1_launches(seen, "words") == 0,
           f"one K1 launch a shard over its candidates ({launches['search']} for {MESH_SHARDS} "
-          f"shards, {frames_to_screens.launches} single)")
+          f"shards, {k1_launches(seen, 'envelope')} single)")
     cpu = tp.sharded_mode_search(z.cpu(), SAMPLE_RATE, 60.0, cands,
                                  tp.make_mesh(devices=["cpu"] * MESH_SHARDS))
     score_rel = float(np.abs(res.scores - cpu.scores).max() / np.abs(cpu.scores).max())
@@ -3197,12 +3196,12 @@ def phase_mesh_candidates_and_carriers(tp, torch, dev, card: str, reset_counts, 
     n_frames = int((m_chan // MESH_SHARDS) // (fs_chan / small.refresh))
     cfg = tp.ReconstructionConfig(sample_rate=fs_chan, mode=small, n_frames=n_frames,
                                   input_format="envelope", align_subpixel=True)
-    reset_counts()
+    seen.clear()
     step = tp.sharded_combined_reconstruct_fn(cfg, mesh, fs, n_c, WIDE_CARRIERS, small.refresh,
                                               chan_bw=CHAN_BW)
     ema0 = torch.zeros(RENDER, device=dev)
     ema, frames, _, _, w, pol = step(words, ema0, WIDE_ALPHA)
-    launches["combined"] = frames_to_screens.launches
+    launches["combined"] = k1_launches(seen, "envelope")
     fvq = fs_chan / round(fs_chan / small.refresh)
     env, w1, pol1, _, _ = combine_core(words, fs, WIDE_CARRIERS, CHAN_BW, fs_chan, 0.1,
                                        max(fvq - 5.0, 20.0), fvq + 5.0, "mrc", refresh_hz=fvq)
@@ -3242,7 +3241,7 @@ def rank_main(argv: list[str]) -> int:
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     import tempest_tpu_torch as tp
-    from tempest_tpu_torch.ops.resample_kernel import frames_to_screens_from_words
+    from tempest_tpu_torch._build import count_launches
     from tempest_tpu_torch.parallel import distributed
 
     distributed.initialize(f"localhost:{args.port}", args.world, args.rank)
@@ -3253,11 +3252,11 @@ def rank_main(argv: list[str]) -> int:
         mode = tp.ALL_VIDEO_MODES[MODE_NAME]
         loop = np.load(data / "loop.npy", mmap_mode="r")
         S, n = MESH_SPAN, args.world
-        frames_to_screens_from_words.launches = 0
-        ema, frames, _, _, seconds, rt = run_stream(
-            tp, tp.MeshStreamingRuntime, LoopSource(loop, n * S, MESH_DISPATCHES + 1), mode,
-            MESH_DISPATCHES, mesh)
-        launches = frames_to_screens_from_words.launches
+        with count_launches() as seen:
+            ema, frames, _, _, seconds, rt = run_stream(
+                tp, tp.MeshStreamingRuntime, LoopSource(loop, n * S, MESH_DISPATCHES + 1), mode,
+                MESH_DISPATCHES, mesh)
+        launches = k1_launches(seen, "words")
         traffic = dict(mesh.comm.nbytes)
         host = np.empty(n * S, np.complex64)
         LoopSource(loop, n * S, 1).read(host)
@@ -3294,14 +3293,13 @@ def rank_main(argv: list[str]) -> int:
     return 0
 
 
-def phase_several_cards(tp, torch, card: str, reset_counts, loop, reference, activities) -> None:
+def phase_several_cards(tp, torch, card: str, seen, loop, reference, activities) -> None:
     """Phase 19 (o): the (m) stream over several cards, in one process
     (``make_mesh``) and on one NCCL rank a card started here, and the combine
     front on those ranks, each held against the single-device result."""
     import tempfile
 
     from tempest_tpu_torch.ops.combine import combine_core
-    from tempest_tpu_torch.ops.resample_kernel import frames_to_screens_from_words
     from tempest_tpu_torch.ops.scan import _channel_geometry
 
     n_cards = min(torch.cuda.device_count(), MESH_SHARDS)
@@ -3313,13 +3311,13 @@ def phase_several_cards(tp, torch, card: str, reset_counts, loop, reference, act
     S = MESH_SPAN
     n_spans = n_cards * MESH_DISPATCHES
     mesh = tp.make_mesh(n_cards)
-    reset_counts()
+    seen.clear()
     ema, _, _, _, seconds, rt = run_stream(
         tp, tp.MeshStreamingRuntime, LoopSource(loop, n_cards * S, MESH_DISPATCHES + 1), mode,
         MESH_DISPATCHES, mesh)
     want = reference["default"][n_spans - 1]
     diff = float(np.abs(ema - want).max())
-    launches = frames_to_screens_from_words.launches
+    launches = k1_launches(seen, "words")
     host = np.empty(n_cards * S, np.complex64)
     LoopSource(loop, n_cards * S, 1).read(host)
     rows = torch.from_numpy(host.view(np.float32)).to(mesh.device).reshape(n_cards, 2 * S)
@@ -3435,11 +3433,9 @@ def main(argv: list[str] | None = None) -> int:
     import tempest_tpu_torch as tp
     from tempest_tpu_torch import _build
     from tempest_tpu_torch.ops import resample_kernel
-    from tempest_tpu_torch.ops.align_kernel import align_fold
     from tempest_tpu_torch.ops.resample_kernel import (
-        frame_to_screen, frames_to_screens, frames_to_screens_from_words,
-        frames_to_screens_plain, screen_geometry)
-    from tempest_tpu_torch.ops.sync_kernel import blanking_sync
+        frames_to_screens, frames_to_screens_from_words, frames_to_screens_plain,
+        screen_geometry)
     from tempest_tpu_torch.pipeline import offline as poff
 
     from torch.autograd import DeviceType
@@ -3447,17 +3443,10 @@ def main(argv: list[str] | None = None) -> int:
 
     check("jax" not in sys.modules, "the port imports no jax")
 
-    def reset_counts():
-        """Every launch count to 0, just before a main path is driven."""
-        for wrapper in (frames_to_screens, frames_to_screens_from_words):
-            wrapper.launches = 0
-            wrapper.launches_by_variant.clear()
-        resample_kernel.frames_to_screens_candidates.launches = 0
-        resample_kernel.words_maxima.launches = 0
-        frame_to_screen.launches = 0
-        blanking_sync.launches = 0
-        align_fold.launches = 0
-        align_fold.launches_by_mode.clear()
+    # Every kernel launch of the run is counted in ``seen``, which a phase
+    # clears just before it drives a main path.
+    launch_count = contextlib.ExitStack()
+    seen = launch_count.enter_context(_build.count_launches())
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3491,9 +3480,9 @@ def main(argv: list[str] | None = None) -> int:
     truth = tp.downgrade_image(torch.from_numpy(truth_raster), (h, w)).numpy()
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     if args.phase == "o":
-        mesh_out = phase_mesh_one_card(tp, torch, dev, card, reset_counts, loop, truth,
+        mesh_out = phase_mesh_one_card(tp, torch, dev, card, seen, loop, truth,
                                        activities)
-        phase_several_cards(tp, torch, card, reset_counts, loop, mesh_out["reference"],
+        phase_several_cards(tp, torch, card, seen, loop, mesh_out["reference"],
                             activities)
         if torch.cuda.device_count() >= MESH_SHARDS:
             from tempest_tpu_torch.bench.graft_entry import dryrun_multichip
@@ -3581,7 +3570,7 @@ def main(argv: list[str] | None = None) -> int:
                   f"K1 on {name} at {shape} agrees with its plain version")
     # ---- K1's single-frame launch, on an aligned copy of one frame
     one = env[int(starts[1]): int(starts[1]) + frame_len].clone()
-    f2s = phase_frame_to_screen(tp, torch, dev, card, one, args.parent)
+    f2s = phase_frame_to_screen(tp, torch, dev, card, one, args.parent, seen)
 
     # Rows a tile: each entry timed at every size, forwards then backwards, so
     # that a drift of the card's clocks shows between the two passes.
@@ -3627,19 +3616,19 @@ def main(argv: list[str] | None = None) -> int:
         return demodulate(*args)
 
     poff.demodulate = counted_demodulate
-    reset_counts()
+    seen.clear()
     ema_gpu, sync_gpu, out_devices, seconds = run_runtime(tp, blocks, mode, dev)
-    fused_launches = frames_to_screens_from_words.launches
-    k2_launches, k3_launches = blanking_sync.launches, align_fold.launches
+    fused_launches = k1_launches(seen, "words")
+    k2_launches, k3_launches = seen["k2"], seen["k3"]
     check(0 < k2_launches <= 2 * fused_launches
-          and k3_launches == align_fold.launches_by_mode["linear", True] == fused_launches,
+          and k3_launches == seen["k3", "linear", True] == fused_launches,
           f"K2 launched twice a block at most ({k2_launches}) and K3 once a block, aligning and "
-          f"folding ({dict(align_fold.launches_by_mode)}), over {fused_launches} blocks")
+          f"folding ({dict(seen)}), over {fused_launches} blocks")
     check(fused_launches >= N_BLOCKS,
           f"the fused entry launched for every block ({fused_launches})")
-    check(frames_to_screens.launches == 0 and not demod_calls,
+    check(k1_launches(seen, "envelope") == 0 and not demod_calls,
           f"no separate demod pass on the runtime's path (envelope-entry launches "
-          f"{frames_to_screens.launches}, demodulate calls {len(demod_calls)})")
+          f"{k1_launches(seen, 'envelope')}, demodulate calls {len(demod_calls)})")
     check(out_devices and all(d == "cuda" for d in out_devices),
           f"every step output on the card ({sorted(set(out_devices))})")
     check(ema_gpu.shape == (h, w) and bool(np.isfinite(ema_gpu).all()),
@@ -3665,18 +3654,17 @@ def main(argv: list[str] | None = None) -> int:
     check(db > PSNR_BAR_DB, "PSNR clears the bar")
 
     # ---- 4. the runtime with invert=True: the block maximum, then K1's words load
-    reset_counts()
+    seen.clear()
     inv_gpu, inv_sync_gpu, inv_devices, _ = run_runtime(
         tp, blocks[:INVERT_BLOCKS], mode, dev, invert=True)
-    invert_launches = frames_to_screens_from_words.launches_by_variant[
-        2, False, "am", False, "invert"]
-    max_launches = resample_kernel.words_maxima.launches
+    invert_launches = seen["k1", 2, False, "am", False, "invert"]
+    max_launches = seen["words_max"]
     check(invert_launches == max_launches == INVERT_BLOCKS
-          and frames_to_screens_from_words.launches == INVERT_BLOCKS
-          and frames_to_screens.launches == 0 and not demod_calls,
+          and k1_launches(seen, "words") == INVERT_BLOCKS
+          and k1_launches(seen, "envelope") == 0 and not demod_calls,
           f"every inverted block is one block maximum and one inverted K1 words launch, no demod "
-          f"pass ({dict(frames_to_screens_from_words.launches_by_variant)}, maxima "
-          f"{max_launches}, envelope {frames_to_screens.launches}, demodulate {len(demod_calls)})")
+          f"pass ({dict(seen)}, maxima {max_launches}, envelope "
+          f"{k1_launches(seen, 'envelope')}, demodulate {len(demod_calls)})")
     poff.demodulate = demodulate
     check(inv_devices and all(d == "cuda" for d in inv_devices),
           "every inverted step output on the card")
@@ -3843,22 +3831,22 @@ def main(argv: list[str] | None = None) -> int:
     del small_env, small_i16
 
     # ---- 6. the fidelity runtime: exact cuts through K1's residuals, sync skipped
-    reset_counts()
+    seen.clear()
     poff.demodulate = counted_demodulate
     demod_calls.clear()
     fid_gpu, fid_sync, fid_devices, seconds = run_runtime(tp, blocks, mode, dev, fidelity=True)
     poff.demodulate = demodulate
-    fidelity_launches = frames_to_screens_from_words.launches_by_variant[2, True, "am", False]
-    fidelity_folds = align_fold.launches_by_mode[None, True]
-    check(blanking_sync.launches == 0
-          and fidelity_folds == align_fold.launches == fidelity_launches,
+    fidelity_launches = seen["k1", 2, True, "am", False]
+    fidelity_folds = seen["k3", None, True]
+    check(seen["k2"] == 0
+          and fidelity_folds == seen["k3"] == fidelity_launches,
           f"the fidelity chain runs no sync and K3's fold alone once a block "
-          f"({dict(align_fold.launches_by_mode)}, K2 {blanking_sync.launches})")
+          f"({dict(seen)}, K2 {seen['k2']})")
     check(fidelity_launches >= N_BLOCKS
-          and frames_to_screens_from_words.launches == fidelity_launches
-          and frames_to_screens.launches == 0 and not demod_calls,
+          and k1_launches(seen, "words") == fidelity_launches
+          and k1_launches(seen, "envelope") == 0 and not demod_calls,
           f"K1's fused entry with residuals launched for every fidelity block "
-          f"({dict(frames_to_screens_from_words.launches_by_variant)}), nothing else")
+          f"({dict(seen)}), nothing else")
     check(fid_devices and all(d == "cuda" for d in fid_devices),
           "every fidelity step output on the card")
     check(fid_gpu.shape == (h, w) and bool(np.isfinite(fid_gpu).all()) and not fid_sync.any(),
@@ -3877,11 +3865,11 @@ def main(argv: list[str] | None = None) -> int:
           f"shift {fid_shift}")
     check(fid_db > FIDELITY_PSNR_BAR_DB, "fidelity PSNR clears the bar")
 
-    reset_counts()
+    seen.clear()
     fid4_gpu, _, _, _ = run_runtime(tp, blocks[:1], mode, dev, fidelity=True,
                                     config_overrides={"interp_taps": 4})
-    fidelity4_launches = frames_to_screens_from_words.launches_by_variant[4, True, "am", False]
-    check(fidelity4_launches >= 1 and frames_to_screens_from_words.launches == fidelity4_launches,
+    fidelity4_launches = seen["k1", 4, True, "am", False]
+    check(fidelity4_launches >= 1 and k1_launches(seen, "words") == fidelity4_launches,
           f"K1's fused entry with residuals and 4 taps launched ({fidelity4_launches})")
     fid4_cpu, _, _, _ = run_runtime(tp, blocks[:1], mode, "cpu", fidelity=True,
                                     config_overrides={"interp_taps": 4})
@@ -3893,11 +3881,11 @@ def main(argv: list[str] | None = None) -> int:
 
     # ---- 7. auto_reconstruct: capture in, detected mode and restored screen out
     auto_words = words[: 2 * block]      # 0.62 s as int16 words
-    reset_counts()
+    seen.clear()
     timing, recon = tp.auto_reconstruct(auto_words, SAMPLE_RATE, alpha=ALPHA)
-    auto_launches = frames_to_screens_from_words.launches_by_variant[2, False, "am", False]
-    check(auto_launches == 1 and frames_to_screens_from_words.launches == 1
-          and frames_to_screens.launches == 0,
+    auto_launches = seen["k1", 2, False, "am", False]
+    check(auto_launches == 1 and k1_launches(seen, "words") == 1
+          and k1_launches(seen, "envelope") == 0,
           f"auto_reconstruct went through K1's fused entry once ({auto_launches})")
     cpu_timing = tp.estimate_timing(auto_words, SAMPLE_RATE, device="cpu")
     print(f"[auto] {timing.mode_name}, refresh {timing.refresh_hz:.6f} Hz, line count "
@@ -3951,10 +3939,9 @@ def main(argv: list[str] | None = None) -> int:
     # ---- 8. auto_reconstruct where the taps rule picks 4, AM and FM
     small_launches = {}
     for kind in ("am", "fm"):
-        reset_counts()
+        seen.clear()
         t, r = tp.auto_reconstruct(small_words[kind], SMALL_SAMPLE_RATE, alpha=ALPHA, demod=kind)
-        small_launches[kind] = frames_to_screens_from_words.launches_by_variant[
-            4, False, kind, False]
+        small_launches[kind] = seen["k1", 4, False, kind, False]
         print(f"[auto, {kind}] {t.mode_name} at {SMALL_SAMPLE_RATE / 1e6:g} Msps, refresh "
               f"{t.refresh_hz:.6f} Hz, line count {t.line_count:.4f}, {r.frames.shape[0]} frames, "
               f"4-tap launches {small_launches[kind]}")
@@ -3962,35 +3949,35 @@ def main(argv: list[str] | None = None) -> int:
         check(abs(t.refresh_hz - small_mode.refresh) < REFRESH_TOL_HZ,
               f"auto_reconstruct ({kind}) refresh within {REFRESH_TOL_HZ} Hz")
         check(small_launches[kind] == 1
-              and frames_to_screens.launches + frames_to_screens_from_words.launches == 1,
+              and k1_launches(seen, "envelope") + k1_launches(seen, "words") == 1,
               f"auto_reconstruct ({kind}) went through K1's 4-tap words load with its demod "
-              f"once ({dict(frames_to_screens_from_words.launches_by_variant)})")
+              f"once ({dict(seen)})")
         check(r.frames.shape[0] == small_frames,
               f"auto_reconstruct ({kind}) rendered the {small_frames} frames phase 5 timed")
         check(r.image.shape == (h, w) and bool(np.isfinite(r.image).all()),
               f"auto_reconstruct ({kind}) image finite, of the screen's shape")
 
     # ---- 9-11. the wideband path: scan, combine offline and live, the tasks
-    combine_launches, wide = phase_offline_wideband(tp, torch, dev, card, reset_counts)
+    combine_launches, wide = phase_offline_wideband(tp, torch, dev, card, seen)
     combine_launches.update(phase_live_wideband(
-        tp, torch, dev, card, reset_counts, [ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+        tp, torch, dev, card, seen, [ProfilerActivity.CPU, ProfilerActivity.CUDA]))
     phase_tasks(tp, torch, dev, card, blocks, mode)
 
     # ---- 12-16. the operator surface: batched serving, the mode search, every
     # resampler name, the command line and the web view, the roofline count
-    batched = phase_batched(tp, torch, dev, card, words, reset_counts, activities, args.parent)
-    search = phase_search(tp, torch, dev, card, words_f32, reset_counts)
-    named = phase_resamplers(tp, torch, dev, card, words_i16, truth, reset_counts)
-    phase_cli_and_web(tp, torch, dev, card, reset_counts)
+    batched = phase_batched(tp, torch, dev, card, words, seen, activities, args.parent)
+    search = phase_search(tp, torch, dev, card, words_f32, seen)
+    named = phase_resamplers(tp, torch, dev, card, words_i16, truth, seen)
+    phase_cli_and_web(tp, torch, dev, card, seen)
     phase_roofline(tp, torch, dev, card, words_i16)
 
     # ---- 17-19. the mesh: time shards on one card (m), candidate and carrier
     # shards on one card (n), several cards in one process and on NCCL ranks (o)
-    mesh_out = phase_mesh_one_card(tp, torch, dev, card, reset_counts, loop, truth, activities)
-    mesh_launches = phase_mesh_candidates_and_carriers(tp, torch, dev, card, reset_counts,
+    mesh_out = phase_mesh_one_card(tp, torch, dev, card, seen, loop, truth, activities)
+    mesh_launches = phase_mesh_candidates_and_carriers(tp, torch, dev, card, seen,
                                                        words_f32, wide)
     del wide
-    phase_several_cards(tp, torch, card, reset_counts, loop, mesh_out["reference"], activities)
+    phase_several_cards(tp, torch, card, seen, loop, mesh_out["reference"], activities)
 
     # ---- the step on device-resident words, demod fused and as a pass of its own
     step = tp.make_reconstruct_fn(cfg, dev)
@@ -4040,16 +4027,16 @@ def main(argv: list[str] | None = None) -> int:
     phase_step_split(tp, torch, dev, card, words_i16, activities)
 
     # ---- 22. the repo's bench and entry-point programs in the port
-    entry_points = phase_entry_points(tp, torch, dev, card, reset_counts)
+    entry_points = phase_entry_points(tp, torch, dev, card, seen)
 
     # ---- 23. stage 1 inside K1's words load: the bfloat16 rounding, the FM
     # discriminator; the mxu3 and FM steps; the bench line beside the parent's
-    stage1 = phase_stage1(tp, torch, dev, card, words_i16, blocks, reset_counts, args.parent,
+    stage1 = phase_stage1(tp, torch, dev, card, words_i16, blocks, seen, args.parent,
                           activities)
 
     # ---- 24. invert inside K1's words load: the block maximum, the inverted
     # loads, the slice's inverted step beside the pass route and the parent's
-    inverted = phase_invert(tp, torch, dev, card, words_i16, reset_counts, args.parent,
+    inverted = phase_invert(tp, torch, dev, card, words_i16, seen, args.parent,
                             activities)
 
     def kernel_entry(name, key, launches):

@@ -509,20 +509,19 @@ def run_stamped(lib, stamps, dev, words, load, taps, starts, raster, geom) -> di
     rows, run_cap = rk.tile_plan(*raster, sample_bytes, sum(rk.line_reach(taps, False)), taps,
                                  balanced=balanced)
     out = torch.empty((n_frames, h, w), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     # One stream and no maxima (since the thirteenth slice the launcher takes
     # them after the tile plan; a checkout before it takes neither).
     streams = (() if len(lib.tt_resample_frames.argtypes) < 21
                else (None, env.shape[0], n_frames))
+    cost = rk.launch_cost(env.shape[0], sample_bytes, n_frames, *raster, code, taps)
     for _ in range(3):
         stamps.zero_()
-        rc = lib.tt_resample_frames(
+        _build.launch(
+            "k1", lib.tt_resample_frames, dev, (cost,), None,
             data.data_ptr(), env.shape[0], code, starts.data_ptr(), None, n_frames, taps,
             geom.line_start.data_ptr(), geom.line_frac.data_ptr(), geom.wr.data_ptr(),
             out.data_ptr(), h, w, geom.delta, geom.span + rk.line_reach(taps, False)[1],
-            rows, run_cap, *streams, stream)
-        if rc != 0:
-            raise SystemExit(f"launch failed with cudaError_t {rc}")
+            rows, run_cap, *streams)
         torch.cuda.synchronize()
     equal = bool(torch.equal(out, rk.frames_to_screens_plain(env, starts, geom, None, taps)))
     s = stamps.view(-1, STRIDE).cpu().numpy()

@@ -48,13 +48,11 @@ it launches the kernel or raises.
 
 from __future__ import annotations
 
-import collections
 import functools
 
 import torch
 
-from ..utils.profiling import count
-from ..utils.roofline import report_launch
+from .. import _build
 from .framesync import _align_frame_plain, _align_frame_subpixel_plain, _interp_weights
 
 __all__ = [
@@ -249,24 +247,16 @@ def _launch(frames, s_y, s_x, ema, alpha, align, n_streams):
     rows = [t for t in (frames, aligned, ema, ema_out) if t is not None]
     vec = w % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in rows)
     threads, units, _ = launch_shape(w, taps, vec)
-    from .. import _build
-
-    lib = _build.load_library("align_ema")
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.tt_align_fold(
-            frames.data_ptr(), ptr(aligned), ptr(ema), ptr(ema_out),
-            ptr(s_y) if taps else None, ptr(s_x) if taps else None, *types,
-            ptr(fold_w), ptr(big_a), h, w, n // n_streams, n_streams, taps, int(vec), threads,
-            units, stream)
-    if rc != 0:
-        raise RuntimeError(f"K3 launch failed with cudaError_t {rc}")
-    count("launches.k3")
-    report_launch(*launch_cost(n, h, w, n_streams, align, taps > 0, fold))
+    _build.launch("k3", _build.load_library("align_ema").tt_align_fold, dev,
+                  (launch_cost(n, h, w, n_streams, align, taps > 0, fold),), (align, fold),
+                  frames.data_ptr(), ptr(aligned), ptr(ema), ptr(ema_out),
+                  ptr(s_y) if taps else None, ptr(s_x) if taps else None, *types,
+                  ptr(fold_w), ptr(big_a), h, w, n // n_streams, n_streams, taps, int(vec),
+                  threads, units)
     return (frames if aligned is None else aligned), ema_out
 
 
@@ -294,12 +284,4 @@ def align_fold(
         return align_fold_plain(frames, s_y, s_x, ema, alpha, align, n_streams)
     if frames.device.type != "cuda":
         raise ValueError(f"K3 runs on CUDA or CPU tensors, not {frames.device.type}")
-    out = _launch(frames, s_y, s_x, ema, alpha, align, n_streams)
-    align_fold.launches += 1
-    align_fold.launches_by_mode[align, ema is not None] += 1
-    return out
-
-
-# K3 launches since the last reset: in all, and by (align, EMA folded).
-align_fold.launches = 0
-align_fold.launches_by_mode = collections.Counter()
+    return _launch(frames, s_y, s_x, ema, alpha, align, n_streams)

@@ -80,8 +80,6 @@ falls back.
 
 from __future__ import annotations
 
-import collections
-import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -89,8 +87,7 @@ import functools
 import numpy as np
 import torch
 
-from ..utils.profiling import count
-from ..utils.roofline import report_launch
+from .. import _build
 from .demod import am_envelope_from_iq, fm_demod_from_iq, invert_envelope
 from .resample import RENDER_SIZE, _screen_geometry, round_to_bfloat16
 
@@ -646,19 +643,6 @@ def _plan(n_samples: int, n_frames: int, sample_bytes: int, frame_len: int, y_t:
                        word, taps, exact, rows, FILL_TILES_PER_SM, streams)
 
 
-def _current(device: torch.device):
-    """A context that makes ``device`` the current CUDA device, or nothing
-    where it already is (the C launchers launch on the current device)."""
-    if device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
-
-
-def _stream(device: torch.device) -> int:
-    """The raw current CUDA stream of ``device``."""
-    return torch._C._cuda_getCurrentRawStream(device.index)
-
-
 def _launch(
     src: torch.Tensor,
     n_samples: int,
@@ -673,11 +657,13 @@ def _launch(
     num_phases: int | None = None,
     maxima: torch.Tensor | None = None,
     streams: int = 1,
+    load: tuple = (),
 ) -> torch.Tensor:
     """Check the arguments and launch the kernel on ``src``'s device, on the
     current stream.  ``staged`` is (what ``src`` holds: the word code with
     its flags, bytes per sample); ``maxima`` the streams' maxima under
-    ``_INVERT``."""
+    ``_INVERT``; ``load`` ends the launch's variant (taps, residuals given,
+    *load)."""
     n_frames = _check_launch(src, n_samples, frame_starts)
     stream_len = _check_streams(n_samples, streams, n_frames)
     if frac_offsets is not None:
@@ -687,25 +673,17 @@ def _launch(
     dev = src.device
     plan = _plan(n_samples, n_frames, sample_bytes, frame_len, y_t, x_t, out_shape, dev,
                  num_phases, word, interp_taps, frac_offsets is not None, streams)
-    from .. import _build
-
-    lib = _build.load_library("resample")
     geom = plan.geom
     h, w = geom.out_shape
     out = torch.empty((n_frames, h, w), dtype=torch.float32, device=dev)
-    with _current(dev):
-        rc = lib.tt_resample_frames(
-            src.data_ptr(), n_samples, word, frame_starts.data_ptr(),
-            None if frac_offsets is None else frac_offsets.data_ptr(), n_frames, interp_taps,
-            geom.line_start.data_ptr(), geom.line_frac.data_ptr(), geom.wr.data_ptr(),
-            out.data_ptr(), h, w, geom.delta, plan.span, plan.rows, plan.run_cap,
-            None if maxima is None else maxima.data_ptr(), stream_len, n_frames // streams,
-            _stream(dev),
-        )
-    if rc != 0:
-        raise RuntimeError(f"K1 launch failed with cudaError_t {rc}")
-    count("launches.k1")
-    report_launch(*plan.cost)
+    _build.launch(
+        "k1", _build.load_library("resample").tt_resample_frames, dev, (plan.cost,),
+        (interp_taps, frac_offsets is not None, *load),
+        src.data_ptr(), n_samples, word, frame_starts.data_ptr(),
+        None if frac_offsets is None else frac_offsets.data_ptr(), n_frames, interp_taps,
+        geom.line_start.data_ptr(), geom.line_frac.data_ptr(), geom.wr.data_ptr(),
+        out.data_ptr(), h, w, geom.delta, plan.span, plan.rows, plan.run_cap,
+        None if maxima is None else maxima.data_ptr(), stream_len, n_frames // streams)
     return out
 
 
@@ -723,13 +701,6 @@ def _check_block(
         raise ValueError(
             f"frac_offsets must be one residual per frame on {block.device}, got shape "
             f"{tuple(frac_offsets.shape)} on {frac_offsets.device}")
-
-
-def _count(wrapper, interp_taps: int, frac_offsets: torch.Tensor | None, *load) -> None:
-    """One more launch of ``wrapper``: in all, and by (taps, residuals given,
-    ``*load``)."""
-    wrapper.launches += 1
-    wrapper.launches_by_variant[(interp_taps, frac_offsets is not None, *load)] += 1
 
 
 def frames_to_screens(
@@ -761,16 +732,8 @@ def frames_to_screens(
         return frames_to_screens_plain(env, frame_starts, geom, frac_offsets, interp_taps)
     if env.dtype != torch.float32:
         raise TypeError(f"K1 takes a float32 envelope, got {env.dtype}")
-    out = _launch(env, env.shape[0], _ENVELOPE, frame_starts, frame_len, y_t, x_t, out_shape,
-                  frac_offsets, interp_taps, num_phases)
-    _count(frames_to_screens, interp_taps, frac_offsets)
-    return out
-
-
-# K1 launches on an envelope since the last reset: in all, and by
-# (interp_taps, residuals given).
-frames_to_screens.launches = 0
-frames_to_screens.launches_by_variant = collections.Counter()
+    return _launch(env, env.shape[0], _ENVELOPE, frame_starts, frame_len, y_t, x_t, out_shape,
+                   frac_offsets, interp_taps, num_phases)
 
 
 def word_code(dtype: torch.dtype, demod: str = "am", bf16: bool = False, invert: bool = False
@@ -860,26 +823,13 @@ def words_maxima(words: torch.Tensor, demod: str = "am", streams: int = 1) -> to
         raise ValueError("words_maxima takes at least one sample a stream")
     chunks = -(-(length // (16 // sample_bytes) + 2) // MAX_WORDS_PER_BLOCK)
     dev = words.device
-    from .. import _build
-
-    lib = _build.load_library("resample")
     partials = torch.empty(streams * chunks, dtype=torch.int32, device=dev)
     out = torch.empty(streams, dtype=torch.float32, device=dev)
-    with _current(dev):
-        stream = _stream(dev)
-        rc = lib.tt_words_max(words.data_ptr(), length, streams, code, chunks,
-                              partials.data_ptr(), _max_count(dev, stream).data_ptr(),
-                              out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"the block maximum's launch failed with cudaError_t {rc}")
-    count("launches.words_max")
-    report_launch(*max_launch_cost(n, sample_bytes, code, streams))
-    words_maxima.launches += 1
+    _build.launch("words_max", _build.load_library("resample").tt_words_max, dev,
+                  (max_launch_cost(n, sample_bytes, code, streams),), None,
+                  words.data_ptr(), length, streams, code, chunks, partials.data_ptr(),
+                  _max_count(dev, _build.current_stream(dev)).data_ptr(), out.data_ptr())
     return out
-
-
-# Launches of the block maximum since the last reset.
-words_maxima.launches = 0
 
 
 def frames_to_screens_from_words(
@@ -927,19 +877,9 @@ def frames_to_screens_from_words(
     n = words.shape[0] // 2
     _check_streams(n, streams, frame_starts.shape[0])
     maxima = words_maxima(words, demod, streams) if invert else None
-    out = _launch(words, n, word_code(words.dtype, demod, bf16, invert), frame_starts,
-                  frame_len, y_t, x_t, out_shape, frac_offsets, interp_taps, num_phases, maxima,
-                  streams)
-    _count(frames_to_screens_from_words, interp_taps, frac_offsets, demod, bool(bf16),
-           *(("invert",) if invert else ()))
-    return out
-
-
-# K1 launches on I/Q words since the last reset: in all, and by
-# (interp_taps, residuals given, demod, bfloat16 rounding), with "invert"
-# after those under the inversion.
-frames_to_screens_from_words.launches = 0
-frames_to_screens_from_words.launches_by_variant = collections.Counter()
+    return _launch(words, n, word_code(words.dtype, demod, bf16, invert), frame_starts,
+                   frame_len, y_t, x_t, out_shape, frac_offsets, interp_taps, num_phases, maxima,
+                   streams, (demod, bool(bf16), *(("invert",) if invert else ())))
 
 
 def fm_int16_words(words: torch.Tensor) -> torch.Tensor:
@@ -958,19 +898,18 @@ def fm_int16_words(words: torch.Tensor) -> torch.Tensor:
         return words_envelope_plain(words, "fm")
     if words.device.type != "cuda" or not words.is_contiguous():
         raise ValueError("fm_int16_words takes contiguous CUDA or CPU words")
-    from .. import _build
-
     n = words.shape[0] // 2
     out = torch.empty(n, dtype=torch.float32, device=words.device)
-    rc = _build.load_library("resample").tt_fm_int16(
-        words.data_ptr(), n, out.data_ptr(), torch.cuda.current_stream(words.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"tt_fm_int16 failed with cudaError_t {rc}")
-    fm_int16_words.launches += 1
+    _build.launch("fm_check", _build.load_library("resample").tt_fm_int16, words.device,
+                  (_fm_check_cost(n, 4),), ("int16",), words.data_ptr(), n, out.data_ptr())
     return out
 
 
-fm_int16_words.launches = 0
+def _fm_check_cost(n_samples: int, sample_bytes: int) -> tuple[int, int, int]:
+    """(bytes, float32 operations, transcendentals) of an FM check's launch:
+    the words read once, the discriminator written once, and each sample's
+    FM demod as :func:`launch_cost` counts it."""
+    return n_samples * (sample_bytes + 4), 7 * n_samples, n_samples
 
 
 def fm_float32_words(words: torch.Tensor) -> torch.Tensor:
@@ -991,22 +930,13 @@ def fm_float32_words(words: torch.Tensor) -> torch.Tensor:
     if words.device.type != "cuda" or not words.is_contiguous() or words.data_ptr() % 8:
         raise ValueError("fm_float32_words takes contiguous CUDA or CPU words, on CUDA "
                          "8-byte aligned")
-    from .. import _build
-
     n = words.shape[0] // 2
     out = torch.empty(n, dtype=torch.float32, device=words.device)
     if n == 0:
         return out
-    with _current(words.device):
-        rc = _build.load_library("resample").tt_fm_float32(
-            words.data_ptr(), n, out.data_ptr(), _stream(words.device))
-    if rc != 0:
-        raise RuntimeError(f"tt_fm_float32 failed with cudaError_t {rc}")
-    fm_float32_words.launches += 1
+    _build.launch("fm_check", _build.load_library("resample").tt_fm_float32, words.device,
+                  (_fm_check_cost(n, 8),), ("float32",), words.data_ptr(), n, out.data_ptr())
     return out
-
-
-fm_float32_words.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -1030,8 +960,6 @@ def _frame_plan(n: int, y_t: int, x_t: int, out_shape: tuple[int, int], device: 
                 taps: int, exact: bool, rows_per_tile: int, fill: int):
     """(plan, packed arguments, their address, the launcher) of a single-frame
     launch: made once per raster and launch shape, as :func:`launch_plan`."""
-    from .. import _build
-
     plan = launch_plan(n, 1, n, y_t, x_t, out_shape, device, None, 4, 0, taps, exact,
                        rows_per_tile, fill)
     g = plan.geom
@@ -1075,24 +1003,15 @@ def frame_to_screen(
         raise TypeError(f"K1 takes a contiguous 1-D float32 envelope of 1 to {_INT32_MAX} "
                         f"samples on CUDA, got {sig.dtype} of shape {tuple(sig.shape)} on {dev}")
     exact = offset is not None
-    plan, _, address, launch = _frame_plan(n, int(y_t), int(x_t),
+    plan, _, address, launcher = _frame_plan(n, int(y_t), int(x_t),
                                            (int(out_shape[0]), int(out_shape[1])), dev,
                                            interp_taps, exact, ROWS_PER_TILE[4], FILL_TILES_PER_SM)
     # A residual on the card is read back here: the kernel takes it as a scalar.
     res = 0.0 if offset is None else float(offset)
     out = torch.empty(plan.geom.out_shape, dtype=torch.float32, device=dev)
-    with _current(dev):
-        rc = launch(address, sig.data_ptr(), n, res, out.data_ptr(), _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"K1 launch of one frame failed with cudaError_t {rc}")
-    count("launches.k1")
-    report_launch(*plan.cost)
-    frame_to_screen.launches += 1
+    _build.launch("k1", launcher, dev, (plan.cost,), (interp_taps, exact, "frame"),
+                  address, sig.data_ptr(), n, res, out.data_ptr())
     return out
-
-
-# K1 launches of one frame since the last reset.
-frame_to_screen.launches = 0
 
 
 # Int32 words of a candidate's header in the stacked table, and their order
@@ -1229,25 +1148,11 @@ def frames_to_screens_candidates(
     if env.dtype != torch.float32:
         raise TypeError(f"K1 takes a float32 envelope, got {env.dtype}")
     n_frames = _check_launch(env, env.shape[0], frame_starts)
-    from .. import _build
-
-    lib = _build.load_library("resample")
     h, w = table.geometries[0].out_shape
     out = torch.empty((len(rasters), n_frames, h, w), dtype=torch.float32, device=env.device)
-    with torch.cuda.device(env.device):
-        stream = torch.cuda.current_stream(env.device).cuda_stream
-        rc = lib.tt_resample_candidates(
-            env.data_ptr(), env.shape[0], frame_starts.data_ptr(), n_frames,
-            table.table.data_ptr(), len(rasters), n_frames * table.tiles_per_frame,
-            out.data_ptr(), h, w, table.run_cap, stream)
-    if rc != 0:
-        raise RuntimeError(f"K1 launch over {len(rasters)} candidates failed with "
-                           f"cudaError_t {rc}")
-    count("launches.k1")
-    report_launch(*candidates_launch_cost(env.shape[0], n_frames, table))
-    frames_to_screens_candidates.launches += 1
+    _build.launch("k1", _build.load_library("resample").tt_resample_candidates, env.device,
+                  (candidates_launch_cost(env.shape[0], n_frames, table),), (2, False, "candidates"),
+                  env.data_ptr(), env.shape[0], frame_starts.data_ptr(), n_frames,
+                  table.table.data_ptr(), len(rasters), n_frames * table.tiles_per_frame,
+                  out.data_ptr(), h, w, table.run_cap)
     return out
-
-
-# K1 launches over a candidate set since the last reset.
-frames_to_screens_candidates.launches = 0

@@ -48,8 +48,7 @@ import functools
 
 import torch
 
-from ..utils.profiling import count
-from ..utils.roofline import report_launch
+from .. import _build
 from .framesync import (
     _profiles,
     find_blank,
@@ -236,8 +235,6 @@ def _max_clusters(index: int, smem: int, size: int) -> int:
     stream's step asks the same every block."""
     import ctypes
 
-    from .. import _build
-
     out = ctypes.c_int(0)
     with torch.cuda.device(index):
         rc = _build.load_library("sync").tt_sync_max_clusters(size, smem, ctypes.byref(out))
@@ -262,8 +259,6 @@ def _launch(frames: torch.Tensor, y_min_frac: float, x_min_frac: float, method: 
     profile_bytes, search_bytes = shared_bytes(h, w, y_min_frac, x_min_frac)
     if profile_bytes > _BLOCK_SHARED or search_bytes > _SEARCH_SHARED:
         raise ValueError(f"screens of {h}x{w} need more shared memory than a block of K2 has")
-    from .. import _build
-
     lib = _build.load_library("sync")
     dev = frames.device
     cluster = split or _split(n_frames, h, w, y_min_frac, x_min_frac, dev.index)
@@ -275,23 +270,18 @@ def _launch(frames: torch.Tensor, y_min_frac: float, x_min_frac: float, method: 
     s_x = torch.empty(n_frames, dtype=s_dtype, device=dev)
     score = torch.empty(n_frames, dtype=torch.float32, device=dev)
     sync = torch.empty((n_frames, 2), dtype=s_dtype, device=dev) if pairs else None
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        args = (frames.data_ptr(), row_sums.data_ptr(), col_parts.data_ptr(), n_frames, h, w,
-                y_spec.w_min, y_spec.w_max, x_spec.w_min, x_spec.w_max, *_GAUSSIAN_TAPS,
-                method, int(subpixel), cluster, s_y.data_ptr(), s_x.data_ptr(),
-                score.data_ptr(), None if sync is None else sync.data_ptr(), stream)
-        rc = (lib.tt_blanking_sync(*args) if clocks is None
-              else lib.tt_blanking_sync_timed(*args, clocks.data_ptr()))
-    if rc != 0:
-        raise RuntimeError(f"K2 launch failed with cudaError_t {rc}")
-    count("launches.k2", 2)  # K2a and K2b
-    # One report a kernel: K2a reads the screens and adds every pixel twice,
-    # K2b does the rest of launch_cost's count.
+    # Two kernels: K2a reads the screens and adds every pixel twice, K2b does
+    # the rest of launch_cost's count.
     nbytes, flops = launch_cost(n_frames, h, w, y_min_frac, x_min_frac, subpixel)
     screen_bytes, pixel_adds = 4 * n_frames * h * w, 2 * n_frames * h * w
-    report_launch(screen_bytes, pixel_adds)
-    report_launch(nbytes - screen_bytes, flops - pixel_adds)
+    _build.launch(
+        "k2", lib.tt_blanking_sync if clocks is None else lib.tt_blanking_sync_timed, dev,
+        ((screen_bytes, pixel_adds), (nbytes - screen_bytes, flops - pixel_adds)), None,
+        frames.data_ptr(), row_sums.data_ptr(), col_parts.data_ptr(), n_frames, h, w,
+        y_spec.w_min, y_spec.w_max, x_spec.w_min, x_spec.w_max, *_GAUSSIAN_TAPS,
+        method, int(subpixel), cluster, s_y.data_ptr(), s_x.data_ptr(),
+        score.data_ptr(), None if sync is None else sync.data_ptr(),
+        after=() if clocks is None else (clocks.data_ptr(),))
     return (s_y, s_x, score) + ((sync,) if pairs else ())
 
 
@@ -318,13 +308,7 @@ def blanking_sync(
         return out + ((torch.stack(out[:2], dim=1),) if pairs else ())
     if frames.device.type != "cuda":
         raise ValueError(f"K2 runs on CUDA or CPU tensors, not {frames.device.type}")
-    out = _launch(frames, y_min_frac, x_min_frac, code, subpixel, pairs)
-    blanking_sync.launches += 2  # K2a and K2b
-    return out
-
-
-# K2's kernel launches since the last reset: two a call, K2a and K2b.
-blanking_sync.launches = 0
+    return _launch(frames, y_min_frac, x_min_frac, code, subpixel, pairs)
 
 
 def clock_stamps(frames: torch.Tensor, subpixel: bool = True,
@@ -335,10 +319,8 @@ def clock_stamps(frames: torch.Tensor, subpixel: bool = True,
     8 the ``clock64()`` count when the phase that ``labels[k]`` names has
     ended (0 is the block's start), 8 and 9 the global timer's nanoseconds
     at the block's start and end; ``split`` a cluster size to force.  A
-    measurement aid (``exp/k2_clocks.py``), not counted as a launch of the
-    main path."""
-    from .. import _build
-
+    measurement aid (``exp/k2_clocks.py``), recorded as K2's two launches as
+    any call is."""
     clocks = torch.zeros((frames.shape[0], 2, 10), dtype=torch.int64, device=frames.device)
     _launch(frames.contiguous(), 0.01, 0.05, 0, subpixel, False, clocks, split)
     labels = _build.load_library("sync").tt_sync_clock_labels().decode().split(",")

@@ -17,12 +17,12 @@ transform, every other operation on floating-point data as one operation
 per output element.  Trust measured times for rankings.
 
 The hand-written kernels are no ATen operations (they are launched through
-``ctypes``), so the dispatch mode cannot see them: each wrapper reports its
-launches' cost itself (``report_launch``, once a kernel launch), from the
-same function that gives its bound: K1's ``ops.resample_kernel.launch_cost``,
-K2's ``ops.sync_kernel.launch_cost`` (reported as its two launches, K2a
-reading the screens and K2b the rest) and K3's
-``ops.align_kernel.launch_cost``.  The small torch operations around them
+``ctypes``), so the dispatch mode cannot see them: the launch boundary
+(``_build.launch``) reports each kernel's cost (``report_launch``, once a
+kernel) as its wrapper gives it, from the same function that gives its
+bound: K1's ``ops.resample_kernel.launch_cost``, K2's
+``ops.sync_kernel.launch_cost`` (reported as its two launches, K2a reading
+the screens and K2b the rest) and K3's ``ops.align_kernel.launch_cost``.  The small torch operations around them
 (K3's shift and fold weights) are ATen operations and counted as such.
 """
 
@@ -179,10 +179,9 @@ _ACTIVE: list[_CostCount] = []
 
 
 def report_launch(nbytes: float, flops: float, transcendentals: float = 0.0) -> None:
-    """A hand-written kernel's wrapper calls this once per launch with the
-    launch's bytes (inputs read once, outputs written once) and operations;
-    it is added to every roofline count that is running, and costs one
-    truth test when none is."""
+    """The launch boundary calls this once a kernel launched, with its bytes
+    (inputs read once, outputs written once) and operations; it is added to
+    every roofline count that is running."""
     for count in _ACTIVE:
         count.add_launch(nbytes, flops, transcendentals)
 

@@ -25,7 +25,7 @@ import pytest
 import torch
 
 import tempest_tpu_torch as tp
-from tempest_tpu_torch.ops import resample_kernel
+from tempest_tpu_torch._build import count_launches
 from tempest_tpu_torch.pipeline import offline as poff
 
 MODE = tp.ALL_VIDEO_MODES["640x480 @ 60Hz"]
@@ -95,12 +95,10 @@ def test_batched_step_equals_single_stream_steps(case, dtype):
     rng = np.random.default_rng(0)
     ema = rng.random((N_STREAMS, *SHAPE), dtype=np.float32)
     phases = (PHASES,) if cfg.carry_phase else ()
-    launches = (resample_kernel.frames_to_screens.launches,
-                resample_kernel.frames_to_screens_from_words.launches)
-    out = poff.make_batched_reconstruct_fn(cfg, device="cpu")(words, ema, ALPHA, *phases)
+    with count_launches() as seen:
+        out = poff.make_batched_reconstruct_fn(cfg, device="cpu")(words, ema, ALPHA, *phases)
     # The count is of kernel launches: on the CPU the plain version runs.
-    assert launches == (resample_kernel.frames_to_screens.launches,
-                        resample_kernel.frames_to_screens_from_words.launches)
+    assert not seen
     assert out[0].shape == (N_STREAMS, *SHAPE) and out[1].shape == (N_STREAMS, N_FRAMES, *SHAPE)
     assert out[2].shape == (N_STREAMS, N_FRAMES, 2) and out[3].shape == (N_STREAMS, N_FRAMES)
     single = poff.make_reconstruct_fn(cfg, "cpu")
@@ -257,11 +255,11 @@ def test_batched_step_on_the_card_is_one_launch_and_equals_single_streams(cuda_d
     words = _words(_streams(cfg.block_samples), np.int16)
     ema = np.zeros((N_STREAMS, *SHAPE), np.float32)
     phases = (PHASES,) if cfg.carry_phase else ()
-    entries = (resample_kernel.frames_to_screens, resample_kernel.frames_to_screens_from_words)
-    before = sum(e.launches for e in entries)
-    out = poff.make_batched_reconstruct_fn(cfg, device=cuda_device)(words, ema, ALPHA, *phases)
+    with count_launches() as seen:
+        out = poff.make_batched_reconstruct_fn(cfg, device=cuda_device)(words, ema, ALPHA,
+                                                                         *phases)
     torch.cuda.synchronize()
-    assert sum(e.launches for e in entries) == before + 1
+    assert seen["k1"] == 1
     single = poff.make_reconstruct_fn(cfg, cuda_device)
     for b in range(N_STREAMS):
         phase = (PHASES[b],) if cfg.carry_phase else ()

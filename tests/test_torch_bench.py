@@ -37,6 +37,7 @@ import torch
 
 import tempest_tpu_torch as tp
 from tempest_tpu_torch.bench import bench, bench_all
+from tempest_tpu_torch._build import count_launches
 from tempest_tpu_torch.native import native_available
 from tempest_tpu_torch.ops import resample_kernel as rk
 from tempest_tpu_torch.ops.resample import round_to_bfloat16
@@ -278,9 +279,9 @@ def test_launch_plan_is_made_once_per_raster(monkeypatch):
 def test_frame_to_screen_on_the_cpu_counts_no_launch():
     mode = tp.ALL_VIDEO_MODES["640x480 @ 60Hz"]
     sig = torch.from_numpy(np.random.default_rng(0).random(33_333, dtype=np.float32))
-    before = rk.frame_to_screen.launches
-    got = rk.frame_to_screen(sig, mode.height, mode.width, (48, 64), 0.25)
+    with count_launches() as seen:
+        got = rk.frame_to_screen(sig, mode.height, mode.width, (48, 64), 0.25)
     geom = rk.screen_geometry(33_333, mode.height, mode.width, (48, 64), sig.device)
     ref = rk.frames_to_screens_plain(sig, torch.zeros(1, dtype=torch.int32), geom,
                                      torch.full((1,), 0.25))[0]
-    assert torch.equal(got, ref) and rk.frame_to_screen.launches == before
+    assert torch.equal(got, ref) and not seen

@@ -31,6 +31,7 @@ import torch
 
 import tempest_tpu.ops.resample as jres
 import tempest_tpu.pipeline.offline as joff
+from tempest_tpu_torch._build import count_launches
 from tempest_tpu_torch.io.synthetic import generate_iq
 from tempest_tpu_torch.ops import resample as pres
 from tempest_tpu_torch.ops import resample_kernel
@@ -257,9 +258,9 @@ def test_k1_wrapper_rejects_bad_residuals_and_taps():
         frames_to_screens(env, starts, *args, frac_offsets=torch.zeros(3))
     with pytest.raises(ValueError, match="taps"):
         frames_to_screens_from_words(env, starts, *args, interp_taps=8)
-    before = dict(frames_to_screens.launches_by_variant)
-    frames_to_screens(env, starts, *args, frac_offsets=torch.zeros(2), interp_taps=4)
-    assert dict(frames_to_screens.launches_by_variant) == before   # CPU: no launch counted
+    with count_launches() as seen:
+        frames_to_screens(env, starts, *args, frac_offsets=torch.zeros(2), interp_taps=4)
+    assert not seen   # CPU: no launch counted
 
 
 # ----------------------------------------------- the kernel's staged run
@@ -486,9 +487,9 @@ def test_k1_cuda_variants_equal_plain(cuda_device, entry, taps, exact):
     residuals = fracs if exact else None
     # The words entry counts its load too: plain AM.
     variant = (taps, exact) + (() if entry == "envelope" else ("am", False))
-    before = fn.launches_by_variant[variant]
-    got = fn(data, starts, frame_len, mode.height, mode.width, (600, 800), residuals, taps)
-    assert fn.launches_by_variant[variant] == before + 1
+    with count_launches() as seen:
+        got = fn(data, starts, frame_len, mode.height, mode.width, (600, 800), residuals, taps)
+    assert seen["k1", *variant] == 1 == seen["k1"]
     geom = screen_geometry(frame_len, mode.height, mode.width, (600, 800), env.device)
     ref = frames_to_screens_plain(env, starts, geom, residuals, taps)
     torch.cuda.synchronize()

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from tempest_tpu_torch._build import count_launches
 from tempest_tpu_torch.io.synthetic import generate_iq
 from tempest_tpu_torch.ops import resample_kernel
 from tempest_tpu_torch.ops.demod import am_envelope_from_iq
@@ -87,9 +88,10 @@ def test_fused_equals_demod_then_k1_to_the_bit(dtype, odd):
     n = 3 * FRAME_LEN + 1
     words = torch.from_numpy(_words(n, dtype, seed=5, odd=odd))
     starts = torch.from_numpy(_starts_past_block_end(n))
-    before = frames_to_screens_from_words.launches
-    got = frames_to_screens_from_words(words, starts, FRAME_LEN, MODE.height, MODE.width, SHAPE)
-    assert frames_to_screens_from_words.launches == before  # a CPU tensor launches nothing
+    with count_launches() as seen:
+        got = frames_to_screens_from_words(words, starts, FRAME_LEN, MODE.height, MODE.width,
+                                           SHAPE)
+    assert not seen  # a CPU tensor launches nothing
     ref = frames_to_screens(am_envelope_from_iq(words), starts, FRAME_LEN,
                             MODE.height, MODE.width, SHAPE)
     assert got.shape == (3, *SHAPE) and got.dtype == torch.float32
@@ -322,9 +324,10 @@ def test_fused_cuda_matches_plain(cuda_device, dtype):
     starts = np.floor(np.float32(1000.25) + np.float32(spf) * np.arange(36, dtype=np.float32)
                       + np.float32(0.5)).astype(np.int32)
     starts = torch.from_numpy(starts).to(cuda_device)
-    before = frames_to_screens_from_words.launches
-    got = frames_to_screens_from_words(words, starts, frame_len, mode.height, mode.width, shape)
-    assert frames_to_screens_from_words.launches == before + 1
+    with count_launches() as seen:
+        got = frames_to_screens_from_words(words, starts, frame_len, mode.height, mode.width,
+                                           shape)
+    assert seen["k1", 2, False, "am", False] == 1 == seen["k1"]
     geom = resample_kernel.screen_geometry(frame_len, mode.height, mode.width, shape, words.device)
     ref = resample_kernel.frames_to_screens_plain(am_envelope_from_iq(words), starts, geom)
     torch.cuda.synchronize()

@@ -34,6 +34,7 @@ import pytest
 import torch
 
 import tempest_tpu_torch as tp
+from tempest_tpu_torch._build import count_launches
 from tempest_tpu_torch.bench import bench
 from tempest_tpu_torch.ops import resample_kernel as rk
 from tempest_tpu_torch.ops.demod import am_envelope_from_iq, fm_demod_from_iq
@@ -109,13 +110,11 @@ def test_words_entry_equals_the_plain_chain_to_the_bit(dtype, load, taps, varian
     fracs = (torch.from_numpy(np.random.default_rng(3).random(3).astype(np.float32))
              if variant == "residuals" else None)
     phases = 16 if variant == "quantised_table" else None
-    before = (rk.frames_to_screens_from_words.launches,
-              dict(rk.frames_to_screens_from_words.launches_by_variant))
-    got = rk.frames_to_screens_from_words(words, starts, FRAME_LEN, MODE.height, MODE.width,
-                                          SHAPE, fracs, taps, phases, demod=demod, bf16=bf16)
+    with count_launches() as seen:
+        got = rk.frames_to_screens_from_words(words, starts, FRAME_LEN, MODE.height, MODE.width,
+                                              SHAPE, fracs, taps, phases, demod=demod, bf16=bf16)
     # A CPU tensor launches nothing, so nothing is counted.
-    assert before == (rk.frames_to_screens_from_words.launches,
-                      dict(rk.frames_to_screens_from_words.launches_by_variant))
+    assert not seen
     geom = rk.screen_geometry(FRAME_LEN, MODE.height, MODE.width, SHAPE, torch.device("cpu"),
                               phases)
     ref = rk.frames_to_screens_plain(_envelope(words, demod, bf16), starts, geom, fracs, taps)
@@ -458,11 +457,10 @@ def test_words_load_on_the_card_equals_plain(cuda_device, dtype, load, taps, exa
     fracs = fracs if exact else None
     raster = (frame_len, mode.height, mode.width, (600, 800))
     geom = rk.screen_geometry(*raster, cuda_device)
-    key = (taps, exact, demod, bf16)
-    before = rk.frames_to_screens_from_words.launches_by_variant[key]
-    got = rk.frames_to_screens_from_words(words, starts, *raster, fracs, taps, demod=demod,
-                                          bf16=bf16)
-    assert rk.frames_to_screens_from_words.launches_by_variant[key] == before + 1
+    with count_launches() as seen:
+        got = rk.frames_to_screens_from_words(words, starts, *raster, fracs, taps, demod=demod,
+                                              bf16=bf16)
+    assert seen["k1", taps, exact, demod, bf16] == 1 == seen["k1"]
     ref = rk.frames_to_screens_plain(_envelope(words, demod, bf16), starts, geom, fracs, taps)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
@@ -529,9 +527,11 @@ def test_steps_on_the_card_take_the_words_load_and_equal_the_passes(cuda_device,
                              .astype(np.int16).astype(dtype)).to(cuda_device)
     phase = (1234.5,) if cfg.carry_phase else ()
     ema0 = torch.zeros((600, 800), device=cuda_device)
-    before = rk.frames_to_screens_from_words.launches
-    got = poff.make_reconstruct_fn(cfg, cuda_device)(words, ema0, 0.5, *phase)
-    assert rk.frames_to_screens_from_words.launches == before + 1
+    with count_launches() as seen:
+        got = poff.make_reconstruct_fn(cfg, cuda_device)(words, ema0, 0.5, *phase)
+    # One K1 launch, of the words entry: its variant goes on with the demod.
+    (variant,) = [key for key in seen if key[0] == "k1" and key != "k1"]
+    assert seen["k1"] == 1 and variant[3] == cfg.demod
     env = poff.demodulate(words, cfg)
     ref = poff.make_reconstruct_fn(dataclasses.replace(cfg, input_format="envelope"),
                                    cuda_device)(env, ema0, 0.5, *phase)
@@ -592,9 +592,9 @@ def test_int16_fm_arc_tangent_on_the_card_equals_torch_on_every_sample(cuda_devi
     else:
         data = _edge_quadruples()
     tw = torch.from_numpy(data).to(cuda_device)
-    before = rk.fm_int16_words.launches
-    got = rk.fm_int16_words(tw)
-    assert rk.fm_int16_words.launches == before + 1
+    with count_launches() as seen:
+        got = rk.fm_int16_words(tw)
+    assert seen["fm_check", "int16"] == 1 == seen["fm_check"]
     ref = rk.words_envelope_plain(tw, "fm")
     torch.cuda.synchronize()
     assert got.shape == ref.shape == (data.size // 2,)

@@ -34,6 +34,7 @@ import pytest
 import torch
 
 import tempest_tpu_torch as tp
+from tempest_tpu_torch._build import count_launches
 from tempest_tpu_torch.ops import resample_kernel as rk
 from tempest_tpu_torch.ops.demod import invert_envelope
 from tempest_tpu_torch.ops.resample import _screen_geometry
@@ -154,9 +155,9 @@ def test_block_maximum_is_torch_max_of_each_stream(dtype, demod, streams):
     n = 4 * 1001
     words = torch.from_numpy(_words(n, dtype, seed=streams, modulation=demod))
     words = torch.cat([words, words[:1]])          # an odd trailing word
-    before = rk.words_maxima.launches
-    got = rk.words_maxima(words, demod, streams)
-    assert rk.words_maxima.launches == before    # a CPU tensor launches nothing
+    with count_launches() as seen:
+        got = rk.words_maxima(words, demod, streams)
+    assert not seen    # a CPU tensor launches nothing
     length = n // streams
     ref = [torch.max(rk.words_envelope_plain(words[2 * length * b: 2 * length * (b + 1)], demod))
            for b in range(streams)]
@@ -469,9 +470,9 @@ def test_block_maximum_on_the_card_equals_torch_max(cuda_device, dtype, demod, s
     words = _random_words(cuda_device, streams * length, dtype, seed=streams)
     if streams > 1:
         words[2 * (streams - 1) * length:] = 0
-    before = rk.words_maxima.launches
-    got = rk.words_maxima(words, demod, streams)
-    assert rk.words_maxima.launches == before + 1
+    with count_launches() as seen:
+        got = rk.words_maxima(words, demod, streams)
+    assert seen == {"words_max": 1}
     ref = rk.words_maxima_plain(words, demod, streams)
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int32), ref.view(torch.int32)), (got, ref)
@@ -535,12 +536,10 @@ def test_inverted_words_load_on_the_card_equals_plain(cuda_device, dtype, load, 
     fracs = fracs if exact else None
     raster = (frame_len, mode.height, mode.width, (600, 800))
     geom = rk.screen_geometry(*raster, cuda_device)
-    key = (taps, exact, demod, bf16, "invert")
-    before = (rk.frames_to_screens_from_words.launches_by_variant[key], rk.words_maxima.launches)
-    got = rk.frames_to_screens_from_words(words, starts, *raster, fracs, taps, demod=demod,
-                                          bf16=bf16, invert=True)
-    assert (rk.frames_to_screens_from_words.launches_by_variant[key],
-            rk.words_maxima.launches) == (before[0] + 1, before[1] + 1)
+    with count_launches() as seen:
+        got = rk.frames_to_screens_from_words(words, starts, *raster, fracs, taps, demod=demod,
+                                              bf16=bf16, invert=True)
+    assert seen == {"k1": 1, ("k1", taps, exact, demod, bf16, "invert"): 1, "words_max": 1}
     env = rk.words_envelope_plain(words, demod, bf16, invert=True)
     ref = rk.frames_to_screens_plain(env, starts, geom, fracs, taps)
     torch.cuda.synchronize()
@@ -638,13 +637,14 @@ def test_batched_step_on_the_card_takes_the_words_load(cuda_device, case):
     words = _random_words(cuda_device, 4 * cfg.block_samples, np.int16, seed=5).view(4, -1)
     ema0 = torch.zeros((4, 600, 800), device=cuda_device)
     phases = ([0.0, 1234.56, 98765.4321, 222222.125],) if cfg.carry_phase else ()
-    counts = (rk.frames_to_screens_from_words.launches, rk.frames_to_screens.launches,
-              rk.words_maxima.launches)
-    out = poff.make_batched_reconstruct_fn(cfg, device=cuda_device)(words, ema0, 0.5, *phases)
+    with count_launches() as seen:
+        out = poff.make_batched_reconstruct_fn(cfg, device=cuda_device)(words, ema0, 0.5,
+                                                                         *phases)
     torch.cuda.synchronize()
-    assert (rk.frames_to_screens_from_words.launches, rk.frames_to_screens.launches,
-            rk.words_maxima.launches) == (counts[0] + 1, counts[1],
-                                          counts[2] + (1 if cfg.invert else 0))
+    # One K1 launch, of the words entry (its variant goes on with the demod).
+    (variant,) = [key for key in seen if key[0] == "k1" and key != "k1"]
+    assert seen["k1"] == 1 and variant[3] == cfg.demod
+    assert seen["words_max"] == (1 if cfg.invert else 0)
     single = poff.make_reconstruct_fn(cfg, cuda_device)
     for b in range(4):
         ema_s, frames, sync, score = single(words[b], ema0[b], 0.5, *[p[b] for p in phases])
@@ -668,10 +668,10 @@ def test_inverted_step_on_the_card_equals_the_pass_route(cuda_device, case):
                                     align_subpixel=True, invert=True, **options)
     words = _random_words(cuda_device, cfg.block_samples, np.int16, seed=2)
     ema0 = torch.zeros((600, 800), device=cuda_device)
-    counts = (rk.frames_to_screens_from_words.launches, rk.words_maxima.launches)
-    got = poff.make_reconstruct_fn(cfg, cuda_device)(words, ema0, 0.5)
-    assert (rk.frames_to_screens_from_words.launches, rk.words_maxima.launches) == (
-        counts[0] + 1, counts[1] + 1)
+    with count_launches() as seen:
+        got = poff.make_reconstruct_fn(cfg, cuda_device)(words, ema0, 0.5)
+    (variant,) = [key for key in seen if key[0] == "k1" and key != "k1"]
+    assert seen["k1"] == 1 == seen["words_max"] and variant[3] == cfg.demod
     env = poff.demodulate(words, cfg)
     ref = poff.make_reconstruct_fn(
         dataclasses.replace(cfg, input_format="envelope", invert=False), cuda_device)(

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from tempest_tpu_torch._build import count_launches
 from tempest_tpu_torch.ops import resample_kernel as rk
 from tempest_tpu_torch.io.synthetic import generate_iq
 from tempest_tpu_torch.video.modes import ALL_VIDEO_MODES, candidate_modes
@@ -155,9 +156,9 @@ def test_candidate_kernel_equals_its_plain_version(cuda_device, shape, num_phase
     table = rk.candidate_table(frame_len, rasters, shape, cuda_device, num_phases)
     caps = {rk.tile_plan(frame_len, y_t, x_t, shape, 4)[1] for y_t, x_t in rasters}
     assert len(caps) > 1
-    before = rk.frames_to_screens_candidates.launches
-    got = rk.frames_to_screens_candidates(env, starts, frame_len, rasters, shape, num_phases)
-    assert rk.frames_to_screens_candidates.launches == before + 1
+    with count_launches() as seen:
+        got = rk.frames_to_screens_candidates(env, starts, frame_len, rasters, shape, num_phases)
+    assert seen == {"k1": 1, ("k1", 2, False, "candidates"): 1}
     ref = rk.frames_to_screens_candidates_plain(env, starts, table)
     torch.cuda.synchronize()
     assert got.shape == (len(rasters), 2, *shape)

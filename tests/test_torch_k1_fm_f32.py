@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from tempest_tpu_torch._build import count_launches
 from tempest_tpu_torch.ops import resample_kernel as rk
 from tempest_tpu_torch.pipeline import offline as poff
 from tempest_tpu_torch.video.modes import ALL_VIDEO_MODES
@@ -146,9 +147,9 @@ def test_float32_fm_arc_tangent_on_the_card_equals_torch(cuda_device, scale):
     every edge quadruple."""
     words = edge_words() if scale == "edges" else float_words(scale, (1 << 22) + 1, 22)
     tw = torch.from_numpy(words).to(cuda_device)
-    before = rk.fm_float32_words.launches
-    got = rk.fm_float32_words(tw)
-    assert rk.fm_float32_words.launches == before + 1
+    with count_launches() as seen:
+        got = rk.fm_float32_words(tw)
+    assert seen == {"fm_check": 1, ("fm_check", "float32"): 1}
     ref = rk.words_envelope_plain(tw, "fm")
     torch.cuda.synchronize()
     assert got.shape == ref.shape == (words.size // 2,)

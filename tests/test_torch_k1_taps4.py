@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from tempest_tpu_torch._build import count_launches
 from tempest_tpu_torch.ops import resample_kernel as rk
 from tempest_tpu_torch.ops.demod import am_envelope_from_iq
 from tempest_tpu_torch.pipeline import offline as poff
@@ -143,9 +144,9 @@ def test_every_4_tap_variant_equals_plain(cuda_device, geometry, entry, exact):
     residuals = fracs if exact else None
     # The words entry counts its load too: plain AM.
     variant = (4, exact) + (() if entry == "envelope" else ("am", False))
-    before = fn.launches_by_variant[variant]
-    got = fn(data, starts, *raster, residuals, 4)
-    assert fn.launches_by_variant[variant] == before + 1
+    with count_launches() as seen:
+        got = fn(data, starts, *raster, residuals, 4)
+    assert seen == {"k1": 1, ("k1", *variant): 1}
     ref = rk.frames_to_screens_plain(env, starts, geom, residuals, 4)
     torch.cuda.synchronize()
     assert got.shape == ref.shape and torch.equal(got, ref)

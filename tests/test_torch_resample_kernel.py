@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from tempest_tpu_torch._build import count_launches
 from tempest_tpu_torch.io.synthetic import generate_iq
 from tempest_tpu_torch.ops.resample import _screen_geometry
 from tempest_tpu_torch.ops.resample_kernel import (
@@ -148,10 +149,10 @@ def test_wrapper_counts_only_kernel_launches():
     launch count alone; it rejects devices and shapes it does not take."""
     mode = ALL_VIDEO_MODES["640x480 @ 60Hz"]
     env = torch.from_numpy(_envelope(mode, 2e6, 40000, seed=1))
-    before = frames_to_screens.launches
-    frames_to_screens(env, torch.zeros(1, dtype=torch.int32), 33333,
-                      mode.height, mode.width, (48, 64))
-    assert frames_to_screens.launches == before
+    with count_launches() as seen:
+        frames_to_screens(env, torch.zeros(1, dtype=torch.int32), 33333,
+                          mode.height, mode.width, (48, 64))
+    assert not seen
     with pytest.raises(ValueError):
         frames_to_screens(env[None], torch.zeros(1, dtype=torch.int32), 33333,
                           mode.height, mode.width, (48, 64))
@@ -172,9 +173,9 @@ def test_k1_cuda_matches_plain(cuda_device):
     starts = np.floor(np.float32(1000.25) + np.float32(spf) * np.arange(36, dtype=np.float32)
                       + np.float32(0.5)).astype(np.int32)
     starts = torch.from_numpy(starts).to(cuda_device)
-    before = frames_to_screens.launches
-    got = frames_to_screens(env, starts, frame_len, mode.height, mode.width, shape)
-    assert frames_to_screens.launches == before + 1
+    with count_launches() as seen:
+        got = frames_to_screens(env, starts, frame_len, mode.height, mode.width, shape)
+    assert seen == {"k1": 1, ("k1", 2, False): 1}
     geom = screen_geometry(frame_len, mode.height, mode.width, shape, env.device)
     ref = frames_to_screens_plain(env, starts, geom)
     torch.cuda.synchronize()
@@ -209,14 +210,13 @@ def test_k1_cuda_matches_plain_at_other_widths(cuda_device, shape):
 @pytest.mark.parametrize("shape", [(600, 800), (48, 99)], ids=lambda s: f"{s[0]}x{s[1]}")
 def test_frame_to_screen_cuda_matches_plain(cuda_device, shape):
     """The single-frame wrapper on the card: one launch of its own (counted
-    on ``frame_to_screen``, not on the envelope entry), equal to the plain
-    version of the same frame."""
+    under the single frame's variant, not the envelope entry's), equal to
+    the plain version of the same frame."""
     y_t, x_t = 1125, 2576
     sig = torch.from_numpy(np.random.default_rng(2).random(333333, dtype=np.float32)).to(cuda_device)
-    before, before_frames = frame_to_screen.launches, frames_to_screens.launches
-    got = frame_to_screen(sig, y_t, x_t, shape)
-    assert frame_to_screen.launches == before + 1
-    assert frames_to_screens.launches == before_frames
+    with count_launches() as seen:
+        got = frame_to_screen(sig, y_t, x_t, shape)
+    assert seen == {"k1": 1, ("k1", 2, False, "frame"): 1}
     geom = screen_geometry(sig.shape[0], y_t, x_t, shape, sig.device)
     ref = frames_to_screens_plain(sig, torch.zeros(1, dtype=torch.int32, device=sig.device), geom)[0]
     torch.cuda.synchronize()
@@ -251,12 +251,12 @@ def test_frame_to_screen_cuda_is_one_launch_equal_to_plain_to_the_bit(
                                   geom, fracs, taps)[0]
     frame_to_screen(sig, y_t, x_t, shape, offset, taps)   # plan, build and caches made
     torch.cuda.synchronize()
-    before = frame_to_screen.launches
     allocated = torch.cuda.memory_stats(cuda_device)["allocation.all.allocated"]
-    got = frame_to_screen(sig, y_t, x_t, shape, offset, taps)
+    with count_launches() as seen:
+        got = frame_to_screen(sig, y_t, x_t, shape, offset, taps)
     torch.cuda.synchronize()
     assert torch.cuda.memory_stats(cuda_device)["allocation.all.allocated"] == allocated + 1
-    assert frame_to_screen.launches == before + 1
+    assert seen == {"k1": 1, ("k1", taps, offset is not None, "frame"): 1}
     assert got.shape == shape and torch.equal(got, ref)
     if fracs is not None:
         assert torch.equal(frame_to_screen(sig, y_t, x_t, shape, fracs, taps), ref)

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import tempest_tpu_torch as tp
+from tempest_tpu_torch._build import count_launches
 from tempest_tpu_torch.ops import resample_kernel
 from tempest_tpu_torch.parallel import sharded as psharded
 
@@ -182,11 +183,9 @@ def test_search_on_the_card_launches_k1_once_per_candidate(cuda_device, capture)
     """Since K1 takes the candidate set in one launch: once a search, and
     not once per candidate."""
     cands = tp.candidate_modes(60.0, tol_hz=0.5)
-    before = resample_kernel.frames_to_screens.launches
-    before_set = resample_kernel.frames_to_screens_candidates.launches
-    got = psharded.mode_search_static(capture.iq, FS, 60.0, cands, device=cuda_device)
-    assert resample_kernel.frames_to_screens_candidates.launches == before_set + 1
-    assert resample_kernel.frames_to_screens.launches == before
+    with count_launches() as seen:
+        got = psharded.mode_search_static(capture.iq, FS, 60.0, cands, device=cuda_device)
+    assert seen["k1"] == 1 == seen["k1", 2, False, "candidates"]
     ref = psharded.mode_search_static(capture.iq, FS, 60.0, cands, device="cpu")
     assert got.best_index == ref.best_index
     np.testing.assert_allclose(got.scores, ref.scores, rtol=SCORE_REL)

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import tempest_tpu_torch as tp
+from tempest_tpu_torch._build import count_launches
 from tempest_tpu_torch.parallel.mesh import make_mesh
 
 MODE_NAME = "640x480 @ 60Hz"
@@ -128,15 +129,11 @@ def test_sharded_search_on_one_card_equals_the_cpu_mesh(cuda_device, capture, ca
     """Four shards on one card: one K1 launch a shard over its 7 candidates
     (26 and two pads), the winner and the scores of the CPU mesh (the card's
     FFT-free profile sums reassociate: 1e-4)."""
-    from tempest_tpu_torch.ops import resample_kernel
-
-    resample_kernel.frames_to_screens.launches = 0
-    resample_kernel.frames_to_screens_candidates.launches = 0
-    got = tp.sharded_mode_search(capture.iq, FS, 60.0, cands,
-                                 make_mesh(devices=[cuda_device] * 4), render_size=SHAPE)
+    with count_launches() as seen:
+        got = tp.sharded_mode_search(capture.iq, FS, 60.0, cands,
+                                     make_mesh(devices=[cuda_device] * 4), render_size=SHAPE)
     torch.cuda.synchronize()
-    assert resample_kernel.frames_to_screens_candidates.launches == 4
-    assert resample_kernel.frames_to_screens.launches == 0
+    assert seen["k1"] == 4 == seen["k1", 2, False, "candidates"]
     ref = tp.sharded_mode_search(capture.iq, FS, 60.0, cands, make_mesh(devices=["cpu"] * 4),
                                  render_size=SHAPE)
     assert got.best_index == ref.best_index
@@ -149,7 +146,6 @@ def test_mesh_runtime_on_one_card_equals_the_single_device_runtime(cuda_device, 
     """The mesh runtime on four shards of one card against the single-device
     runtime on the card, span by span: to the bit, K1 launched on every
     shard."""
-    from tempest_tpu_torch.ops import resample_kernel
     from tempest_tpu_torch.runtime.mesh_stream import MeshStreamingRuntime
     from tempest_tpu_torch.runtime.sources import SyntheticSource
     from tempest_tpu_torch.runtime.stream import StreamingRuntime
@@ -166,8 +162,9 @@ def test_mesh_runtime_on_one_card_equals_the_single_device_runtime(cuda_device, 
         mrt.ring.put(np.ascontiguousarray(sig[t * 4 * S:(t + 1) * 4 * S]))
     for t in range(8):
         srt.ring.put(np.ascontiguousarray(sig[t * S:(t + 1) * S]))
-    resample_kernel.frames_to_screens_from_words.launches = 0
-    img = mrt.process_blocks(2)
+    with count_launches() as seen:
+        img = mrt.process_blocks(2)
     torch.cuda.synchronize()
-    assert resample_kernel.frames_to_screens_from_words.launches == 8
+    # K1's words entry (its variants go on with the demod) on every shard.
+    assert sum(n for key, n in seen.items() if key[0] == "k1" and len(key) > 4) == 8
     np.testing.assert_array_equal(img, srt.process_blocks(8))

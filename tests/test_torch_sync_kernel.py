@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from tempest_tpu_torch._build import count_launches
 from tempest_tpu_torch.io.synthetic import generate_iq
 from tempest_tpu_torch.ops import framesync as pfs
 from tempest_tpu_torch.ops import sync_kernel
@@ -258,11 +259,11 @@ def _hold(got, ref, subpixel, what, shape):
 @pytest.mark.parametrize("subpixel", [False, True], ids=["integer", "subpixel"])
 def test_k2_matches_plain(cuda_device, shape, method, subpixel):
     screens = _screens(shape).to(cuda_device)
-    before = sync_kernel.blanking_sync.launches
-    got = sync_kernel.blanking_sync(screens, method=method, subpixel=subpixel)
+    with count_launches() as seen:
+        got = sync_kernel.blanking_sync(screens, method=method, subpixel=subpixel)
     ref = sync_kernel.blanking_sync_plain(screens, method=method, subpixel=subpixel)
     torch.cuda.synchronize()
-    assert sync_kernel.blanking_sync.launches == before + 2
+    assert seen == {"k2": 2}
     _hold(got, ref, subpixel, f"{shape} {method}", shape)
 
 

@@ -12,10 +12,8 @@ library that launches nothing (the kernels have no CPU mode), and on the
 card by the ``cuda`` test at the end.
 """
 
-import contextlib
 import threading
 import time
-import types
 
 import numpy as np
 import pytest
@@ -37,7 +35,7 @@ from tempest_tpu_torch.runtime.mesh_stream import MeshStreamingRuntime
 from tempest_tpu_torch.runtime.ring import RingBuffer
 from tempest_tpu_torch.runtime.sources import SyntheticSource
 from tempest_tpu_torch.runtime.stream import StreamingRuntime
-from tempest_tpu_torch.utils import profiling
+from tempest_tpu_torch.utils import profiling, roofline
 
 MODE = tp.ALL_VIDEO_MODES["640x480 @ 60Hz"]
 FS = 2e6
@@ -603,15 +601,11 @@ class _NoLaunch:
 
 @pytest.fixture
 def no_launch(monkeypatch):
-    """The three kernels' launch sites on CPU tensors, with a library that
-    launches nothing and the current CUDA device and stream stubbed."""
+    """The three kernels' launch sites on CPU tensors, behind the launch
+    boundary, with a library that launches nothing (and K1's check of a CUDA
+    source passed)."""
     monkeypatch.setattr(_build, "load_library", lambda name: _NoLaunch())
     monkeypatch.setattr(resample_kernel, "_check_launch", lambda src, n, starts: starts.shape[0])
-    monkeypatch.setattr(resample_kernel, "_current", lambda dev: contextlib.nullcontext())
-    monkeypatch.setattr(resample_kernel, "_stream", lambda dev: 0)
-    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
 
 
 def _resident_launches():
@@ -645,9 +639,43 @@ def test_failed_launch_counts_nothing(no_launch, monkeypatch):
 
     monkeypatch.setattr(_build, "load_library", lambda name: Failing())
     profiling.enable()
-    with pytest.raises(RuntimeError, match="K2 launch failed"):
+    with pytest.raises(RuntimeError, match="k2 launch failed"):
         sync_kernel._launch(torch.zeros((4, *SHAPE)), 0.01, 0.05, 0, True, True, split=1)
     assert profiling.summary()["counters"] == {}
+
+
+def test_one_launch_is_one_record_for_every_reader():
+    """Through the boundary, one launch is seen once by the tracer, by a
+    running roofline count and by the launch reader; a failed one raises,
+    naming its kernel, and records nothing; and the wrappers given CPU
+    tensors run their plain versions and record nothing."""
+    calls = []
+
+    def launcher(*args):
+        calls.append(args)
+        return 0
+
+    cpu = torch.device("cpu")
+    profiling.enable()
+    with _build.count_launches() as seen:
+        report = roofline.roofline(_build.launch, "k3", launcher, cpu, ((100, 10),),
+                                   ("linear", True), 7, 8, after=(9,))
+        with pytest.raises(RuntimeError, match="words_max launch failed with cudaError_t 700"):
+            _build.launch("words_max", lambda *args: 700, cpu, ((4, 1),), None)
+    assert calls == [(7, 8, None, 9)]
+    assert profiling.summary()["counters"] == {"launches.k3": 1}
+    assert (report.kernel_launches, report.kernel_bytes, report.kernel_flops) == (1, 100, 10)
+    assert seen == {"k3": 1, ("k3", "linear", True): 1}
+
+    words = torch.zeros(2 * 4096, dtype=torch.int16)
+    starts = torch.tensor([0], dtype=torch.int32)
+    with _build.count_launches() as seen:
+        screens = resample_kernel.frames_to_screens_from_words(words, starts, 4000, 50, 100, SHAPE,
+                                                               invert=True)
+        resample_kernel.fm_int16_words(words)
+        s_y, s_x, _ = sync_kernel.blanking_sync(screens, subpixel=True)
+        align_kernel.align_fold(screens, s_y, s_x, torch.zeros(SHAPE), 0.1)
+    assert not seen and profiling.summary()["counters"] == {"launches.k3": 1}
 
 
 # ------------------------------------------------------------- the card
