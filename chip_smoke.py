@@ -127,7 +127,11 @@ Phases, each of which fails the run if it fails:
     its plain version;
 21. the default step stage by stage with CUDA events (demod and K1, K2, K3),
     and its wall clock, device time and kernel count with the kernels and
-    with their plain versions in their place, in turns;
+    with their plain versions in their place, in turns; then the step's
+    plan: 24 steps of ``bench_config()`` issued back to back with nothing
+    synchronising after the key's first, equal to the wrappers' steps to
+    the bit, and the host's issue of a step planned and through the
+    wrappers, in turns;
 22. the repo's entry points in the port (``tempest_tpu_torch/bench/``): the
     ``bench`` line (``bench.py``'s keys, a positive rate), every
     ``bench_all`` line in the JAX script's order (the launch counts set to 0
@@ -502,6 +506,19 @@ def step_device_ms(by_kernel: dict) -> tuple[float, int]:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+@contextlib.contextmanager
+def through_wrappers(poff):
+    """Steps inside call the kernels' wrappers that ``poff`` names (which a
+    phase may replace there), not a step plan's launches: no plan is kept or
+    used inside."""
+    saved = poff._on_card, poff._PLANS
+    poff._on_card, poff._PLANS = (lambda device: False), {}
+    try:
+        yield
+    finally:
+        poff._on_card, poff._PLANS = saved
 
 
 def run_runtime(tp, blocks, mode, device, **runtime_options):
@@ -1075,7 +1092,8 @@ def phase_batched(tp, torch, dev, card: str, words: np.ndarray, seen,
         real_sync = poff.blanking_sync
         poff.blanking_sync = lambda screens, subpixel, pairs: pinned
         try:
-            ema_p, frames_p, sync_p, _ = step(iq_b, ema_b, ALPHA, *phases)
+            with through_wrappers(poff):
+                ema_p, frames_p, sync_p, _ = step(iq_b, ema_b, ALPHA, *phases)
         finally:
             poff.blanking_sync = real_sync
         pinned_equal = True
@@ -2151,7 +2169,8 @@ def phase_step_split(tp, torch, dev, card: str, words_i16, activities) -> None:
 
         poff.blanking_sync, poff.align_fold = blank, fold_fn
         try:
-            return fn()
+            with through_wrappers(poff):
+                return fn()
         finally:
             poff.blanking_sync, poff.align_fold = real
 
@@ -2192,6 +2211,96 @@ def phase_step_split(tp, torch, dev, card: str, words_i16, activities) -> None:
     print(f"[step split] the step's EMA through the kernels vs through their plain versions: "
           f"{ema_rel:.3e} of its range (the sub-pixel fractions' summation order)")
     check(ema_rel < EMA_REL_TOL, "the step's EMA through the kernels matches the plain route")
+    step_plan_check(tp, torch, dev, card)
+
+
+def step_plan_check(tp, torch, dev, card: str) -> None:
+    """Phase 21, the step's plan: ``bench_config()``'s ``mxu3`` step (the
+    resident cell's) on 8 blocks of int16 words, 24 steps issued back to
+    back, the EMA threaded, with ``torch.cuda.set_sync_debug_mode("error")``
+    after the key's first step: nothing synchronises, every cut goes through
+    the pinned slots, and each step's (ema, frames, sync, score), kept to the
+    end, equals the same steps through the kernels' wrappers to the bit.
+    Then the host's issue of a step with nothing listening (the first 3
+    steps after a fence, 30 rounds) and the wall clock a step of 48 issued
+    back to back, planned and through the wrappers, in turns."""
+    from tempest_tpu_torch.bench import bench
+    from tempest_tpu_torch.pipeline import offline as poff
+    from tempest_tpu_torch.utils import profiling
+
+    cfg = bench.bench_config()
+    n, spf = cfg.block_samples, cfg.samples_per_frame
+    gen = torch.Generator(device=dev).manual_seed(23)
+    words = torch.randint(-16384, 16384, (8, 2 * n), dtype=torch.int16, device=dev,
+                          generator=gen)
+    phases = [(-b * n) % spf for b in range(8)]
+    ema0 = torch.zeros(cfg.render_size, dtype=torch.float32, device=dev)
+
+    def steps(step, count, start=0, ema=ema0):
+        outs = []
+        for i in range(start, count):
+            outs.append(step(words[i % 8], ema, ALPHA, phases[i % 8]))
+            ema = outs[-1][0]
+        return outs
+
+    profiling.reset()
+    profiling.enable()
+    step = tp.make_reconstruct_fn(cfg, dev)
+    planned = steps(step, 1)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        planned += steps(step, 24, 1, planned[0][0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    counters = profiling.summary()["counters"]
+    profiling.disable()
+    profiling.reset()
+    check(counters.get("step.plan.reuses", 0) >= 23,
+          f"the resident steps reuse their plan ({counters.get('step.plan.reuses')})")
+    check(counters["step.upload_cuts.pinned.bytes"] == counters["step.upload_cuts.bytes"],
+          "every cut goes up through the pinned slots")
+    with through_wrappers(poff):
+        wrapped = steps(tp.make_reconstruct_fn(cfg, dev), 24)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                           b.view(torch.int32) if b.dtype == torch.float32 else b)
+               for got, ref in zip(planned, wrapped) for a, b in zip(got, ref))
+    check(same, "24 planned steps issued back to back equal the wrappers' steps to the bit")
+    del planned, wrapped
+
+    def issue_us(step):
+        times = []
+        for _ in range(30):
+            torch.cuda.synchronize()
+            ema = ema0
+            for i in range(3):
+                t0 = time.perf_counter_ns()
+                ema = step(words[i], ema, ALPHA, phases[i])[0]
+                times.append(time.perf_counter_ns() - t0)
+        return float(np.median(times)) / 1e3
+
+    def step_ms(step):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps(step, 48)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / 48
+
+    out = {"planned": [], "wrappers": []}
+    for route in ("planned", "wrappers", "wrappers", "planned"):
+        ctx = through_wrappers(poff) if route == "wrappers" else contextlib.nullcontext()
+        with ctx:
+            step = tp.make_reconstruct_fn(cfg, dev)
+            steps(step, 4)
+            out[route].append((issue_us(step), step_ms(step)))
+    for route, runs in out.items():
+        print(f"[step plan, {route}] host issue of a step {runs[0][0]:.1f} {runs[1][0]:.1f} us "
+              f"(median of 90, nothing listening); {runs[0][1]:.4f} {runs[1][1]:.4f} ms a step "
+              f"of 48 back to back, wall clock; turns planned wrappers wrappers planned, on {card}")
+    print(f"[step plan] 24 resident steps back to back under sync debug 'error': no sync, "
+          f"{counters['step.upload_cuts.pinned.bytes']:.0f} of "
+          f"{counters['step.upload_cuts.bytes']:.0f} cut bytes pinned, "
+          f"equal to the wrappers' steps to the bit, on {card}")
 
 
 # What K1's words load makes of I/Q words (demod, bfloat16 rounding): plain AM,

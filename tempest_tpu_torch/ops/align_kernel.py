@@ -225,12 +225,33 @@ def _kernel_shifts(s: torch.Tensor) -> torch.Tensor:
     return s.contiguous()
 
 
+def _prepare(n: int, h: int, w: int, n_streams: int, align: str | None, fold: bool,
+             types: tuple[int, int], vec: bool, device: torch.device):
+    """What one K3 launch over [n, h, w] screens needs besides its tensors,
+    worked out once: ``issue(frames, aligned, ema, ema_out, s_y, s_x,
+    fold_w, big_a)`` takes their addresses (None for a tensor not given)
+    and launches through ``_build.launch``.  ``types``: the shifts' codes
+    (``_SHIFT_TYPES``); ``vec``: every row of the screens, the aligned
+    screens and the EMAs starts on 16 bytes and ``w % 4 == 0``."""
+    if n_streams > _MAX_STREAMS:
+        raise ValueError(f"K3 takes at most {_MAX_STREAMS} streams a launch, got {n_streams}")
+    taps = ALIGN_MODES[align]
+    threads, units, _ = launch_shape(w, taps, vec)
+    launcher = _build.load_library("align_ema").tt_align_fold
+    costs, variant = (launch_cost(n, h, w, n_streams, align, taps > 0, fold),), (align, fold)
+    shape = (h, w, n // n_streams, n_streams, taps, int(vec), threads, units)
+
+    def issue(frames, aligned, ema, ema_out, s_y, s_x, fold_w, big_a) -> None:
+        _build.launch("k3", launcher, device, costs, variant,
+                      frames, aligned, ema, ema_out, s_y, s_x, *types, fold_w, big_a, *shape)
+
+    return issue
+
+
 def _launch(frames, s_y, s_x, ema, alpha, align, n_streams):
     for name, t in (("frames", frames), ("ema", ema)):
         if t is not None and (t.dtype != torch.float32 or not t.is_contiguous()):
             raise TypeError(f"K3 takes contiguous float32 {name}, got {t.dtype}")
-    if n_streams > _MAX_STREAMS:
-        raise ValueError(f"K3 takes at most {_MAX_STREAMS} streams a launch, got {n_streams}")
     n, h, w = (int(d) for d in frames.shape)
     taps = ALIGN_MODES[align]
     fold = ema is not None
@@ -239,6 +260,8 @@ def _launch(frames, s_y, s_x, ema, alpha, align, n_streams):
     if taps:
         s_y, s_x = (_kernel_shifts(s) for s in (s_y, s_x))
         types = (_SHIFT_TYPES[s_y.dtype], _SHIFT_TYPES[s_x.dtype])
+    else:
+        s_y = s_x = None
     aligned = torch.empty_like(frames) if taps else None
     fold_w = big_a = ema_out = None
     if fold:
@@ -246,17 +269,13 @@ def _launch(frames, s_y, s_x, ema, alpha, align, n_streams):
         ema_out = torch.empty_like(ema)
     rows = [t for t in (frames, aligned, ema, ema_out) if t is not None]
     vec = w % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in rows)
-    threads, units, _ = launch_shape(w, taps, vec)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    _build.launch("k3", _build.load_library("align_ema").tt_align_fold, dev,
-                  (launch_cost(n, h, w, n_streams, align, taps > 0, fold),), (align, fold),
-                  frames.data_ptr(), ptr(aligned), ptr(ema), ptr(ema_out),
-                  ptr(s_y) if taps else None, ptr(s_x) if taps else None, *types,
-                  ptr(fold_w), ptr(big_a), h, w, n // n_streams, n_streams, taps, int(vec),
-                  threads, units)
+    _prepare(n, h, w, n_streams, align, fold, types, vec, dev)(
+        frames.data_ptr(), ptr(aligned), ptr(ema), ptr(ema_out), ptr(s_y), ptr(s_x),
+        ptr(fold_w), ptr(big_a))
     return (frames if aligned is None else aligned), ema_out
 
 

@@ -643,6 +643,49 @@ def _plan(n_samples: int, n_frames: int, sample_bytes: int, frame_len: int, y_t:
                        word, taps, exact, rows, FILL_TILES_PER_SM, streams)
 
 
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _prepare(
+    n_samples: int,
+    staged: tuple[int, int],
+    n_frames: int,
+    frame_len: int,
+    y_t: int,
+    x_t: int,
+    out_shape: tuple[int, int],
+    exact: bool,
+    interp_taps: int,
+    num_phases: int | None,
+    streams: int,
+    load: tuple,
+    device: torch.device,
+):
+    """What one K1 launch needs besides its tensors, worked out once:
+    ``(out shape, issue)``, where ``issue(src, frame_starts, frac_offsets,
+    maxima, out)`` takes their addresses (None for a tensor not given) and
+    launches through ``_build.launch``.  ``exact``: residuals are given."""
+    stream_len = _check_streams(n_samples, streams, n_frames)
+    word, sample_bytes = staged
+    plan = _plan(n_samples, n_frames, sample_bytes, frame_len, y_t, x_t, out_shape, device,
+                 num_phases, word, interp_taps, exact, streams)
+    geom = plan.geom
+    h, w = geom.out_shape
+    launcher = _build.load_library("resample").tt_resample_frames
+    costs, variant = (plan.cost,), (interp_taps, exact, *load)
+    tables = (geom.line_start.data_ptr(), geom.line_frac.data_ptr(), geom.wr.data_ptr())
+    per_stream = n_frames // streams
+
+    def issue(src, frame_starts, frac_offsets, maxima, out) -> None:
+        _build.launch("k1", launcher, device, costs, variant,
+                      src, n_samples, word, frame_starts, frac_offsets, n_frames, interp_taps,
+                      *tables, out, h, w, geom.delta, plan.span, plan.rows, plan.run_cap,
+                      maxima, stream_len, per_stream)
+
+    return (n_frames, h, w), issue
+
+
 def _launch(
     src: torch.Tensor,
     n_samples: int,
@@ -665,25 +708,16 @@ def _launch(
     ``_INVERT``; ``load`` ends the launch's variant (taps, residuals given,
     *load)."""
     n_frames = _check_launch(src, n_samples, frame_starts)
-    stream_len = _check_streams(n_samples, streams, n_frames)
+    _check_streams(n_samples, streams, n_frames)
     if frac_offsets is not None:
         if frac_offsets.dtype != torch.float32 or not frac_offsets.is_contiguous():
             raise TypeError("K1 takes contiguous float32 frac_offsets")
-    word, sample_bytes = staged
-    dev = src.device
-    plan = _plan(n_samples, n_frames, sample_bytes, frame_len, y_t, x_t, out_shape, dev,
-                 num_phases, word, interp_taps, frac_offsets is not None, streams)
-    geom = plan.geom
-    h, w = geom.out_shape
-    out = torch.empty((n_frames, h, w), dtype=torch.float32, device=dev)
-    _build.launch(
-        "k1", _build.load_library("resample").tt_resample_frames, dev, (plan.cost,),
-        (interp_taps, frac_offsets is not None, *load),
-        src.data_ptr(), n_samples, word, frame_starts.data_ptr(),
-        None if frac_offsets is None else frac_offsets.data_ptr(), n_frames, interp_taps,
-        geom.line_start.data_ptr(), geom.line_frac.data_ptr(), geom.wr.data_ptr(),
-        out.data_ptr(), h, w, geom.delta, plan.span, plan.rows, plan.run_cap,
-        None if maxima is None else maxima.data_ptr(), stream_len, n_frames // streams)
+    shape, issue = _prepare(n_samples, staged, n_frames, frame_len, y_t, x_t, out_shape,
+                            frac_offsets is not None, interp_taps, num_phases, streams, load,
+                            src.device)
+    out = torch.empty(shape, dtype=torch.float32, device=src.device)
+    issue(src.data_ptr(), frame_starts.data_ptr(), _ptr(frac_offsets), _ptr(maxima),
+          out.data_ptr())
     return out
 
 
@@ -816,20 +850,33 @@ def words_maxima(words: torch.Tensor, demod: str = "am", streams: int = 1) -> to
         return words_maxima_plain(words, demod, streams)
     if words.device.type != "cuda" or not words.is_contiguous():
         raise ValueError("words_maxima takes contiguous CUDA or CPU words")
-    code, sample_bytes = word_code(words.dtype, demod)
-    n = words.shape[0] // 2
+    n_partials, issue = _prepare_maxima(words.shape[0] // 2, words.dtype, demod, streams,
+                                        words.device)
+    partials = torch.empty(n_partials, dtype=torch.int32, device=words.device)
+    out = torch.empty(streams, dtype=torch.float32, device=words.device)
+    issue(words.data_ptr(), partials.data_ptr(), out.data_ptr())
+    return out
+
+
+def _prepare_maxima(n: int, dtype: torch.dtype, demod: str, streams: int, device: torch.device):
+    """What one launch of the block maximum on ``n`` samples of words of
+    ``dtype`` needs besides its tensors: ``(int32 partials it takes,
+    issue)``, where ``issue(words, partials, out)`` takes their addresses
+    and launches through ``_build.launch`` on the current stream."""
+    code, sample_bytes = word_code(dtype, demod)
     length = _check_streams(n, streams)
     if length == 0:
         raise ValueError("words_maxima takes at least one sample a stream")
     chunks = -(-(length // (16 // sample_bytes) + 2) // MAX_WORDS_PER_BLOCK)
-    dev = words.device
-    partials = torch.empty(streams * chunks, dtype=torch.int32, device=dev)
-    out = torch.empty(streams, dtype=torch.float32, device=dev)
-    _build.launch("words_max", _build.load_library("resample").tt_words_max, dev,
-                  (max_launch_cost(n, sample_bytes, code, streams),), None,
-                  words.data_ptr(), length, streams, code, chunks, partials.data_ptr(),
-                  _max_count(dev, _build.current_stream(dev)).data_ptr(), out.data_ptr())
-    return out
+    launcher = _build.load_library("resample").tt_words_max
+    costs = (max_launch_cost(n, sample_bytes, code, streams),)
+
+    def issue(words, partials, out) -> None:
+        _build.launch("words_max", launcher, device, costs, None,
+                      words, length, streams, code, chunks, partials,
+                      _max_count(device, _build.current_stream(device)).data_ptr(), out)
+
+    return streams * chunks, issue
 
 
 def frames_to_screens_from_words(
@@ -876,10 +923,18 @@ def frames_to_screens_from_words(
                                        frame_starts, geom, frac_offsets, interp_taps, streams)
     n = words.shape[0] // 2
     _check_streams(n, streams, frame_starts.shape[0])
+    staged, load = _words_load(words.dtype, demod, bf16, invert)
     maxima = words_maxima(words, demod, streams) if invert else None
-    return _launch(words, n, word_code(words.dtype, demod, bf16, invert), frame_starts,
-                   frame_len, y_t, x_t, out_shape, frac_offsets, interp_taps, num_phases, maxima,
-                   streams, (demod, bool(bf16), *(("invert",) if invert else ())))
+    return _launch(words, n, staged, frame_starts, frame_len, y_t, x_t, out_shape, frac_offsets,
+                   interp_taps, num_phases, maxima, streams, load)
+
+
+def _words_load(dtype: torch.dtype, demod: str, bf16: bool, invert: bool) -> tuple[tuple, tuple]:
+    """(staged, load) of a launch of K1's words entry: the word code with its
+    flags and the bytes per sample (:func:`word_code`), and what ends the
+    launch's variant: (demod, bfloat16 rounding[, "invert"])."""
+    return (word_code(dtype, demod, bf16, invert),
+            (demod, bool(bf16), *(("invert",) if invert else ())))
 
 
 def fm_int16_words(words: torch.Tensor) -> torch.Tensor:

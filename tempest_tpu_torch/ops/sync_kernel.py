@@ -243,14 +243,15 @@ def _max_clusters(index: int, smem: int, size: int) -> int:
     return out.value
 
 
-def _launch(frames: torch.Tensor, y_min_frac: float, x_min_frac: float, method: int,
-            subpixel: bool, pairs: bool, clocks: torch.Tensor | None = None,
-            split: int | None = None):
-    if frames.dtype != torch.float32:
-        raise TypeError(f"K2 takes float32 screens, got {frames.dtype}")
-    if not frames.is_contiguous():
-        raise ValueError("K2 takes contiguous screens")
-    n_frames, h, w = (int(d) for d in frames.shape)
+def _prepare(n_frames: int, h: int, w: int, y_min_frac: float, x_min_frac: float, method: int,
+             subpixel: bool, device: torch.device, timed: bool = False,
+             split: int | None = None):
+    """What one K2 call on [n_frames, h, w] screens needs besides its
+    tensors, worked out once: ``(scratch, issue)``.  ``scratch`` is the
+    float32 elements of the row sums and of the column partials;
+    ``issue(frames, row_sums, col_parts, s_y, s_x, score, sync, after=())``
+    takes their addresses (``sync`` None without pairs) and launches both
+    kernels through ``_build.launch``."""
     if not 1 <= n_frames <= _MAX_FRAMES:
         raise ValueError(f"K2 takes 1 to {_MAX_FRAMES} frames a call, got {n_frames}")
     if h < 4 or w < 4:
@@ -260,28 +261,44 @@ def _launch(frames: torch.Tensor, y_min_frac: float, x_min_frac: float, method: 
     if profile_bytes > _BLOCK_SHARED or search_bytes > _SEARCH_SHARED:
         raise ValueError(f"screens of {h}x{w} need more shared memory than a block of K2 has")
     lib = _build.load_library("sync")
+    cluster = split or _split(n_frames, h, w, y_min_frac, x_min_frac, device.index)
+    # Two kernels: K2a reads the screens and adds every pixel twice, K2b does
+    # the rest of launch_cost's count.
+    nbytes, flops = launch_cost(n_frames, h, w, y_min_frac, x_min_frac, subpixel)
+    screen_bytes, pixel_adds = 4 * n_frames * h * w, 2 * n_frames * h * w
+    costs = ((screen_bytes, pixel_adds), (nbytes - screen_bytes, flops - pixel_adds))
+    launcher = lib.tt_blanking_sync_timed if timed else lib.tt_blanking_sync
+    widths = (y_spec.w_min, y_spec.w_max, x_spec.w_min, x_spec.w_max)
+
+    def issue(frames, row_sums, col_parts, s_y, s_x, score, sync, after=()) -> None:
+        _build.launch("k2", launcher, device, costs, None,
+                      frames, row_sums, col_parts, n_frames, h, w, *widths, *_GAUSSIAN_TAPS,
+                      method, int(subpixel), cluster, s_y, s_x, score, sync, after=after)
+
+    return (n_frames * h, n_frames * -(-h // CHUNK_ROWS) * w), issue
+
+
+def _launch(frames: torch.Tensor, y_min_frac: float, x_min_frac: float, method: int,
+            subpixel: bool, pairs: bool, clocks: torch.Tensor | None = None,
+            split: int | None = None):
+    if frames.dtype != torch.float32:
+        raise TypeError(f"K2 takes float32 screens, got {frames.dtype}")
+    if not frames.is_contiguous():
+        raise ValueError("K2 takes contiguous screens")
+    n_frames, h, w = (int(d) for d in frames.shape)
     dev = frames.device
-    cluster = split or _split(n_frames, h, w, y_min_frac, x_min_frac, dev.index)
-    chunks = -(-h // CHUNK_ROWS)
-    row_sums = torch.empty((n_frames, h), dtype=torch.float32, device=dev)
-    col_parts = torch.empty((n_frames, chunks, w), dtype=torch.float32, device=dev)
+    (n_rows, n_cols), issue = _prepare(n_frames, h, w, y_min_frac, x_min_frac, method, subpixel,
+                                       dev, clocks is not None, split)
+    row_sums = torch.empty(n_rows, dtype=torch.float32, device=dev)
+    col_parts = torch.empty(n_cols, dtype=torch.float32, device=dev)
     s_dtype = torch.float32 if subpixel else torch.int32
     s_y = torch.empty(n_frames, dtype=s_dtype, device=dev)
     s_x = torch.empty(n_frames, dtype=s_dtype, device=dev)
     score = torch.empty(n_frames, dtype=torch.float32, device=dev)
     sync = torch.empty((n_frames, 2), dtype=s_dtype, device=dev) if pairs else None
-    # Two kernels: K2a reads the screens and adds every pixel twice, K2b does
-    # the rest of launch_cost's count.
-    nbytes, flops = launch_cost(n_frames, h, w, y_min_frac, x_min_frac, subpixel)
-    screen_bytes, pixel_adds = 4 * n_frames * h * w, 2 * n_frames * h * w
-    _build.launch(
-        "k2", lib.tt_blanking_sync if clocks is None else lib.tt_blanking_sync_timed, dev,
-        ((screen_bytes, pixel_adds), (nbytes - screen_bytes, flops - pixel_adds)), None,
-        frames.data_ptr(), row_sums.data_ptr(), col_parts.data_ptr(), n_frames, h, w,
-        y_spec.w_min, y_spec.w_max, x_spec.w_min, x_spec.w_max, *_GAUSSIAN_TAPS,
-        method, int(subpixel), cluster, s_y.data_ptr(), s_x.data_ptr(),
-        score.data_ptr(), None if sync is None else sync.data_ptr(),
-        after=() if clocks is None else (clocks.data_ptr(),))
+    issue(frames.data_ptr(), row_sums.data_ptr(), col_parts.data_ptr(), s_y.data_ptr(),
+          s_x.data_ptr(), score.data_ptr(), None if sync is None else sync.data_ptr(),
+          after=() if clocks is None else (clocks.data_ptr(),))
     return (s_y, s_x, score) + ((sync,) if pairs else ())
 
 

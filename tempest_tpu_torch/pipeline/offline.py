@@ -49,6 +49,14 @@ names another); there is no jit and no vmap.
 are one contiguous buffer, and all B·F frames go through ONE K1 launch, one
 K2 call and one K3 launch, which folds each stream into its own EMA.
 
+The step's issue never waits for the card.  Its cuts go up through a few
+pinned host slots taken in turn, each copy on the step's stream (a slot is
+written again once its own last copy has ended), and stages 3-6 come from a
+plan kept per geometry (``_StepPlan``): a key's first step goes through the
+kernels' wrappers, which check its tensors, and the steps after it issue the
+plan's launches with cheap checks of what may differ from step to step, each
+output a fresh tensor.  Every launch still goes through ``_build.launch``.
+
 Frame positions.  The K1 routes compute exact-cut starts and residuals in
 float64 on the host and hand K1 int32 starts and float32 residuals: at 36
 frames of 333,333 samples a float32 position has a spacing of 1.0, so its
@@ -70,6 +78,7 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import threading
 import typing
 
 import numpy as np
@@ -98,7 +107,9 @@ from ..ops.demod import (
 )
 from ..ops.combine import CombineResult, _combine_on_device
 from ..ops.enhance import restore_image
-from ..ops.align_kernel import align_fold
+from ..ops.align_kernel import _SHIFT_TYPES, align_fold, fold_weights
+from ..ops.align_kernel import _prepare as _prepare_k3
+from ..ops.sync_kernel import _prepare as _prepare_k2
 from ..ops.sync_kernel import blanking_sync
 from ..ops.resample import (
     RENDER_SIZE,
@@ -107,11 +118,15 @@ from ..ops.resample import (
     round_to_bfloat16,
 )
 from ..ops.resample_kernel import (
+    _ENVELOPE,
     _line_tables,
+    _prepare_maxima,
+    _words_load,
     frames_to_screens,
     frames_to_screens_from_words,
     line_reach,
 )
+from ..ops.resample_kernel import _prepare as _prepare_k1
 from ..ops.scan import _channel_part, _words, scan_band, scan_centers
 from ..utils.device import as_tensor as _as_tensor
 from ..utils.device import resolve_device, staged_upload
@@ -475,75 +490,269 @@ def fuses_demod(config: ReconstructionConfig, iq: torch.Tensor) -> bool:
             and iq.dtype in (torch.int16, torch.float32))
 
 
-def _screens(
-    env: torch.Tensor,
-    frame_starts: torch.Tensor,
-    config: ReconstructionConfig,
-    frame_len: int,
-    from_words: bool,
-    frac_offsets: torch.Tensor | None,
-    n_streams: int = 1,
-) -> torch.Tensor:
-    """Stage 3: the [F, h, w] screens of one block's frames.  With
-    ``from_words`` K1 demodulates, inverts and rounds the words itself, of
-    ``n_streams`` streams laid end to end each on its own; an envelope (laid
-    out by the caller so that no stream's reads leave it) is rounded here
-    first where the resampler asks for it."""
-    mode = config.mode
-    raster = (frame_len, mode.height, mode.width, config.render_size)
-    how = RESAMPLERS[config.resampler]
-    if how.route == "gather":
-        return frames_to_screens_gather(env, frame_starts, *raster, frac_offsets)
-    if how.route == "fft":
-        return frames_to_screens_fft(env, frame_starts, *raster)
-    taps = config.interp_taps if how.takes_taps else 2
-    # A residual moves every position of its frame, so the quantised
-    # line table does not apply to an exact cut: K1 takes it unquantised.
-    options = ({"num_phases": config.num_phases}
-               if how.quantised and frac_offsets is None else {})
-    if not from_words:
-        if how.bf16_envelope:
-            env = round_to_bfloat16(env)
-        return frames_to_screens(env, frame_starts, *raster, frac_offsets, taps, **options)
-    # The load's options only where they differ from one stream of AM
-    # without inversion or rounding.
-    if config.demod != "am":
-        options["demod"] = config.demod
-    if how.bf16_envelope:
-        options["bf16"] = True
-    if config.invert:
-        options["invert"] = True
-    if n_streams != 1:
-        options["streams"] = n_streams
-    return frames_to_screens_from_words(env, frame_starts, *raster, frac_offsets, taps, **options)
+def _on_card(device: torch.device) -> bool:
+    """Whether a step on ``device`` launches the kernels itself: on a CUDA
+    card.  Elsewhere it calls the kernels' wrappers, which run their plain
+    versions."""
+    return device.type == "cuda"
 
 
-def _sync_align_fold(
-    screens: torch.Tensor,
-    config: ReconstructionConfig,
-    ema: torch.Tensor | None,
-    alpha,
-    n_streams: int,
-):
-    """Stages 4-6 on [B·F, h, w] screens: (ema' or None, frames, sync [B·F,
-    2], score [B·F]).  The sync is K2 on the card; alignment and the fold are
+# Bytes every part of a step's scratch and outputs starts on, in the one
+# buffer each is cut from: the kernels' vector loads and stores need 16.
+_PART_ALIGN = 256
+
+
+def _layout(sizes: dict[str, int]) -> tuple[dict[str, int], int]:
+    """Where parts of ``sizes`` 4-byte elements lie in one buffer, each from
+    a multiple of ``_PART_ALIGN`` bytes: (each part's offset, the elements
+    in all), both in elements."""
+    unit = _PART_ALIGN // 4
+    offsets, end = {}, 0
+    for name, n in sizes.items():
+        offsets[name] = end
+        end += -(-n // unit) * unit
+    return offsets, end
+
+
+class _StepPlan:
+    """Stages 3-6 of one geometry's step (:func:`_step`), worked out once.
+
+    Stage 3, the [B·F, h, w] screens: with ``from_words`` K1 demodulates,
+    inverts and rounds the words itself, of ``n_streams`` streams laid end to
+    end each on its own; an envelope (laid out by the caller so that no
+    stream's reads leave it) is rounded first where the resampler asks for
+    it.  Stages 4-6: the sync is K2 on the card; alignment and the fold are
     ONE call of K3's entry (``align_fold``), alignment alone without ``ema``;
     without ``do_align`` the same entry only folds.  So every route (single
     step, batched step, a mesh's spans; default and fidelity chains) folds
-    through the same arithmetic."""
-    screens = screens.contiguous()
-    n = screens.shape[0]
-    if not config.do_align:
-        frames, ema_out = ((screens, None) if ema is None
-                           else align_fold(screens, ema=ema, alpha=alpha, align=None,
-                                           n_streams=n_streams))
-        return (ema_out, frames, torch.zeros((n, 2), dtype=torch.int32, device=screens.device),
-                torch.zeros(n, dtype=torch.float32, device=screens.device))
-    # K2 writes the [B·F, 2] sync beside s_y and s_x: no stacking launch.
-    s_y, s_x, score, sync = blanking_sync(screens, subpixel=config.align_subpixel, pairs=True)
-    align = config.align_interp if config.align_subpixel else "integer"
-    frames, ema_out = align_fold(screens, s_y, s_x, ema, alpha, align, n_streams)
-    return ema_out, frames, sync, score
+    through the same arithmetic.
+
+    :meth:`plain` takes a step through the kernels' wrappers.  On a card,
+    :meth:`prepare_launches` keeps each launch's arguments but the
+    addresses, and the layout of the step's scratch and outputs, so that
+    :meth:`run` issues a step of the same geometry as its launches alone:
+    each output a fresh tensor, K1's screens, K2's scratch and the block
+    maximum's in one allocation, K2's sync, centres and scores and the new
+    EMA in another, the aligned frames in a third."""
+
+    def __init__(self, config: ReconstructionConfig, frame_len: int, n_streams: int,
+                 from_words: bool, exact: bool):
+        mode = config.mode
+        how = RESAMPLERS[config.resampler]
+        self.route = how.route
+        self.raster = (frame_len, mode.height, mode.width, config.render_size)
+        self.taps = config.interp_taps if how.takes_taps else 2
+        self.from_words = from_words
+        self.round_envelope = how.bf16_envelope and not from_words
+        self.load = (config.demod, how.bf16_envelope, config.invert)   # the words load's
+        self.n_streams = n_streams
+        self.do_align = config.do_align
+        self.subpixel = config.align_subpixel
+        self.align = config.align_interp if config.align_subpixel else "integer"
+        # A residual moves every position of its frame, so the quantised
+        # line table does not apply to an exact cut: K1 takes it unquantised.
+        self.num_phases = config.num_phases if how.quantised and not exact else None
+        self.options = {} if self.num_phases is None else {"num_phases": self.num_phases}
+        if from_words:
+            # The load's options only where they differ from one stream of AM
+            # without inversion or rounding.
+            if config.demod != "am":
+                self.options["demod"] = config.demod
+            if how.bf16_envelope:
+                self.options["bf16"] = True
+            if config.invert:
+                self.options["invert"] = True
+            if n_streams != 1:
+                self.options["streams"] = n_streams
+        self.device = None   # the card's, once prepare_launches has run
+
+    def screens(self, env, frame_starts, frac_offsets) -> torch.Tensor:
+        """Stage 3 through the wrappers."""
+        if self.route == "gather":
+            return frames_to_screens_gather(env, frame_starts, *self.raster, frac_offsets)
+        if self.route == "fft":
+            return frames_to_screens_fft(env, frame_starts, *self.raster)
+        if self.from_words:
+            return frames_to_screens_from_words(env, frame_starts, *self.raster, frac_offsets,
+                                                self.taps, **self.options)
+        if self.round_envelope:
+            env = round_to_bfloat16(env)
+        return frames_to_screens(env, frame_starts, *self.raster, frac_offsets, self.taps,
+                                 **self.options)
+
+    def plain(self, env, frame_starts, frac_offsets, ema, alpha):
+        """(ema' or None, frames, sync [B·F, 2], score [B·F]) through the
+        kernels' wrappers: their plain versions off the card, their checked
+        launches on it."""
+        screens = self.screens(env, frame_starts, frac_offsets).contiguous()
+        n = screens.shape[0]
+        if not self.do_align:
+            frames, ema_out = ((screens, None) if ema is None
+                               else align_fold(screens, ema=ema, alpha=alpha, align=None,
+                                               n_streams=self.n_streams))
+            return (ema_out, frames,
+                    torch.zeros((n, 2), dtype=torch.int32, device=screens.device),
+                    torch.zeros(n, dtype=torch.float32, device=screens.device))
+        # K2 writes the [B·F, 2] sync beside s_y and s_x: no stacking launch.
+        s_y, s_x, score, sync = blanking_sync(screens, subpixel=self.subpixel, pairs=True)
+        frames, ema_out = align_fold(screens, s_y, s_x, ema, alpha, self.align, self.n_streams)
+        return ema_out, frames, sync, score
+
+    def prepare_launches(self, env, frame_starts, frac_offsets, ema) -> None:
+        """Keep what the launches of a step like this one need besides the
+        addresses of its tensors: called after :meth:`plain` took the step,
+        whose wrappers checked its tensors."""
+        dev = env.device
+        n = frame_starts.shape[0]
+        h, w = (int(d) for d in self.raster[3])
+        self.screens_shape = (n, h, w)
+        self.k1 = self.maxima = None
+        scratch = {}
+        if self.route == "k1":
+            if self.from_words:
+                n_samples, (demod, bf16, invert) = env.shape[0] // 2, self.load
+                staged, load = _words_load(env.dtype, demod, bf16, invert)
+                if invert:
+                    parts, self.maxima = _prepare_maxima(n_samples, env.dtype, demod,
+                                                         self.n_streams, dev)
+                    scratch["parts"], scratch["maxima"] = parts, self.n_streams
+            else:
+                n_samples, staged, load = env.shape[0], _ENVELOPE, ()
+            _, self.k1 = _prepare_k1(n_samples, staged, n, *self.raster, frac_offsets is not None,
+                                     self.taps, self.num_phases,
+                                     self.n_streams if self.from_words else 1, load, dev)
+            if self.do_align:
+                scratch["screens"] = n * h * w
+        if self.do_align:
+            (rows, cols), self.k2 = _prepare_k2(n, h, w, 0.01, 0.05, 0, self.subpixel, dev)
+            scratch["rows"], scratch["cols"] = rows, cols
+            outs = {"sync": 2 * n, "s_y": n, "s_x": n, "score": n}
+            if ema is not None:
+                outs["ema"] = ema.numel()
+            self.outs, self.outs_len = _layout(outs)
+            code = _SHIFT_TYPES[torch.float32 if self.subpixel else torch.int32]
+            types, align = (code, code), self.align
+        else:
+            types, align = (0, 0), None
+        self.scratch, self.scratch_len = _layout(scratch)
+        self.k3, self.vec = None, False
+        if self.do_align or ema is not None:
+            self.vec = w % 4 == 0
+            self.k3 = _prepare_k3(n, h, w, self.n_streams, align, ema is not None, types, self.vec,
+                                  dev)
+        self.ema_shape = None if ema is None else (tuple(ema.shape), ema.stride())
+        self.per_stream = n // self.n_streams
+        self.device = dev
+
+    def accepts(self, env, frame_starts, frac_offsets, ema) -> bool:
+        """Whether this step's tensors are what :meth:`prepare_launches` saw,
+        where the plan's key does not say: on its device, contiguous, of the
+        types the kernels take, the EMA on the bytes the launch assumed."""
+        dev = self.device
+        return (env.is_contiguous() and frame_starts.device == dev
+                and frame_starts.dtype == torch.int32 and frame_starts.is_contiguous()
+                and (frac_offsets is None
+                     or (frac_offsets.device == dev and frac_offsets.dtype == torch.float32
+                         and frac_offsets.shape == frame_starts.shape
+                         and frac_offsets.is_contiguous()))
+                and (ema is None
+                     or (ema.device == dev and ema.dtype == torch.float32
+                         and (not self.vec or ema.data_ptr() % 16 == 0))))
+
+    def run(self, env, frame_starts, frac_offsets, ema, alpha):
+        """The step: its launches alone where :meth:`accepts` says so, else
+        :meth:`plain`."""
+        if self.device is None or not self.accepts(env, frame_starts, frac_offsets, ema):
+            return self.plain(env, frame_starts, frac_offsets, ema, alpha)
+        dev = self.device
+        f32 = torch.float32
+        scratch = torch.empty(self.scratch_len, dtype=f32, device=dev) if self.scratch_len else None
+        at = None if scratch is None else scratch.data_ptr()
+        part = self.scratch
+        if self.k1 is not None:
+            src = round_to_bfloat16(env) if self.round_envelope else env
+            maxima = None
+            if self.maxima is not None:
+                maxima = at + 4 * part["maxima"]
+                self.maxima(src.data_ptr(), at + 4 * part["parts"], maxima)
+            if self.do_align:
+                screens, screens_at = None, at + 4 * part["screens"]
+            else:
+                screens = torch.empty(self.screens_shape, dtype=f32, device=dev)
+                screens_at = screens.data_ptr()
+            self.k1(src.data_ptr(), frame_starts.data_ptr(),
+                    None if frac_offsets is None else frac_offsets.data_ptr(), maxima, screens_at)
+        else:
+            screens = self.screens(env, frame_starts, frac_offsets).contiguous()
+            screens_at = screens.data_ptr()
+        weights = (None, None)
+        if ema is not None:
+            fold_w, big_a = fold_weights(alpha, self.per_stream, dev)
+            weights = (fold_w.data_ptr(), big_a.data_ptr())
+        if not self.do_align:
+            n = self.screens_shape[0]
+            ema_out = None
+            if ema is not None:
+                ema_out = torch.empty_like(ema)
+                self.k3(screens_at, None, ema.data_ptr(), ema_out.data_ptr(), None, None,
+                        *weights)
+            return (ema_out, screens, torch.zeros((n, 2), dtype=torch.int32, device=dev),
+                    torch.zeros(n, dtype=f32, device=dev))
+        outs = torch.empty(self.outs_len, dtype=f32, device=dev)
+        out, out_at = self.outs, outs.data_ptr()
+        s_y, s_x = out_at + 4 * out["s_y"], out_at + 4 * out["s_x"]
+        self.k2(screens_at, at + 4 * part["rows"], at + 4 * part["cols"], s_y, s_x,
+                out_at + 4 * out["score"], out_at + 4 * out["sync"])
+        frames = torch.empty(self.screens_shape, dtype=f32, device=dev)
+        self.k3(screens_at, frames.data_ptr(), None if ema is None else ema.data_ptr(),
+                None if ema is None else out_at + 4 * out["ema"], s_y, s_x, *weights)
+        n = self.screens_shape[0]
+        sync = (outs if self.subpixel else outs.view(torch.int32)).as_strided(
+            (n, 2), (2, 1), out["sync"])
+        score = outs.as_strided((n,), (1,), out["score"])
+        ema_out = None if ema is None else outs.as_strided(*self.ema_shape, out["ema"])
+        return ema_out, frames, sync, score
+
+
+# The plans of the steps by their keys (_step): made by a key's first step,
+# only read after that, by any thread (a mesh's shards issue from several);
+# the oldest dropped first beyond _PLANS_KEPT.
+_PLANS: dict = {}
+_PLANS_KEPT = 64
+_PLANS_LOCK = threading.Lock()
+
+
+def _step(env, frame_starts, config: ReconstructionConfig, frame_len: int, ema, alpha,
+          n_streams: int, from_words: bool, frac_offsets):
+    """Stages 3-6 of a step, from its plan (:class:`_StepPlan`).  The plan's
+    key is what the step can observe: the source's device, type and shape,
+    the frames, whether residuals are given, the EMA's shape, whether
+    ``alpha`` is a tensor, the streams, whether the words go to K1, and the
+    fields of ``config`` that reach a launch.  A key not seen before takes
+    its step through the kernels' wrappers, which check its tensors, and
+    then keeps its plan (``step.plan.builds``); a key seen before reuses it
+    (``step.plan.reuses``).  Two threads that meet a new key at once may
+    each build its plan; one is kept."""
+    mode = config.mode
+    key = (env.device, env.dtype, env.shape, frame_starts.shape, frac_offsets is not None,
+           None if ema is None else ema.shape, isinstance(alpha, torch.Tensor), n_streams,
+           from_words, frame_len, mode.height, mode.width, tuple(config.render_size),
+           config.resampler, config.interp_taps, config.num_phases, config.demod, config.invert,
+           config.do_align, config.align_subpixel, config.align_interp)
+    plan = _PLANS.get(key)
+    if plan is not None:
+        count("step.plan.reuses")
+        return plan.run(env, frame_starts, frac_offsets, ema, alpha)
+    plan = _StepPlan(config, frame_len, n_streams, from_words, frac_offsets is not None)
+    out = plan.plain(env, frame_starts, frac_offsets, ema, alpha)
+    if _on_card(env.device):
+        plan.prepare_launches(env, frame_starts, frac_offsets, ema)
+    with _PLANS_LOCK:
+        if len(_PLANS) >= _PLANS_KEPT:
+            del _PLANS[next(iter(_PLANS))]
+        _PLANS.setdefault(key, plan)
+    count("step.plan.builds")
+    return out
 
 
 def process_frames(
@@ -560,8 +769,8 @@ def process_frames(
     envelope (``config.demod``, rounded where the resampler rounds) itself.
     ``frac_offsets`` (per frame, in [0, 1)) are the
     residuals of sub-sample-exact cuts (``config.subsample_align``)."""
-    screens = _screens(env, frame_starts, config, frame_len, from_words, frac_offsets)
-    return _sync_align_fold(screens, config, None, None, 1)[1:]
+    return _step(env, frame_starts, config, frame_len, None, None, 1, from_words,
+                 frac_offsets)[1:]
 
 
 def _process_and_fold(
@@ -580,8 +789,8 @@ def _process_and_fold(
     (or [h, w] for one stream); with ``from_words`` the words are the
     streams' blocks end to end.  Equals ``ema_fold`` of each stream's
     frames, to the bit."""
-    screens = _screens(env, frame_starts, config, frame_len, from_words, frac_offsets, n_streams)
-    return _sync_align_fold(screens, config, ema.contiguous(), alpha, n_streams)
+    return _step(env, frame_starts, config, frame_len, ema.contiguous(), alpha, n_streams,
+                 from_words, frac_offsets)
 
 
 def ema_fold(ema: torch.Tensor, frames: torch.Tensor, alpha) -> torch.Tensor:
@@ -650,20 +859,83 @@ def _cut_fn(config: ReconstructionConfig):
     return lambda phase: exact_cut_starts(phase, spf, n_frames)
 
 
-def _upload_cuts(starts: np.ndarray, fracs: np.ndarray | None, device: torch.device):
+class _CutSlots:
+    """The pinned host slots through which a step function's cuts go up to a
+    card, taken in turn, so that an upload is a copy on the step's stream
+    that the host does not wait for.  Each slot's copy records the slot's
+    event; the slot is written again only after that event, which in a
+    stream of steps came a few steps back.  Shared by the threads that call
+    the step function."""
+
+    SLOTS = 4
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        # (device, pinned int32 tensor, its int32 and float32 arrays, event)
+        self._slots: list = [None] * self.SLOTS
+        self._next = 0
+        self._streams: dict = {}   # (device index, raw stream) -> its torch.cuda.Stream
+
+    def _stream(self, device: torch.device) -> torch.cuda.Stream:
+        """The current stream of ``device``, its Python object made once."""
+        key = (device.index, torch._C._cuda_getCurrentRawStream(device.index))
+        stream = self._streams.get(key)
+        if stream is None:
+            stream = self._streams[key] = torch.cuda.current_stream(device)
+        return stream
+
+    def upload(self, starts: np.ndarray, fracs: np.ndarray | None,
+               device: torch.device) -> torch.Tensor:
+        """The starts, then the residuals' bits, as one fresh int32 tensor
+        on the CUDA ``device``: its copy issued on the current stream."""
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        n = len(starts)
+        size = n if fracs is None else 2 * n
+        buf = torch.empty(size, dtype=torch.int32, device=device)
+        stream = self._stream(device)
+        with self._lock:
+            k = self._next
+            self._next = (k + 1) % self.SLOTS
+            slot = self._slots[k]
+            if slot is None or slot[0] != device or slot[1].numel() != size:
+                host = torch.empty(size, dtype=torch.int32, pin_memory=True)
+                array = host.numpy()
+                slot = self._slots[k] = (device, host, array, array.view(np.float32),
+                                         torch.cuda.Event())
+            _, host, array, real, event = slot
+            if not event.query():
+                event.synchronize()
+            array[:n] = starts
+            if fracs is not None:
+                real[n:] = fracs
+            buf.copy_(host, non_blocking=True)
+            event.record(stream)
+        return buf
+
+
+def _upload_cuts(starts: np.ndarray, fracs: np.ndarray | None, device: torch.device,
+                 slots: _CutSlots):
     """(int32 frame starts, float32 residuals or None) on ``device`` in ONE
     upload: the residuals' bits ride behind the starts in one int32 buffer,
-    and both are views of it."""
-    if fracs is None:
-        host = np.asarray(starts, np.int32)
+    and both are views of it.  To a card through ``slots``
+    (``step.upload_cuts.pinned.bytes``), elsewhere one copy."""
+    n = len(starts)
+    nbytes = 4 * (n if fracs is None else 2 * n)
+    count("step.upload_cuts.bytes", nbytes)
+    if device.type == "cuda":
+        buf = slots.upload(starts, fracs, device)
+        count("step.upload_cuts.pinned.bytes", nbytes)
     else:
-        host = np.concatenate([np.asarray(starts, np.int32),
-                               np.asarray(fracs, np.float32).view(np.int32)])
-    count("step.upload_cuts.bytes", host.nbytes)
-    buf = torch.from_numpy(host).to(device)
+        if fracs is None:
+            host = np.asarray(starts, np.int32)
+        else:
+            host = np.concatenate([np.asarray(starts, np.int32),
+                                   np.asarray(fracs, np.float32).view(np.int32)])
+        buf = torch.from_numpy(host).to(device)
+        count("step.upload_cuts.pinned.bytes", 0)
     if fracs is None:
         return buf, None
-    n = len(starts)
     return buf[:n], buf[n:].view(torch.float32)
 
 
@@ -680,12 +952,15 @@ def make_reconstruct_fn(config: ReconstructionConfig, device: torch.device | str
     device = resolve_device(device)
     frame_len = int(np.floor(config.samples_per_frame))  # samples fed to the resampler per frame
     cuts = _cut_fn(config)
+    slots = _CutSlots()
 
     def _body(iq, ema, alpha, starts: np.ndarray, fracs: np.ndarray | None):
         iq = _as_tensor(iq, device)
-        ema = _as_tensor(ema, device).to(torch.float32)
+        ema = _as_tensor(ema, device)
+        if ema.dtype != torch.float32:
+            ema = ema.to(torch.float32)
         with annotate("step.upload_cuts"):
-            fstarts, frac_offsets = _upload_cuts(starts, fracs, device)
+            fstarts, frac_offsets = _upload_cuts(starts, fracs, device, slots)
         with annotate("step.launch"):
             from_words = fuses_demod(config, iq)
             return _process_and_fold(
@@ -773,6 +1048,7 @@ def make_batched_reconstruct_fn(config: ReconstructionConfig, fuse: bool | None 
     frame_len = int(np.floor(config.samples_per_frame))
     h, w = config.render_size
     cuts = _cut_fn(config)
+    slots = _CutSlots()
     lead, tail = _stream_margins(config, frame_len, config.subsample_align)
 
     def _body(iq_b, ema_b, alpha, stream_cuts):
@@ -813,7 +1089,8 @@ def make_batched_reconstruct_fn(config: ReconstructionConfig, fuse: bool | None 
                 "starts: serve them in smaller batches")
         offsets = np.arange(n_streams, dtype=np.int64)[:, None] * n_block + front
         with annotate("step.upload_cuts"):
-            fstarts, frac_offsets = _upload_cuts((starts + offsets).reshape(-1), fracs, device)
+            fstarts, frac_offsets = _upload_cuts((starts + offsets).reshape(-1), fracs, device,
+                                                 slots)
         with annotate("step.launch"):
             ema_out, frames, sync, score = _process_and_fold(
                 buf.reshape(-1), fstarts, config, frame_len, ema_b, alpha, n_streams,

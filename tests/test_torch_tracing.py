@@ -694,6 +694,10 @@ def test_resident_step_counts_its_launches_on_the_card():
     step(words, ema, 0.1, 1234.5)
     torch.cuda.synchronize()
     summary = profiling.summary()
-    assert summary["counters"] == {"step.upload_cuts.bytes": 8 * 36, "launches.k1": 1,
+    # The second step of its geometry: its plan reused, its cuts up through
+    # the pinned slots.
+    assert summary["counters"] == {"step.upload_cuts.bytes": 8 * 36,
+                                   "step.upload_cuts.pinned.bytes": 8 * 36,
+                                   "step.plan.reuses": 1, "launches.k1": 1,
                                    "launches.k2": 2, "launches.k3": 1}
     assert STEP_SPANS <= set(summary["spans"])
