@@ -237,8 +237,10 @@ def combine_core(words, fs, centers, chan_bw, fs_chan, corr_seconds,
     before demodulation (``ops.scan._excise_spikes``) — RECOVERS a CW-hit
     channel where the robust MRC alone can only refuse to weight it.  AM
     only (:func:`tempest_tpu_torch.ops.scan.check_excise_demod`)."""
-    amp = _channel_envelopes(words, fs, centers, chan_bw, demod, excise_db)
-    return _fuse(amp, fs_chan, corr_seconds, rate_min, rate_max, weighting, refresh_hz)
+    with annotate("combine.channels"):
+        amp = _channel_envelopes(words, fs, centers, chan_bw, demod, excise_db)
+    with annotate("combine.fuse"):
+        return _fuse(amp, fs_chan, corr_seconds, rate_min, rate_max, weighting, refresh_hz)
 
 
 def _combine_on_device(iq, fs, centers_hz, chan_bw, corr_seconds, rate_min, rate_max,

@@ -435,7 +435,6 @@ class StreamingRuntime:
         ``sink(image, info)`` is called once per block with the EMA image (or
         per frame with ``emit_every_frame``).  Returns the final EMA image as
         a host array; the device copy stays on ``self.ema``."""
-        ema = self.ema
         for _ in range(n_blocks):
             with annotate("runtime.block") as span:
                 # A FRESH host buffer per block.  The copy below is a
@@ -459,25 +458,40 @@ class StreamingRuntime:
                 with annotate("runtime.upload"):
                     iq = torch.from_numpy(words).to(self.device)
                 count("runtime.upload.bytes", words.nbytes)
-                with annotate("runtime.step"):
-                    if self._combine_front is not None:
-                        # Channelise + MRC-fuse on the device; the envelope
-                        # feeds the chain at the channel rate without a host
-                        # round trip.  The phase is scaled to channel samples
-                        # BEFORE the step takes its frame starts and residuals
-                        # from it.
-                        env, w, pol, mass = self._combine_front(iq)
-                        self.combine_weights = (w, pol, mass)
-                        ema, frames, sync, score = self._step(
-                            env, ema, self.alpha, phase * self._phase_scale)
-                    else:
-                        ema, frames, sync, score = self._step(iq, ema, self.alpha, phase)
+                ema, frames, sync, score = self.step_words(iq, phase)
                 self.abs_pos += self.source.block_size
                 self.frames_out += frames.shape[0]
                 if sink is not None:
                     self._sink(sink, ema, frames, sync, score, emit_every_frame)
-        self.ema = ema
-        return ema.cpu().numpy()
+        return self.ema.cpu().numpy()
+
+    def step_words(self, iq: torch.Tensor, phase: float):
+        """One block through the runtime's device path, as ``process_blocks``
+        runs it: ``iq`` is the block's interleaved float32 I/Q words on the
+        runtime's device (its first ``_upload_samples`` complex samples),
+        ``phase`` the offset of the next absolute frame boundary in it, in
+        source samples.  With combining on, the combine front fuses the
+        block's channels (their weights, polarities and comb masses on
+        ``self.combine_weights``) and the step runs on the fused envelope at
+        the channel rate; without it, the step runs on the words.  Threads
+        ``self.ema``; returns ``(ema, frames, sync, score)``, tensors on the
+        device."""
+        with annotate("runtime.step"):
+            if self._combine_front is not None:
+                # Channelise + MRC-fuse on the device; the envelope feeds the
+                # chain at the channel rate without a host round trip.  The
+                # phase is scaled to channel samples BEFORE the step takes its
+                # frame starts and residuals from it.
+                with annotate("runtime.combine"):
+                    count("runtime.combine.bytes",
+                          2 * self._combine_geometry[0] * iq.element_size())
+                    env, w, pol, mass = self._combine_front(iq)
+                self.combine_weights = (w, pol, mass)
+                out = self._step(env, self.ema, self.alpha, phase * self._phase_scale)
+            else:
+                out = self._step(iq, self.ema, self.alpha, phase)
+        self.ema = out[0]
+        return out
 
     def _sink(self, sink: FrameSink, ema, frames, sync, score, emit_every_frame: bool) -> None:
         """A block's outputs to the host and the sink: the EMA image, or

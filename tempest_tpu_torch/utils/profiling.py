@@ -3,9 +3,9 @@
 The reference's observability is ad-hoc: wall-clock ``Rate`` meters printed
 at exit (``AtomicAbstractSDRs.jl:199-268,333-341``) and FPS ``@info`` lines
 (``GUI.jl:201-203``).  Here the port records its own spans and counters at
-its layer boundaries (the ring's take and put, the runtime's block, the
-step's cuts, upload and launches and its plan's builds and reuses,
-``auto_reconstruct``'s and
+its layer boundaries (the ring's take and put, the runtime's block and its
+combine front, the step's cuts, upload and launches and its plan's builds
+and reuses, ``auto_reconstruct``'s and
 ``combined_reconstruct``'s stages, the band scan's and the fusion's parts,
 the mesh's placement and shards, the kernels' launches), and device-side profiling
 delegates to ``torch.profiler``: a Chrome trace per traced block, viewable
